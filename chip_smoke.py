@@ -5,22 +5,34 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 
 0. the card (``nvidia-smi`` name and power limit) and the torch / CUDA
    versions;
-1. build every hand-written kernel from ``src/repro_torch/kernels/csrc``;
+1. build every hand-written kernel from ``src/repro_torch/kernels/csrc``
+   (one ``nvcc`` per source, all started together);
 2. every kernel against its plain PyTorch version on the card, bit for bit,
-   on the seeded scenario set of the CPU tests;
-3. the main path: ``DistributedTrainer(device="cuda")`` on the products
+   on the seeded scenario sets of the CPU tests: ``fused_frontier_step``
+   (with and without a feature-store table), ``fused_step``,
+   ``gather_rows_batch`` and ``gather_rows``;
+3. the raw main path: ``DistributedTrainer(device="cuda")`` on the products
    preset at ``scale=10`` (240k nodes), 4 trainers, batch 2000, fanouts
    (10, 25), 25% buffers, rudder variant, 3 epochs of GraphSAGE training;
-   the kernel counts are zeroed just before the run and read just after;
-   then the kernel against its plain version on the captured inputs of the
-   run's own launches (full shape), and both timed;
-4. the same configuration at ``scale=1``, batch 256, on the card and on the
-   CPU: every integer and bool stream identical, losses allclose;
-5. a ``kernels`` JSON line, and as the last line the device JSON line.
+   then ``fused_frontier_step`` against its plain version on the captured
+   inputs of the run's own launches (full shape), and both timed;
+3b. the ragged path: the papers preset at ``scale=10`` (550k nodes, 1%
+   train nodes, so every PE's seed block is shorter than the batch of
+   2000), the same trainer with a ``FeatureStore(use_kernel=True)`` on the
+   card, 8 epochs of one step each; ``fused_step`` and ``gather_rows_batch``
+   against their plain versions on the run's captured launches, all timed;
+4. card vs CPU: the raw path at ``scale=1`` (batch 256), the same with the
+   feature store (the in-launch payload scatter), and a ragged store run
+   (products ``scale=0.15``, batch 72): every integer and bool stream, the
+   store streams, the buffer state and payload identical, losses allclose;
+5. the 8 committed golden traces re-recorded on the card, modeled and with
+   the feature store: each ``exact_digest`` equals the golden's;
+6. a ``kernels`` JSON line, and as the last line the device JSON line.
 
-Every phase raises on failure, so any failure exits non-zero. Without a
-CUDA card, or outside a checkout of the repository, the script exits
-non-zero before printing any result.
+Each path's launch counts are zeroed just before it runs and read just
+after. Every phase raises on failure, so any failure exits non-zero.
+Without a CUDA card, or outside a checkout of the repository, the script
+exits non-zero before printing any result.
 """
 
 from __future__ import annotations
@@ -36,12 +48,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the float32 rate
-#: outside the tensor cores, used as the roof for the kernel's integer and
+#: outside the tensor cores, used as the roof for the kernels' integer and
 #: compare work too.
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 
-#: The main path's configuration (phase 3) and the card-vs-CPU one (phase 4).
+#: The raw main path (phase 3), the ragged path (3b) and the card-vs-CPU
+#: runs (phase 4).
 RUN = dict(
     variant="rudder",
     deciders=["gemma3-4b"],
@@ -53,11 +66,13 @@ RUN = dict(
     train_model=True,
     epochs=3,
 )
+RAGGED = dict(RUN, epochs=8)
 SMALL = dict(RUN, batch_size=256, epochs=2)
-MAIN_SCALE, SMALL_SCALE = 10, 1
+SMALL_RAGGED = dict(RUN, batch_size=72, epochs=2)
+MAIN_SCALE, RAGGED_SCALE, SMALL_SCALE, SMALL_RAGGED_SCALE = 10, 10, 1, 0.15
 DEVICE = "cuda"
 
-#: Loss tolerance of the card-vs-CPU run: the same float32 math, summed in
+#: Loss tolerance of the card-vs-CPU runs: the same float32 math, summed in
 #: another order by the card's matmul and reduction kernels, over a few SGD
 #: steps.
 LOSS_RTOL, LOSS_ATOL = 1e-4, 1e-5
@@ -66,13 +81,18 @@ STREAMS = (
     "pct_hits", "comm_volume", "comm_missed", "unique_remote", "replaced",
     "decisions", "occupancy", "step_time",
 )
+STORE_STREAMS = ("bytes_measured", "bytes_modeled", "feat_sums")
 STATS = (
     "lookups", "hits", "misses", "replaced_total", "replacement_rounds",
     "skipped_rounds",
 )
-OUT_NAMES = (
-    "ids2", "scores2", "valid2", "accessed3", "weights2", "cand_next",
-    "packed", "counters",
+FRONTIER_OUT = (
+    "ids2", "scores2", "valid2", "accessed3", "weights2", "payload2",
+    "cand_next", "packed", "counters",
+)
+STEP_OUT = (
+    "ids2", "scores2", "valid2", "accessed3", "weights2", "hit", "hit_slot",
+    "placed", "slot_pos", "n_placed", "n_valid",
 )
 
 
@@ -85,13 +105,15 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def compare_outputs(got, want, what: str) -> float:
+def compare_outputs(got, want, names, what: str) -> float:
     """Raise unless two output tuples are bit-identical (floats compared as
     their int32 bit patterns); returns the max abs difference (0.0)."""
     import torch
 
+    if not isinstance(got, (tuple, list)):
+        got, want = (got,), (want,)
     err = 0.0
-    for name, a, b in zip(OUT_NAMES, got, want):
+    for name, a, b in zip(names, got, want):
         if a is None or b is None:
             if (a is None) != (b is None):
                 raise AssertionError(f"{what}: {name} is None on one side only")
@@ -111,29 +133,33 @@ def compare_outputs(got, want, what: str) -> float:
     return err
 
 
-def to_device(arrays: dict, device):
+def to_device(arrays, device):
     import numpy as np
     import torch
 
     return [
         None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(device)
-        for a in arrays.values()
+        for a in arrays
     ]
 
 
 class StageClock:
     """A telemetry session for the port's off-path hooks: host time per span,
-    the dispatcher's device time by CUDA events, and the inputs of every
-    launch of the frontier step (kept on the card for phase 3's check)."""
+    the dispatchers' device time by CUDA events, and the inputs of every
+    launch of the ``capture`` dispatchers (kept on the card for the
+    full-shape checks; tensors above 32M elements — the store's tables,
+    which no launch writes — are kept by reference)."""
 
     profile_kernels = True
 
-    def __init__(self):
+    def __init__(self, capture):
         self.tracer = self
         self.registry = self
+        self.capture = set(capture)
         self.host_s = defaultdict(list)  # span name -> seconds of each call
-        self.events = []
-        self.launches = []
+        self.starts = defaultdict(list)  # span name -> start of each call
+        self.events = defaultdict(list)  # dispatcher -> [(start, end)]
+        self.launches = defaultdict(list)  # dispatcher -> [(args, kwargs)]
 
     # tracer
     def span(self, name, pe=-1, plane="", nbytes=0):
@@ -152,9 +178,14 @@ class StageClock:
     def profile_call(self, name, fn, *args, **kwargs):
         import torch
 
-        self.launches.append(
+        if name not in self.capture:
+            return fn(*args, **kwargs)
+        self.launches[name].append(
             (
-                [a.clone() if a is not None else None for a in args],
+                [
+                    a.clone() if a is not None and a.numel() <= 2**25 else a
+                    for a in args
+                ],
                 dict(kwargs),
             )
         )
@@ -163,14 +194,29 @@ class StageClock:
         start.record()
         out = fn(*args, **kwargs)
         end.record()
-        self.events.append((start, end))
+        self.events[name].append((start, end))
         return out
 
-    def device_ms(self, events) -> list[float]:
+    def device_ms(self, name, drop_last=False) -> list[float]:
         import torch
 
         torch.cuda.synchronize()
+        events = self.events[name][:-1] if drop_last else self.events[name]
         return [s.elapsed_time(e) for s, e in events]
+
+    def ms(self, span, drop_last=False) -> list[float]:
+        vals = self.host_s[span][:-1] if drop_last else self.host_s[span]
+        return [1e3 * s for s in vals]
+
+    def per_step(self, span) -> list[float]:
+        """ms of ``span`` summed within each ``step`` span: for a span that
+        runs more than once in a step (``device.readback`` is both the
+        launch's readback and the payload's ``pull_rows``)."""
+        calls = list(zip(self.starts[span], self.host_s[span]))
+        return [
+            1e3 * sum(d for s, d in calls if t0 <= s < t0 + dur)
+            for t0, dur in zip(self.starts["step"], self.host_s["step"])
+        ]
 
 
 class _Span:
@@ -182,6 +228,7 @@ class _Span:
         return self
 
     def __exit__(self, *exc):
+        self.clock.starts[self.name].append(self.t0)
         self.clock.host_s[self.name].append(time.perf_counter() - self.t0)
         return False
 
@@ -204,6 +251,20 @@ def timed_ms(fn, reps: int, flush) -> float:
     return total / reps
 
 
+def time_pair(kernel, plain, flush, reps=20, library=None):
+    """Kernel and plain (and library) in turns — plain, kernel, kernel,
+    plain — within one call; returns ``(kernel_ms, plain_ms, library_ms,
+    raw)``."""
+    for fn in (kernel, plain) + ((library,) if library else ()):
+        fn()
+    p1 = timed_ms(plain, reps, flush)
+    k1 = timed_ms(kernel, reps, flush)
+    k2 = timed_ms(kernel, reps, flush)
+    p2 = timed_ms(plain, reps, flush)
+    lib = timed_ms(library, reps, flush) if library else None
+    return (k1 + k2) / 2, (p1 + p2) / 2, lib, (k1, k2, p1, p2)
+
+
 def device_us(event) -> float:
     """Device time of a profiler row (the attribute's name varies across
     torch versions)."""
@@ -214,21 +275,95 @@ def device_us(event) -> float:
     return 0.0
 
 
-def step_bytes(args, outs) -> int:
-    """Bytes the frontier step must move: each input read once, each output
-    written once."""
-    return sum(t.numel() * t.element_size() for t in (*args, *outs) if t is not None)
+def tensor_bytes(*groups) -> int:
+    """Bytes of every tensor in ``groups``: each input read once, each
+    output written once."""
+    return sum(
+        t.numel() * t.element_size()
+        for g in groups
+        for t in g
+        if t is not None and hasattr(t, "numel")
+    )
 
 
-def step_ops(args) -> int:
-    """Operations the frontier step does on these inputs: the row sort
-    (Mt log2 Mt compares per PE) and some ten integer operations per
-    frontier position and per slot and candidate (masks, ranks, probe)."""
+def bound(nbytes: int, nops: int) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / SCALAR_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def frontier_ops(args) -> int:
+    """Operations of the frontier step on these inputs: the row sort (Mt
+    log2 Mt compares per PE) and some ten integer operations per frontier
+    position and per slot and candidate (masks, ranks, probe)."""
     ids, touched_aug, cand = args[0], args[6], args[8]
     P, C = ids.shape
     Mt = touched_aug.shape[1] - 1
     K = cand.shape[1]
     return int(P * (Mt * (math.log2(max(Mt, 2)) + 10) + 10 * (C + K)))
+
+
+def step_ops(args) -> int:
+    """Operations of the fused step: some ten integer operations per slot,
+    candidate and query (masks, ranks, placement, probe)."""
+    ids, queries, cand = args[0], args[6], args[7]
+    P, C = ids.shape
+    return int(P * 10 * (C + queries.shape[1] + cand.shape[1]))
+
+
+def profile_rows(fn, reps=3) -> str:
+    import torch
+
+    with torch.profiler.profile(
+        activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA,
+        ]
+    ) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = sorted(prof.key_averages(), key=device_us, reverse=True)
+    dev_rows = [
+        f"{e.key[:60]}={device_us(e) / reps / 1e3:.4f}ms"
+        for e in rows[:8]
+        if device_us(e) > 0
+    ]
+    return "; ".join(dev_rows) if dev_rows else "not measured"
+
+
+def print_stages(tag, stage_ms, steps, wall):
+    import numpy as np
+
+    # The mean carries the first step's one-off costs (library and
+    # allocator warm-up); the median is the steady step.
+    for stat, fn in (("mean", np.mean), ("median", np.median)):
+        print(f"{tag}: ms per step by stage, {stat} over the run: " + json.dumps(
+            {k: round(float(fn(v)), 3) for k, v in stage_ms.items() if len(v)}))
+    print(f"{tag}: wall {1e3 * wall / steps:.3f} ms per step; first step "
+          + json.dumps({k: round(v[0], 3) for k, v in stage_ms.items() if len(v)}))
+
+
+def compare_runs(what, a_tr, a_run, b_tr, b_run, store: bool):
+    """Card run ``a`` against CPU run ``b``: every stream, stat and the
+    buffer state (and store streams and payload) identical, losses allclose."""
+    import numpy as np
+
+    streams = STREAMS + (STORE_STREAMS if store else ())
+    for p, (a, b) in enumerate(zip(a_run.logs, b_run.logs)):
+        for f in streams:
+            if getattr(a, f) != getattr(b, f):
+                raise AssertionError(f"{what}: PE {p} stream {f} differs")
+    for f in STATS:
+        if not np.array_equal(getattr(a_tr.engine.stats, f), getattr(b_tr.engine.stats, f)):
+            raise AssertionError(f"{what}: engine.stats.{f} differs")
+    for f in ("ids", "scores", "valid", "accessed", "weights") + (("payload",) if store else ()):
+        if not np.array_equal(getattr(a_tr.engine, f), getattr(b_tr.engine, f)):
+            raise AssertionError(f"{what}: engine.{f} differs")
+    np.testing.assert_allclose(a_run.losses, b_run.losses, rtol=LOSS_RTOL, atol=LOSS_ATOL)
+    if store and a_run.total_bytes_measured != a_run.total_bytes_modeled:
+        raise AssertionError(f"{what}: measured bytes != modeled bytes")
+    return float(np.max(np.abs(np.subtract(a_run.losses, b_run.losses))))
 
 
 # --------------------------------------------------------------------------- #
@@ -248,13 +383,20 @@ def main() -> int:
     from repro_torch import telemetry
     from repro_torch.gnn import DistributedTrainer
     from repro_torch.graph import generate, partition_graph
+    from repro_torch.kernels import fused_step as fs
+    from repro_torch.kernels import gather_rows as gr
     from repro_torch.kernels import native, ref, scenarios
-    from repro_torch.kernels.fused_step import fused_frontier_step_cuda
+    from repro_torch.runtime import driver
+    from repro_torch.store import FeatureStore
+    from repro_torch.trace import load_trace
+    from repro_torch.trace.cli import record_trace
 
     dev = torch.device(DEVICE)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    max_err = defaultdict(float)
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
 
     # -- 0. the card ------------------------------------------------------ #
     print(card_line())
@@ -272,20 +414,66 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  ptxas {name}: {line.strip()}")
 
-    # -- 2. kernel vs plain on the scenario set --------------------------- #
-    max_err = 0.0
+    # -- 2. kernel vs plain on the scenario sets -------------------------- #
+    native.reset_launches()
     cases = scenarios.frontier_scenarios()
     for sc in cases:
-        args = to_device(sc.arrays(), dev)
+        args = to_device(sc.arrays().values(), dev)
         kw = dict(cand_cap=sc.cand_cap, **sc.constants)
-        got = fused_frontier_step_cuda(*args, **kw)
-        want = ref.fused_frontier_step(*args, **kw)
+        views = [(None, None, None)]
+        if sc.name in ("rudder-u", "degree-w", "drained-Mt1"):
+            P, C = sc.ids.shape
+            N = sc.part_of.shape[0]
+            rng = np.random.default_rng(7)
+            views.append(tuple(to_device((
+                rng.standard_normal((P * C, 5)).astype(np.float32),
+                rng.standard_normal((N + 3, 5)).astype(np.float32),
+                rng.permutation(N + 3)[:N].astype(np.int32),
+            ), dev)))
+        for view in views:
+            got = fs.fused_frontier_step_cuda(*args, *view, **kw)
+            want = ref.fused_frontier_step(*args, *view, **kw)
+            torch.cuda.synchronize()
+            max_err["fused_frontier_step"] = max(
+                max_err["fused_frontier_step"],
+                compare_outputs(got, want, FRONTIER_OUT, f"frontier {sc.name}"),
+            )
+    steps_cases = scenarios.fused_step_scenarios()
+    for sc in steps_cases:
+        args = to_device(sc.arrays().values(), dev)
+        got = fs.fused_step_cuda(*args, num_ids=sc.num_ids, **sc.constants)
+        want = ref.fused_step(*args, **sc.constants)
         torch.cuda.synchronize()
-        max_err = max(max_err, compare_outputs(got, want, f"scenario {sc.name}"))
-    print(f"phase 2: kernel == plain, bit-exact, on {len(cases)} scenarios "
-          f"({', '.join(sc.name for sc in cases)})")
+        max_err["fused_step"] = max(
+            max_err["fused_step"],
+            compare_outputs(got, want, STEP_OUT, f"fused_step {sc.name}"),
+        )
+    gathers = scenarios.gather_scenarios()
+    for sc in gathers:
+        tables, idx = to_device((sc.tables, sc.idx), dev)
+        got = gr.gather_rows_batch_cuda(tables, idx)
+        single = gr.gather_rows_cuda(tables[0].contiguous(), idx[0].contiguous())
+        torch.cuda.synchronize()
+        max_err["gather_rows_batch"] = max(
+            max_err["gather_rows_batch"],
+            compare_outputs(got, ref.gather_rows_batch(tables, idx), ["out"],
+                            f"gather_rows_batch {sc.name}"),
+        )
+        max_err["gather_rows"] = max(
+            max_err["gather_rows"],
+            compare_outputs(single, ref.gather_rows(tables[0], idx[0]), ["out"],
+                            f"gather_rows {sc.name}"),
+        )
+    phase2 = dict(native.LAUNCHES)
+    print(
+        f"phase 2: kernel == plain, bit-exact: fused_frontier_step on "
+        f"{len(cases)} scenarios (3 also with a store table), fused_step on "
+        f"{len(steps_cases)} ({', '.join(s.name for s in steps_cases)}), "
+        f"gather_rows_batch and gather_rows on {len(gathers)} "
+        f"({', '.join(s.name for s in gathers)}); launches {phase2}"
+    )
 
-    # -- 3. the main path on the card ------------------------------------- #
+    # -- 3. the raw main path on the card --------------------------------- #
     t0 = time.perf_counter()
     g = generate("products", seed=0, scale=MAIN_SCALE)
     parts = partition_graph(g, 4)
@@ -297,7 +485,7 @@ def main() -> int:
         f"{trainer.engine.capacity.tolist()}, {steps} steps; set-up "
         f"{time.perf_counter() - t0:.1f} s"
     )
-    clock = StageClock()
+    clock = StageClock(["fused_frontier_step_batch"])
     native.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -305,10 +493,10 @@ def main() -> int:
         result = trainer.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(native.LAUNCHES)
+    launches_raw = dict(native.LAUNCHES)
 
-    if launches["fused_frontier_step"] != steps + 1:
-        raise AssertionError(f"launches {launches} != steps + 1 = {steps + 1}")
+    if launches_raw["fused_frontier_step"] != steps + 1:
+        raise AssertionError(f"launches {launches_raw} != steps + 1 = {steps + 1}")
     transfers = trainer.last_device_engine.transfers
     if transfers["h2d"] != steps + 1 or transfers["d2h"] != steps + 1:
         raise AssertionError(f"transfers {transfers} != one each per launch")
@@ -320,131 +508,294 @@ def main() -> int:
     hits = int(trainer.engine.stats.hits.sum())
     if hits <= 0:
         raise AssertionError("the buffers never hit: the prefetch path did nothing")
-    Mt = clock.launches[1][0][6].shape[1] - 1
+    captured = clock.launches["fused_frontier_step_batch"]
+    Mt = captured[1][0][6].shape[1] - 1
     print(
-        f"phase 3: {steps} steps, {launches['fused_frontier_step']} launches "
-        f"(steps + 1), transfers {transfers}, Mt = {Mt} per PE, "
+        f"phase 3: {steps} steps, launches {launches_raw} (fused_frontier_step = "
+        f"steps + 1), transfers {transfers}, Mt = {Mt} per PE, "
         f"losses {losses[0]:.4f} -> {losses[-1]:.4f} (finite), buffer hits {hits}, "
         f"accuracy {result.accuracy:.4f}, wall {wall:.2f} s"
     )
-    stage_ms = {
-        "step": [1e3 * s for s in clock.host_s["step"]],
-        "sample_host": [1e3 * s for s in clock.host_s["sample"]],
-        "decide_host": [1e3 * s for s in clock.host_s["decision"]],
+    print_stages("phase 3", {
+        "step": clock.ms("step"),
+        "sample_host": clock.ms("sample"),
+        "decide_host": clock.ms("decision"),
         # The last launch is the drained one (Mt = 1): leave it out.
-        "launch_device_cuda_events": clock.device_ms(clock.events[:-1]),
-        "launch_host": [1e3 * s for s in clock.host_s["device.launch"][:-1]],
-        "readback": [1e3 * s for s in clock.host_s["device.readback"][:-1]],
-        "train": [1e3 * s for s in clock.host_s["train"]],
-    }
-    # The mean carries the first step's one-off costs (library and
-    # allocator warm-up); the median is the steady step.
-    for stat, fn in (("mean", np.mean), ("median", np.median)):
-        print(f"phase 3: ms per step by stage, {stat} over the run: " + json.dumps(
-            {k: round(float(fn(v)), 3) for k, v in stage_ms.items()}))
-    print(f"phase 3: wall {1e3 * wall / steps:.3f} ms per step; first step "
-          + json.dumps({k: round(v[0], 3) for k, v in stage_ms.items()}))
+        "launch_device_cuda_events": clock.device_ms("fused_frontier_step_batch", True),
+        "launch_host": clock.ms("device.launch", True),
+        "readback": clock.ms("device.readback", True),
+        "train": clock.ms("train"),
+    }, steps, wall)
 
-    # Kernel vs plain on the run's own launches, at full shape.
-    for i, (args, kw) in enumerate(clock.launches):
-        got = fused_frontier_step_cuda(*args, **kw)
+    for i, (args, kw) in enumerate(captured):
+        got = fs.fused_frontier_step_cuda(*args, **kw)
         want = ref.fused_frontier_step(*args, **kw)
         torch.cuda.synchronize()
-        max_err = max(max_err, compare_outputs(got, want, f"launch {i}"))
-    print(f"phase 3: kernel == plain, bit-exact, on all {len(clock.launches)} "
+        max_err["fused_frontier_step"] = max(
+            max_err["fused_frontier_step"],
+            compare_outputs(got, want, FRONTIER_OUT, f"launch {i}"),
+        )
+    print(f"phase 3: kernel == plain, bit-exact, on all {len(captured)} "
           f"launches of the run (Mt = {Mt})")
 
-    # Time one steady launch: plain, kernel, kernel, plain.
-    args, kw = clock.launches[len(clock.launches) // 2]
-    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
-    run_kernel = lambda: fused_frontier_step_cuda(*args, **kw)  # noqa: E731
-    run_plain = lambda: ref.fused_frontier_step(*args, **kw)  # noqa: E731
-    for fn in (run_kernel, run_plain):
-        fn()
-    reps = 20
-    p1 = timed_ms(run_plain, reps, flush)
-    k1 = timed_ms(run_kernel, reps, flush)
-    k2 = timed_ms(run_kernel, reps, flush)
-    p2 = timed_ms(run_plain, reps, flush)
-    kernel_ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    outs = run_kernel()
-    nbytes = step_bytes(args, outs)
-    nops = step_ops(args)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, nops / SCALAR_OPS_PER_S * 1e3
-    bound_ms = max(t_bytes, t_ops)
+    args, kw = captured[len(captured) // 2]
+    k_ms, p_ms, _, raw = time_pair(
+        lambda: fs.fused_frontier_step_cuda(*args, **kw),
+        lambda: ref.fused_frontier_step(*args, **kw),
+        flush,
+    )
+    outs = fs.fused_frontier_step_cuda(*args, **kw)
+    nbytes = tensor_bytes(args, outs)
+    nops = frontier_ops(args)
+    b_ms, b_by = bound(nbytes, nops)
+    timings = {"fused_frontier_step": (k_ms, p_ms, None, b_ms, b_by)}
     print(
         f"phase 3: fused_frontier_step at P={args[0].shape[0]}, Mt={Mt}, "
-        f"C={args[0].shape[1]}, K={args[8].shape[1]}: kernel {k1:.4f}/{k2:.4f} ms, "
-        f"plain {p1:.4f}/{p2:.4f} ms; {nbytes} bytes -> {t_bytes:.4f} ms, "
-        f"{nops} ops -> {t_ops:.4f} ms; bound {bound_ms:.4f} ms"
+        f"C={args[0].shape[1]}, K={args[8].shape[1]}: kernel {raw[0]:.4f}/{raw[1]:.4f} ms, "
+        f"plain {raw[2]:.4f}/{raw[3]:.4f} ms; {nbytes} bytes, {nops} ops; "
+        f"bound {b_ms:.4f} ms ({b_by})"
     )
-    with torch.profiler.profile(
-        activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA,
-        ]
-    ) as prof:
-        for _ in range(3):
-            run_kernel()
-        torch.cuda.synchronize()
-    rows = sorted(
-        prof.key_averages(),
-        key=device_us,
-        reverse=True,
-    )
-    dev_rows = [
-        f"{e.key[:60]}={device_us(e) / 3 / 1e3:.4f}ms"
-        for e in rows[:8]
-        if device_us(e) > 0
-    ]
     print("phase 3: device time per launch by kernel (torch.profiler): "
-          + ("; ".join(dev_rows) if dev_rows else "not measured"))
+          + profile_rows(lambda: fs.fused_frontier_step_cuda(*args, **kw)))
+    del trainer, result, clock, captured, g, parts
+
+    # -- 3b. the ragged path, with the feature store ----------------------- #
+    t0 = time.perf_counter()
+    g = generate("papers", seed=0, scale=RAGGED_SCALE)
+    parts = partition_graph(g, 4)
+    store = FeatureStore.for_partitions(parts, device=DEVICE, use_kernel=True)
+    trainer = DistributedTrainer(parts, device=DEVICE, feature_store=store, **RAGGED)
+    steps = trainer.epochs * trainer.mb_per_epoch
+    train_sizes = [len(t) for t in trainer.local_train]
+    print(
+        f"phase 3b: papers scale={RAGGED_SCALE} ({g.num_nodes} nodes, {g.num_edges} "
+        f"edges, {g.features.shape[1]}-dim features, store table {store.nbytes} B "
+        f"on the card), P=4, local train sets {train_sizes} < batch "
+        f"{RAGGED['batch_size']}, capacity {trainer.engine.capacity.tolist()}, "
+        f"{steps} steps; set-up {time.perf_counter() - t0:.1f} s"
+    )
+    if steps != RAGGED["epochs"] or min(train_sizes) >= RAGGED["batch_size"]:
+        raise AssertionError("phase 3b: expected ragged blocks and one step per epoch")
+    clock = StageClock(["fused_step_batch", "gather_rows_batch"])
+    native.reset_launches()
+    store.kernel_gathers = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with telemetry.active(clock):
+        result = trainer.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_ragged = dict(native.LAUNCHES)
+    if launches_ragged["fused_step"] != steps + 1:
+        raise AssertionError(f"launches {launches_ragged} != steps + 1 = {steps + 1}")
+    if launches_ragged["fused_frontier_step"] != 0:
+        raise AssertionError("the ragged run took the raw path")
+    if not 0 < launches_ragged["gather_rows_batch"] == store.kernel_gathers:
+        raise AssertionError(
+            f"gather_rows_batch launches {launches_ragged['gather_rows_batch']} != "
+            f"store kernel gathers {store.kernel_gathers}"
+        )
+    losses = np.asarray(result.losses)
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise AssertionError(f"losses {losses}")
+    hits = int(trainer.engine.stats.hits.sum())
+    if hits <= 0:
+        raise AssertionError("phase 3b: the buffers never hit")
+    if result.total_bytes_measured != result.total_bytes_modeled:
+        raise AssertionError("phase 3b: measured bytes != modeled bytes")
+    transfers = trainer.last_device_engine.transfers
+    step_caps = clock.launches["fused_step_batch"]
+    print(
+        f"phase 3b: {steps} steps, launches {launches_ragged} (fused_step = steps + 1, "
+        f"gather_rows_batch = the store's {store.kernel_gathers} kernel gathers), "
+        f"transfers {transfers}, losses "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (finite), buffer hits {hits}, "
+        f"bytes measured == modeled == {result.total_bytes_measured}, "
+        f"accuracy {result.accuracy:.4f}, wall {wall:.2f} s"
+    )
+    print_stages("phase 3b", {
+        "step": clock.ms("step"),
+        "sample_host": clock.ms("sample"),
+        "decide_host": clock.ms("decision"),
+        "launch_device_cuda_events": clock.device_ms("fused_step_batch", True),
+        "launch_host": clock.ms("device.launch", True),
+        # Launch readback (the sync that waits for the kernel) plus the
+        # payload's pull_rows readback, summed per step.
+        "readback_per_step": clock.per_step("device.readback"),
+        "store_serve": clock.ms("fetch.serve"),
+        "store_gathers_device_cuda_events": clock.device_ms("gather_rows_batch"),
+        "train": clock.ms("train"),
+    }, steps, wall)
+
+    for i, (args, kw) in enumerate(step_caps):
+        kw_plain = {k: v for k, v in kw.items() if k != "num_ids"}
+        got = fs.fused_step_cuda(*args, **kw)
+        want = ref.fused_step(*args, **kw_plain)
+        torch.cuda.synchronize()
+        max_err["fused_step"] = max(
+            max_err["fused_step"], compare_outputs(got, want, STEP_OUT, f"fused_step {i}")
+        )
+    gather_caps = clock.launches["gather_rows_batch"]
+    for i, (args, _kw) in enumerate(gather_caps):
+        got = gr.gather_rows_batch_cuda(*args)
+        torch.cuda.synchronize()
+        max_err["gather_rows_batch"] = max(
+            max_err["gather_rows_batch"],
+            compare_outputs(got, ref.gather_rows_batch(*args), ["out"], f"gather {i}"),
+        )
+    print(f"phase 3b: kernel == plain, bit-exact, on all {len(step_caps)} fused_step "
+          f"and {len(gather_caps)} gather_rows_batch launches of the run")
+
+    # The launch with the most work (the decision plane gates replacement
+    # off on some steps, and those launches carry no candidates).
+    args, kw = max(step_caps, key=lambda c: c[0][6].shape[1] + c[0][7].shape[1])
+    kw_plain = {k: v for k, v in kw.items() if k != "num_ids"}
+    k_ms, p_ms, _, raw = time_pair(
+        lambda: fs.fused_step_cuda(*args, **kw),
+        lambda: ref.fused_step(*args, **kw_plain),
+        flush,
+    )
+    outs = fs.fused_step_cuda(*args, **kw)
+    nbytes = tensor_bytes(args, outs)
+    nops = step_ops(args)
+    b_ms, b_by = bound(nbytes, nops)
+    timings["fused_step"] = (k_ms, p_ms, None, b_ms, b_by)
+    print(
+        f"phase 3b: fused_step at P={args[0].shape[0]}, C={args[0].shape[1]}, "
+        f"M={args[6].shape[1]}, K={args[7].shape[1]}, num_ids={kw['num_ids']}: "
+        f"kernel {raw[0]:.4f}/{raw[1]:.4f} ms, plain {raw[2]:.4f}/{raw[3]:.4f} ms; "
+        f"{nbytes} bytes, {nops} ops; bound {b_ms:.4f} ms ({b_by})"
+    )
+    print("phase 3b: fused_step device time per launch by kernel (torch.profiler): "
+          + profile_rows(lambda: fs.fused_step_cuda(*args, **kw)))
+
+    # The largest gather of the run (the training step's feature rows).
+    tables, idx = max(gather_caps, key=lambda c: c[0][1].numel())[0]
+    P, N, F = tables.shape
+    Mg = idx.shape[1]
+    idx_long = idx.long()[:, :, None].expand(P, Mg, F).contiguous()
+    k_ms, p_ms, l_ms, raw = time_pair(
+        lambda: gr.gather_rows_batch_cuda(tables, idx),
+        lambda: ref.gather_rows_batch(tables, idx),
+        flush,
+        library=lambda: torch.gather(tables, 1, idx_long),
+    )
+    # The rows this gather must read are its distinct (shard, row) pairs:
+    # a minibatch's feature gather repeats rows, and a repeat is an L2 hit.
+    uniq = torch.unique(
+        idx.long() + N * torch.arange(P, device=dev)[:, None]
+    ).numel()
+    nbytes = uniq * F * 4 + P * Mg * F * 4 + P * Mg * 4
+    b_ms, b_by = bound(nbytes, 0)
+    timings["gather_rows_batch"] = (k_ms, p_ms, l_ms, b_ms, b_by)
+    print(
+        f"phase 3b: gather_rows_batch at P={P}, N_max={N}, M={Mg}, F={F}: kernel "
+        f"{raw[0]:.4f}/{raw[1]:.4f} ms, plain {raw[2]:.4f}/{raw[3]:.4f} ms, "
+        f"torch.gather {l_ms:.4f} ms; {nbytes} bytes ({uniq} distinct rows read, "
+        f"{P * Mg} written); bound {b_ms:.4f} ms ({b_by})"
+    )
+    # The single-table form on shard 0 of the same launch.
+    t0_, i0 = tables[0], idx[0].contiguous()
+    i0_long = i0.long()
+    k_ms, p_ms, l_ms, raw = time_pair(
+        lambda: gr.gather_rows_cuda(t0_, i0),
+        lambda: ref.gather_rows(t0_, i0),
+        flush,
+        library=lambda: t0_.index_select(0, i0_long),
+    )
+    uniq0 = torch.unique(i0).numel()
+    nbytes = uniq0 * F * 4 + Mg * F * 4 + Mg * 4
+    b_ms, b_by = bound(nbytes, 0)
+    timings["gather_rows"] = (k_ms, p_ms, l_ms, b_ms, b_by)
+    print(
+        f"phase 3b: gather_rows at N={N}, M={Mg}, F={F} (shard 0 of that launch): "
+        f"kernel {raw[0]:.4f}/{raw[1]:.4f} ms, plain {raw[2]:.4f}/{raw[3]:.4f} ms, "
+        f"index_select {l_ms:.4f} ms; {nbytes} bytes ({uniq0} distinct rows read); "
+        f"bound {b_ms:.4f} ms ({b_by})"
+    )
+    del trainer, result, clock, step_caps, gather_caps, store, g, parts, tables, idx
 
     # -- 4. card vs CPU, end to end --------------------------------------- #
     g1 = generate("products", seed=0, scale=SMALL_SCALE)
     p1g = partition_graph(g1, 4)
-    runs = {}
-    for where in ("card", "cpu"):
-        tr = DistributedTrainer(
-            p1g, device=DEVICE if where == "card" else "cpu", **SMALL
+    g2 = generate("products", seed=0, scale=SMALL_RAGGED_SCALE)
+    p2g = partition_graph(g2, 4)
+    for what, parts_, cfg, with_store in (
+        ("raw", p1g, SMALL, False),
+        ("raw + store", p1g, SMALL, True),
+        ("ragged + store", p2g, SMALL_RAGGED, True),
+    ):
+        raw_path = what.startswith("raw")
+        runs = {}
+        for where in ("card", "cpu"):
+            d = DEVICE if where == "card" else "cpu"
+            extra = {}
+            if with_store:
+                extra["feature_store"] = FeatureStore.for_partitions(
+                    parts_, device=d, use_kernel=True
+                )
+            tr = DistributedTrainer(parts_, device=d, **cfg, **extra)
+            runs[where] = (tr, tr.run())
+        (tc, rc), (th, rh) = runs["card"], runs["cpu"]
+        if driver._device_raw_supported(tc) != raw_path:
+            raise AssertionError(f"phase 4 ({what}) took the other loop")
+        diff = compare_runs(f"card vs CPU ({what})", tc, rc, th, rh, with_store)
+        print(
+            f"phase 4 ({what}): batch {cfg['batch_size']}, {len(rc.losses)} steps: card == "
+            f"CPU on every stream ({', '.join(STREAMS + (STORE_STREAMS if with_store else ()))}), "
+            f"engine.stats and buffer state{' and payload' if with_store else ''}; losses "
+            f"allclose (rtol={LOSS_RTOL}, atol={LOSS_ATOL}), max |diff| {diff:.3g}"
         )
-        runs[where] = (tr, tr.run())
-    (tc, rc), (th, rh) = runs["card"], runs["cpu"]
-    for p, (a, b) in enumerate(zip(rc.logs, rh.logs)):
-        for f in STREAMS:
-            if getattr(a, f) != getattr(b, f):
-                raise AssertionError(f"card vs CPU: PE {p} stream {f} differs")
-    for f in STATS:
-        if not np.array_equal(getattr(tc.engine.stats, f), getattr(th.engine.stats, f)):
-            raise AssertionError(f"card vs CPU: engine.stats.{f} differs")
-    for f in ("ids", "scores", "valid", "accessed", "weights"):
-        if not np.array_equal(getattr(tc.engine, f), getattr(th.engine, f)):
-            raise AssertionError(f"card vs CPU: engine.{f} differs")
-    np.testing.assert_allclose(rc.losses, rh.losses, rtol=LOSS_RTOL, atol=LOSS_ATOL)
-    n_small = len(rc.losses)
-    print(
-        f"phase 4: products scale={SMALL_SCALE}, batch {SMALL['batch_size']}, {n_small} steps: card == CPU on "
-        f"every stream ({', '.join(STREAMS)}), engine.stats and buffer state; "
-        f"losses allclose (rtol={LOSS_RTOL}, atol={LOSS_ATOL}), max |diff| "
-        f"{float(np.max(np.abs(np.subtract(rc.losses, rh.losses)))):.3g}"
-    )
 
-    # -- 5. results ------------------------------------------------------- #
-    kernels = [
-        {
-            "name": "fused_frontier_step",
+    # -- 5. the goldens on the card --------------------------------------- #
+    goldens = sorted((ROOT / "tests" / "golden").glob("*.json"))
+    if len(goldens) != 8:
+        raise AssertionError(f"expected 8 goldens, found {len(goldens)}")
+    for path in goldens:
+        golden = load_trace(str(path))
+        for with_store in (False, True):
+            fresh = record_trace(dict(golden.config, feature_store=with_store), device=DEVICE)
+            if fresh.exact_digest() != golden.exact_digest():
+                raise AssertionError(f"golden {path.stem} (store={with_store}) drifted")
+    print(f"phase 5: all {len(goldens)} goldens re-recorded on the card, modeled and "
+          f"with the feature store: exact_digest matched ({', '.join(p.stem for p in goldens)})")
+
+    # -- 6. results ------------------------------------------------------- #
+    replaces = {
+        "fused_frontier_step": "src/repro/kernels/fused_step.py:698",
+        "fused_step": "src/repro/kernels/fused_step.py:302",
+        "gather_rows_batch": "src/repro/kernels/gather_rows.py:73",
+        "gather_rows": "src/repro/kernels/gather_rows.py:37",
+    }
+    sources = {
+        "fused_frontier_step": "src/repro_torch/kernels/csrc/fused_frontier_step.cu",
+        "fused_step": "src/repro_torch/kernels/csrc/fused_step.cu",
+        "gather_rows_batch": "src/repro_torch/kernels/csrc/gather_rows.cu",
+        "gather_rows": "src/repro_torch/kernels/csrc/gather_rows.cu",
+    }
+    launches = {
+        "fused_frontier_step": (launches_raw["fused_frontier_step"], "phase 3 (raw path)"),
+        "fused_step": (launches_ragged["fused_step"], "phase 3b (ragged path)"),
+        "gather_rows_batch": (launches_ragged["gather_rows_batch"], "phase 3b (ragged path)"),
+        "gather_rows": (phase2["gather_rows"], "phase 2 only: no trainer path calls it"),
+    }
+    kernels = []
+    for name in native.KERNELS:
+        k_ms, p_ms, l_ms, b_ms, b_by = timings[name]
+        kernels.append({
+            "name": name,
             "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/fused_frontier_step.cu",
-            "replaces": "src/repro/kernels/fused_step.py:698",
-            "launches": launches["fused_frontier_step"],
-            "max_abs_err": max_err,
-            "ms": kernel_ms,
-            "plain_ms": plain_ms,
-            "bound_ms": bound_ms,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,
-        }
-    ]
+            "source": sources[name],
+            "replaces": replaces[name],
+            "launches": launches[name][0],
+            "launches_from": launches[name][1],
+            "max_abs_err": max_err[name],
+            "ms": k_ms,
+            "plain_ms": p_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "library_ms": l_ms,
+        })
     print("kernels: " + ", ".join(f"{k['name']} launches={k['launches']}" for k in kernels))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -19,9 +19,10 @@ paper's §4.5.3 performance model driven by the exact byte counts (see
 :mod:`repro_torch.sim` with ``time_engine="event"``.
 
 Every run is device-resident (:func:`repro_torch.runtime.driver.
-run_device`): the buffer state, the graph features and the model live
-on ``device`` — the card by default (``device="cuda"``), or the CPU
-(``device="cpu"``), where the kernels run as their plain versions.
+run_device`): the buffer state, the graph features (or the feature
+store's tables) and the model live on ``device`` — the card by default
+(``device="cuda"``), or the CPU (``device="cpu"``), where the kernels run
+as their plain versions.
 """
 
 from __future__ import annotations
@@ -131,6 +132,14 @@ class TrainerLog:
     replaced: list[int] = field(default_factory=list)
     decisions: list[bool] = field(default_factory=list)
     step_time: list[float] = field(default_factory=list)
+    # Feature-store streams (populated only when the store is enabled):
+    # bytes the store actually moved vs the §4.5.3 accounting bytes, the
+    # measured wall-clock of the step's gathers, and the
+    # content-sensitive float64 sum of the delivered remote block.
+    bytes_measured: list[int] = field(default_factory=list)
+    bytes_modeled: list[int] = field(default_factory=list)
+    fetch_seconds: list[float] = field(default_factory=list)
+    feat_sums: list[float] = field(default_factory=list)
 
 
 @dataclass
@@ -145,6 +154,9 @@ class RunResult:
     #: Event timeline of the run (``repro_torch.sim.EventLog``) when
     #: priced by the event engine; None under the closed-form model.
     sim_events: object | None = None
+    #: Recorded run trace (``repro_torch.trace.Trace``) when the trainer
+    #: was built with ``trace=...``; None otherwise.
+    trace: object | None = None
 
     # ---- aggregates used across the benchmark suite ------------------- #
     # Aggregates over an *empty* run (zero epochs / zero logged
@@ -181,6 +193,14 @@ class RunResult:
         vals = [c for log in self.logs for c in log.comm_volume]
         return float(np.percentile(vals, 99)) if vals else float("nan")
 
+    # ---- feature-store aggregates (0 when the store was off) ---------- #
+    @property
+    def total_bytes_measured(self) -> int:
+        return int(sum(sum(log.bytes_measured) for log in self.logs))
+
+    @property
+    def total_bytes_modeled(self) -> int:
+        return int(sum(sum(log.bytes_modeled) for log in self.logs))
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -199,9 +219,15 @@ class DistributedTrainer:
     torch cannot reproduce, so parity runs pass them in. Without it the
     weights come from a ``torch.Generator`` seeded with ``seed``.
 
+    ``trace`` (``True`` or a :class:`repro_torch.trace.TraceRecorder`)
+    records the run's exact streams onto ``last_trace``;
+    ``feature_store`` (``True`` or a :class:`repro_torch.store.FeatureStore`)
+    moves real feature rows — ``True`` builds a store on the trainer's
+    device.
+
     Not ported yet, and refused with ``NotImplementedError``:
     ``runtime="legacy"``, the staged (non-device) path
-    (``device=False``), ``trace``, ``feature_store`` and ``telemetry``.
+    (``device=False``) and ``telemetry``.
     """
 
     def __init__(
@@ -245,10 +271,6 @@ class DistributedTrainer:
             raise _not_ported(
                 "the staged (non-device) path", "ROADMAP Queue A item 6"
             )
-        if trace:
-            raise _not_ported("trace recording", "ROADMAP Queue A item 4")
-        if feature_store:
-            raise _not_ported("the feature store", "ROADMAP Queue A item 4")
         if telemetry:
             raise _not_ported("the telemetry session", "ROADMAP Queue A item 4")
         self.device = resolve_device(device)
@@ -315,6 +337,22 @@ class DistributedTrainer:
         self.sim = sim
         self.last_time_engine = None
         self.last_device_engine = None
+        # Trace capture: False/None = off, True = a default recorder, or a
+        # TraceRecorder instance used as-is. The trace lands on last_trace.
+        self.trace = trace
+        self.last_trace = None
+        # Feature store: False/None = modeled bytes only; True = a store
+        # over this graph's partitioned features on the trainer's device;
+        # a FeatureStore instance is used as-is.
+        self.feature_store = None
+        if feature_store:
+            from ..store import FeatureStore
+
+            self.feature_store = (
+                feature_store
+                if isinstance(feature_store, FeatureStore)
+                else FeatureStore.for_partitions(parts, device=self.device)
+            )
         self.rng = np.random.default_rng(seed)
         self.sampler = NeighborSampler(self.graph, fanouts)
         self.sampler_plane = SamplerPlane(self.graph, fanouts)
@@ -353,9 +391,13 @@ class DistributedTrainer:
             if self.policy.use_weights
             else None
         )
+        payload_dim = (
+            self.graph.features.shape[1] if self.feature_store is not None else 0
+        )
         self.buffers = [
             PersistentBuffer(
                 capacity=max(int(len(self.halos[p]) * buffer_frac), 1),
+                feature_dim=payload_dim,
                 policy=self.policy,
                 node_weights=node_weights,
                 id_base=self.graph.id_base,
@@ -368,6 +410,7 @@ class DistributedTrainer:
             [b.capacity for b in self.buffers],
             policy=self.policy,
             node_weights=node_weights,
+            feature_dim=payload_dim,
             id_base=self.graph.id_base,
         )
 
@@ -400,8 +443,15 @@ class DistributedTrainer:
                 halo = self.halos[p]
                 top = halo[np.argsort(-deg[halo])][: self.buffers[p].capacity]
                 top = top + base
-                self.buffers[p].insert(top)
+                n = self.buffers[p].insert(top)
                 self.engine.insert(p, top)
+                if self.feature_store is not None and n:
+                    # Warm-started admissions place real rows too (top is
+                    # unique and the buffer empty, so exactly top[:n]
+                    # landed, in order, in both twins).
+                    rows = self.feature_store.gather(top[:n])
+                    self.buffers[p].fill_rows(top[:n], rows)
+                    self.engine.place_rows(p, self.engine.last_slots[p], rows)
 
         self.local_train = [parts.local_train_nodes(p) for p in range(P)]
         self.mb_per_epoch = max(
@@ -430,10 +480,12 @@ class DistributedTrainer:
                 )
             self.model = model.to(self.device)
             # Graph features and labels live on the device as one tensor
-            # each; minibatch rows are indexed there.
-            self.features = torch.from_numpy(
-                np.ascontiguousarray(self.graph.features, dtype=np.float32)
-            ).to(self.device)
+            # each; minibatch rows are indexed there (or, with a store,
+            # gathered through it).
+            if self.feature_store is None:
+                self.features = torch.from_numpy(
+                    np.ascontiguousarray(self.graph.features, dtype=np.float32)
+                ).to(self.device)
             self.labels = torch.from_numpy(
                 np.asarray(self.graph.labels, dtype=np.int64)
             ).to(self.device)
@@ -454,13 +506,22 @@ class DistributedTrainer:
 
     def _features_of(self, minibatch: MiniBatch):
         """``(x_seed, x_n1, x_n2, labels)`` of a minibatch, gathered from
-        the device-resident feature tensor (one index upload)."""
+        the device-resident feature tensor (one index upload) or, with a
+        store attached, through the store in one gather — the store's
+        rows are bit-identical to ``graph.features`` rows (it only
+        re-homes them), and stay on the device when it gathers there."""
         n1, n2 = minibatch.layer_nbrs[0], minibatch.layer_nbrs[1]
         b, f1 = n1.shape
         idx = np.concatenate(
             [minibatch.seeds, n1.ravel(), n2.ravel()]
         ).astype(np.int64)
-        rows = self.features[torch.from_numpy(idx).to(self.device)]
+        if self.feature_store is not None:
+            # Minibatch ids are local; the store is keyed by global id.
+            rows = self.feature_store.gather_tensor(
+                idx + np.int64(self.graph.id_base), self.device
+            )
+        else:
+            rows = self.features[torch.from_numpy(idx).to(self.device)]
         x_seed = rows[:b]
         x_n1 = rows[b : b + n1.size].reshape(b, f1, -1)
         x_n2 = rows[b + n1.size :].reshape(b, f1, -1, rows.shape[1])
@@ -491,6 +552,20 @@ class DistributedTrainer:
         )
         self.last_time_engine = engine
         return engine
+
+    # ------------------------------------------------------------------ #
+    def make_trace_recorder(self):
+        """Resolve the ``trace`` flag to a recorder (or None when off): a
+        pre-built :class:`repro_torch.trace.TraceRecorder` is used as-is
+        (single-use, like time engines); ``trace=True`` builds a fresh
+        default recorder from the trainer's own axes."""
+        if not self.trace:
+            return None
+        from ..trace import TraceRecorder
+
+        if isinstance(self.trace, TraceRecorder):
+            return self.trace
+        return TraceRecorder.for_trainer(self)
 
     # ------------------------------------------------------------------ #
     def run(self) -> RunResult:

@@ -1,0 +1,94 @@
+// fused_step.cu — the staged fused prefetch step for Hopper (sm_90a).
+//
+// Replaces: src/repro/kernels/fused_step.py::fused_step_pallas (the
+// pallas_call body, _make_fused_kernel + _fused_body): per trainer PE,
+// close the scoring round, run the replacement round (free slots first,
+// then stale, in candidate order, first occurrences only) and probe the
+// host-deduplicated queries against the post-replace buffer. It is the
+// step of the ragged-seed-block device loop, where the host dedups each
+// PE's frontier. Spec: repro_torch/kernels/ref.py::fused_step.
+//
+// What bounds it on this card: bytes, and below them the launch itself.
+// The launch reads the (P, C) state, the (P, M) queries and the (P, K)
+// candidates and writes the state, hit / hit_slot, placed and slot_pos; at
+// P = 4, C ~ 23k, M ~ K ~ 22k that is a few MB, one to two microseconds at
+// 3.35 TB/s, so the fixed cost of the launch and of the host around it
+// dominates.
+//
+// What the design does about it: no dense (K, C) / (K, K) / (M, C) tiles.
+// Ids are local node indices < N, so the per-PE direct-mapped maps of
+// prefetch_state.cuh answer membership, first occurrence and the probe with
+// one load each. Two kernels on the current stream:
+//   (A) prefetch_state_kernel, one block per PE (score, rank, place);
+//   (B) probe_kernel, grid (ceil(M / 256), P): hit, hit_slot (-1 on a
+//       miss) and accessed marks for hit slots (several threads may write
+//       the same 1 to a slot: a benign race).
+// Bit-exact scores: see prefetch_state.cuh (-fmad=false, _rn intrinsics).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "prefetch_state.cuh"
+
+namespace {
+
+constexpr int kProbeThreads = 256;
+
+__global__ void __launch_bounds__(kProbeThreads)
+    probe_kernel(int C, int M, int N, const uint8_t* __restrict__ active_probe,
+                 const int32_t* __restrict__ queries,
+                 const int32_t* __restrict__ slot_of,
+                 uint8_t* __restrict__ hit, int32_t* __restrict__ hit_slot,
+                 uint8_t* __restrict__ acc3) {
+  const int p = blockIdx.y;
+  const int m = blockIdx.x * blockDim.x + threadIdx.x;
+  if (m >= M) return;
+  const int64_t j = (int64_t)p * M + m;
+  const int32_t q = queries[j];
+  int32_t slot = -1;
+  if (active_probe[p] != 0 && q >= 0 && q < N) {
+    slot = slot_of[(int64_t)p * N + q];
+    if (slot >= 0) acc3[(int64_t)p * C + slot] = 1;
+  }
+  hit[j] = slot >= 0;
+  hit_slot[j] = slot;
+}
+
+}  // namespace
+
+// Launches (A) then (B) on `stream`. Pointers are device pointers of
+// contiguous tensors; `weights`, `cand_w` and `w2` may be null (the
+// unweighted policies; with weights, cand_w is required). Ids must lie in
+// [0, N) or be negative padding. Returns the cudaError_t of the first
+// failed launch, or 0.
+extern "C" int rudder_fused_step(
+    int P, int C, int M, int K, int N, const int32_t* ids, const float* scores,
+    const uint8_t* valid, const uint8_t* accessed, const uint8_t* in_cap,
+    const float* weights, const int32_t* queries, const int32_t* cand,
+    const float* cand_w, const uint8_t* active_score, const uint8_t* do_replace,
+    const uint8_t* active_probe, int32_t* ids2, float* s2, uint8_t* valid2,
+    uint8_t* acc3, float* w2, uint8_t* hit, int32_t* hit_slot,
+    uint8_t* placed, int32_t* slot_pos, int32_t* slot_of, int32_t* cand_first,
+    int32_t* rank_slot, float increment, float decay, float threshold,
+    float score_cap, float initial_score, int mode, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (P <= 0) return 0;
+  const rudder::Policy pol{increment, decay, threshold, score_cap,
+                           initial_score, mode};
+  rudder::prefetch_state_kernel<rudder::SplitGates>
+      <<<P, rudder::kStateThreads, 0, s>>>(
+          C, K, N, rudder::SplitGates{active_score, do_replace, active_probe},
+          ids, scores, valid, accessed, in_cap, weights, cand, cand_w, nullptr,
+          ids2, s2, valid2, acc3, w2, placed, slot_pos, slot_of, cand_first,
+          rank_slot, pol);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (M > 0) {
+    dim3 grid((M + kProbeThreads - 1) / kProbeThreads, P);
+    probe_kernel<<<grid, kProbeThreads, 0, s>>>(C, M, N, active_probe, queries,
+                                                slot_of, hit, hit_slot, acc3);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
+}

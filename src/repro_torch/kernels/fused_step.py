@@ -1,14 +1,18 @@
-"""The single-launch prefetch step on the card: the Hopper kernel
-``csrc/fused_frontier_step.cu`` behind a PyTorch wrapper.
+"""The prefetch steps on the card: the Hopper kernels
+``csrc/fused_frontier_step.cu`` and ``csrc/fused_step.cu`` behind
+PyTorch wrappers.
 
-Port of the reference's Pallas ``fused_frontier_step_pallas``. The
-wrapper keeps the reference's split between framework ops and the
-kernel: the frontier row sort before it and the miss compaction and
-packed readback after it (:func:`repro_torch.kernels.ref.frontier_pack`)
-stay PyTorch ops, as they were XLA ops around the ``pallas_call``; the
-dedup → score → replace → probe → code core is the CUDA kernel. Its
-plain version is :func:`repro_torch.kernels.ref.fused_frontier_step`,
-which it matches bit for bit.
+Ports of the reference's Pallas ``fused_frontier_step_pallas`` (the
+single-launch raw path) and ``fused_step_pallas`` (the ragged-seed-block
+path). The wrappers keep the reference's split between framework ops and
+the kernel: the frontier row sort before it and the miss compaction,
+packed readback and payload scatter after it
+(:func:`repro_torch.kernels.ref.frontier_pack`) stay PyTorch ops, as
+they were XLA ops around the ``pallas_call``; the score → replace →
+probe core is CUDA. Their plain versions are
+:func:`repro_torch.kernels.ref.fused_frontier_step` and
+:func:`repro_torch.kernels.ref.fused_step`, which they match bit for
+bit.
 """
 
 from __future__ import annotations
@@ -19,42 +23,54 @@ import numpy as np
 import torch
 
 from . import native
+from .native import check_tensor, ptr
 from .ref import frontier_pack
 
 _MODES = {"accumulate": 0, "reset": 1, "capped": 2}
-_NAME = "fused_frontier_step"
+_INT32_MAX = int(np.iinfo(np.int32).max)
+
+_PTR = ctypes.c_void_p
+_FRONTIER_ARGS = (
+    [ctypes.c_int] * 5        # P, C, K, Mt, N
+    + [_PTR] * 11             # aug .. node_weights
+    + [_PTR] * 8              # ids2 .. slot_pos
+    + [_PTR] * 3              # slot_of, cand_first, rank_slot
+    + [ctypes.c_float] * 5    # increment .. initial_score
+    + [ctypes.c_int, _PTR]    # mode, stream
+)
+_STEP_ARGS = (
+    [ctypes.c_int] * 5        # P, C, M, K, N
+    + [_PTR] * 12             # ids .. active_probe
+    + [_PTR] * 9              # ids2 .. slot_pos
+    + [_PTR] * 3              # slot_of, cand_first, rank_slot
+    + [ctypes.c_float] * 5    # increment .. initial_score
+    + [ctypes.c_int, _PTR]    # mode, stream
+)
 
 
-def _bind() -> ctypes.CDLL:
-    lib = native.library(_NAME)
-    fn = lib.rudder_fused_frontier_step
-    if fn.argtypes is None:
-        P = ctypes.c_void_p
-        fn.argtypes = (
-            [ctypes.c_int] * 5        # P, C, K, Mt, N
-            + [P] * 11                # aug .. node_weights
-            + [P] * 8                 # ids2 .. slot_pos
-            + [P] * 3                 # slot_of, cand_first, rank_slot
-            + [ctypes.c_float] * 5    # increment .. initial_score
-            + [ctypes.c_int, P]       # mode, stream
-        )
-        fn.restype = ctypes.c_int
-    return lib
+def _check_state(ids, scores, valid, accessed, in_capacity, weights, mode):
+    P, C = ids.shape
+    if C == 0:
+        raise ValueError("the kernel needs C >= 1 buffer slots")
+    if mode not in _MODES:
+        raise ValueError(f"unknown mode {mode!r}")
+    for name, t, dt in (
+        ("ids", ids, torch.int32),
+        ("scores", scores, torch.float32),
+        ("valid", valid, torch.bool),
+        ("accessed", accessed, torch.bool),
+        ("in_capacity", in_capacity, torch.bool),
+    ):
+        check_tensor(t, name, dt, (P, C))
+    if weights is not None:
+        check_tensor(weights, "weights", torch.float32, (P, C))
 
 
-def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple):
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _ptr(t: torch.Tensor | None):
-    return None if t is None else t.data_ptr()
+def _maps(P: int, N: int, dev):
+    """The per-PE direct-mapped scratch of ``prefetch_state.cuh``."""
+    slot_of = torch.full((P, N), -1, dtype=torch.int32, device=dev)
+    cand_first = torch.full((P, N), _INT32_MAX, dtype=torch.int32, device=dev)
+    return slot_of, cand_first
 
 
 def fused_frontier_step_cuda(
@@ -68,6 +84,9 @@ def fused_frontier_step_cuda(
     part_of: torch.Tensor,
     cand: torch.Tensor,
     node_weights: torch.Tensor | None,
+    payload: torch.Tensor | None = None,
+    table: torch.Tensor | None = None,
+    loc: torch.Tensor | None = None,
     *,
     cand_cap: int,
     increment: float,
@@ -89,27 +108,21 @@ def fused_frontier_step_cuda(
     K = cand.shape[1]
     Mt = touched_aug.shape[1] - 1
     N = part_of.shape[0]
-    if C == 0 or Mt < 0:
-        raise ValueError(f"need C >= 1 slots and a gate column, got C={C}")
-    if mode not in _MODES:
-        raise ValueError(f"unknown mode {mode!r}")
+    if Mt < 0:
+        raise ValueError("touched_aug needs its gate column")
+    _check_state(ids, scores, valid, accessed, in_capacity, weights, mode)
     for name, t, dt, shape in (
-        ("ids", ids, torch.int32, (P, C)),
-        ("scores", scores, torch.float32, (P, C)),
-        ("valid", valid, torch.bool, (P, C)),
-        ("accessed", accessed, torch.bool, (P, C)),
-        ("in_capacity", in_capacity, torch.bool, (P, C)),
         ("touched_aug", touched_aug, torch.int32, (P, Mt + 1)),
         ("part_of", part_of, torch.int32, (N,)),
         ("cand", cand, torch.int32, (P, K)),
     ):
-        _check(t, name, dt, shape)
-    if weights is not None:
-        _check(weights, "weights", torch.float32, (P, C))
+        check_tensor(t, name, dt, shape)
     if node_weights is not None:
-        _check(node_weights, "node_weights", torch.float32, (N,))
+        check_tensor(node_weights, "node_weights", torch.float32, (N,))
     dev = ids.device
-    lib = _bind()
+    fn = native.bind(
+        "fused_frontier_step", "rudder_fused_frontier_step", _FRONTIER_ARGS
+    )
 
     with torch.cuda.device(dev):
         sk = torch.sort(touched_aug[:, :Mt], dim=1).values.contiguous()
@@ -121,28 +134,113 @@ def fused_frontier_step_cuda(
         code = torch.empty((P, Mt), dtype=torch.int32, device=dev)
         placed = torch.empty((P, K), dtype=torch.bool, device=dev)
         slot_pos = torch.empty((P, C), dtype=torch.int32, device=dev)
-        slot_of = torch.full((P, N), -1, dtype=torch.int32, device=dev)
-        cand_first = torch.full(
-            (P, N), int(np.iinfo(np.int32).max), dtype=torch.int32, device=dev
-        )
+        slot_of, cand_first = _maps(P, N, dev)
         rank_slot = torch.empty((P, C), dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.rudder_fused_frontier_step(
+        err = fn(
             P, C, K, Mt, N,
-            _ptr(touched_aug), _ptr(sk), _ptr(ids), _ptr(scores), _ptr(valid),
-            _ptr(accessed), _ptr(in_capacity), _ptr(weights), _ptr(part_of),
-            _ptr(cand), _ptr(node_weights),
-            _ptr(ids2), _ptr(s2), _ptr(valid2), _ptr(acc3), _ptr(w2),
-            _ptr(code), _ptr(placed), _ptr(slot_pos),
-            _ptr(slot_of), _ptr(cand_first), _ptr(rank_slot),
+            ptr(touched_aug), ptr(sk), ptr(ids), ptr(scores), ptr(valid),
+            ptr(accessed), ptr(in_capacity), ptr(weights), ptr(part_of),
+            ptr(cand), ptr(node_weights),
+            ptr(ids2), ptr(s2), ptr(valid2), ptr(acc3), ptr(w2),
+            ptr(code), ptr(placed), ptr(slot_pos),
+            ptr(slot_of), ptr(cand_first), ptr(rank_slot),
             float(increment), float(decay), float(threshold), float(score_cap),
             float(initial_score), _MODES[mode], stream,
         )
-        native.check(err, _NAME)
-        native.LAUNCHES[_NAME] += 1
+        native.check(err, "fused_frontier_step")
+        native.LAUNCHES["fused_frontier_step"] += 1
         n_place = placed.sum(dim=1, dtype=torch.int32)
         n_valid = valid2.sum(dim=1, dtype=torch.int32)
-        cand_next, packed, counters = frontier_pack(
-            sk, code, placed, slot_pos, n_place, n_valid, cand_cap=cand_cap
+        cand_next, packed, counters, payload2 = frontier_pack(
+            sk, code, placed, slot_pos, n_place, n_valid, ids2, payload, table,
+            loc, cand_cap=cand_cap,
         )
-    return ids2, s2, valid2, acc3, w2, cand_next, packed, counters
+    return ids2, s2, valid2, acc3, w2, payload2, cand_next, packed, counters
+
+
+def fused_step_cuda(
+    ids: torch.Tensor,
+    scores: torch.Tensor,
+    valid: torch.Tensor,
+    accessed: torch.Tensor,
+    in_capacity: torch.Tensor,
+    weights: torch.Tensor | None,
+    queries: torch.Tensor,
+    cand: torch.Tensor,
+    cand_weights: torch.Tensor | None,
+    active_score: torch.Tensor,
+    do_replace: torch.Tensor,
+    active_probe: torch.Tensor,
+    *,
+    num_ids: int,
+    increment: float,
+    decay: float,
+    threshold: float,
+    score_cap: float,
+    mode: str,
+    initial_score: float,
+):
+    """One launch of the Hopper fused-step kernel; same arguments and
+    outputs as :func:`repro_torch.kernels.ref.fused_step`, plus
+    ``num_ids``: every id (state, queries, candidates) must lie in
+    ``[0, num_ids)`` or be negative padding, the id space of the
+    kernel's direct-mapped maps. Takes int32 ids, float32 scores and
+    weights, bool masks and ``(P,)`` bool gates, all contiguous on one
+    CUDA device; with ``weights`` it needs ``cand_weights``. Raises on
+    anything else — there is no other route on the card."""
+    P, C = ids.shape
+    M = queries.shape[1]
+    K = cand.shape[1]
+    N = int(num_ids)
+    if N < 0:
+        raise ValueError(f"num_ids must be >= 0, got {N}")
+    _check_state(ids, scores, valid, accessed, in_capacity, weights, mode)
+    check_tensor(queries, "queries", torch.int32, (P, M))
+    check_tensor(cand, "cand", torch.int32, (P, K))
+    for name, t in (
+        ("active_score", active_score),
+        ("do_replace", do_replace),
+        ("active_probe", active_probe),
+    ):
+        check_tensor(t, name, torch.bool, (P,))
+    if weights is not None:
+        if cand_weights is None:
+            raise ValueError("weights need cand_weights on the card")
+        check_tensor(cand_weights, "cand_weights", torch.float32, (P, K))
+    dev = ids.device
+    fn = native.bind("fused_step", "rudder_fused_step", _STEP_ARGS)
+
+    with torch.cuda.device(dev):
+        ids2 = torch.empty_like(ids)
+        s2 = torch.empty_like(scores)
+        valid2 = torch.empty_like(valid)
+        acc3 = torch.empty_like(accessed)
+        w2 = torch.empty_like(weights) if weights is not None else None
+        hit = torch.empty((P, M), dtype=torch.bool, device=dev)
+        hit_slot = torch.empty((P, M), dtype=torch.int32, device=dev)
+        placed = torch.empty((P, K), dtype=torch.bool, device=dev)
+        slot_pos = torch.empty((P, C), dtype=torch.int32, device=dev)
+        slot_of, cand_first = _maps(P, N, dev)
+        rank_slot = torch.empty((P, C), dtype=torch.int32, device=dev)
+        cw = cand_weights if weights is not None else None
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(
+            P, C, M, K, N,
+            ptr(ids), ptr(scores), ptr(valid), ptr(accessed), ptr(in_capacity),
+            ptr(weights), ptr(queries), ptr(cand), ptr(cw),
+            ptr(active_score), ptr(do_replace), ptr(active_probe),
+            ptr(ids2), ptr(s2), ptr(valid2), ptr(acc3), ptr(w2),
+            ptr(hit), ptr(hit_slot), ptr(placed), ptr(slot_pos),
+            ptr(slot_of), ptr(cand_first), ptr(rank_slot),
+            float(increment), float(decay), float(threshold), float(score_cap),
+            float(initial_score), _MODES[mode], stream,
+        )
+        native.check(err, "fused_step")
+        native.LAUNCHES["fused_step"] += 1
+        n_placed = placed.sum(dim=1, dtype=torch.int32)
+        n_valid = valid2.sum(dim=1, dtype=torch.int32)
+    return (
+        ids2, s2, valid2, acc3, w2, hit, hit_slot, placed, slot_pos,
+        n_placed, n_valid,
+    )

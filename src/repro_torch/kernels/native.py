@@ -3,7 +3,8 @@
 Each source under ``kernels/csrc/`` is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, at first
 use, into ``kernels/_build/`` (listed in ``.gitignore``; one file per
-source content hash, so an edited source never loads a stale library).
+hash of the source and of every shared header under ``csrc/``, so an
+edited source or header never loads a stale library).
 The wrappers bind the C functions with :mod:`ctypes`, passing tensor
 ``data_ptr()`` s and PyTorch's current stream.
 
@@ -25,16 +26,24 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 #: kernel library name -> source file under ``csrc/``.
-SOURCES = {"fused_frontier_step": "fused_frontier_step.cu"}
+SOURCES = {
+    "fused_frontier_step": "fused_frontier_step.cu",
+    "fused_step": "fused_step.cu",
+    "gather_rows": "gather_rows.cu",
+}
+
+#: The wrappers that launch a kernel; ``gather_rows`` and
+#: ``gather_rows_batch`` share the ``gather_rows`` library.
+KERNELS = ("fused_frontier_step", "fused_step", "gather_rows_batch", "gather_rows")
 
 #: kernel name -> launches on the card (each wrapper adds one per launch).
-LAUNCHES: dict[str, int] = {name: 0 for name in SOURCES}
+LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3",
     # No FMA contraction: the score update must round like the plain
-    # version (see the note at the top of fused_frontier_step.cu).
+    # version (see the note at the top of prefetch_state.cuh).
     "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC",
 )
@@ -62,8 +71,11 @@ def nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -110,7 +122,35 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def bind(name: str, fn_name: str, argtypes: list):
+    """The C entry ``fn_name`` of kernel library ``name``, its argument
+    types set at first use; every entry returns a ``cudaError_t``."""
+    fn = getattr(library(name), fn_name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def check(err: int, what: str) -> None:
     """Raise on a nonzero ``cudaError_t`` returned by a launch."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
+
+
+def check_tensor(t, name: str, dtype, shape: tuple) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` and
+    ``shape``: what every kernel of the port takes."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def ptr(t):
+    """The device pointer of tensor ``t`` for a C entry (None for None)."""
+    return None if t is None else t.data_ptr()

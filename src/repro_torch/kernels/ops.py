@@ -14,6 +14,7 @@ eligibility contract.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .. import telemetry
 from . import ref
@@ -21,6 +22,10 @@ from .native import LAUNCHES, reset_launches
 
 __all__ = [
     "fused_frontier_step_batch",
+    "fused_step_batch",
+    "pack_readback",
+    "gather_rows",
+    "gather_rows_batch",
     "LAUNCHES",
     "reset_launches",
     "INT32_SENTINEL",
@@ -94,6 +99,25 @@ def join_ids(hi, lo):
     )
 
 
+def _route(kind: str, tensor) -> str:
+    """``"cpu"`` or ``"cuda"`` by the tensor's device; raise otherwise."""
+    dev = tensor.device.type
+    if dev not in ("cpu", "cuda"):
+        raise ValueError(f"no {kind} kernel for device {tensor.device}")
+    return dev
+
+
+def _constants(increment, decay, threshold, score_cap, mode, initial_score):
+    return dict(
+        increment=float(increment),
+        decay=float(decay),
+        threshold=float(threshold),
+        score_cap=float(score_cap),
+        mode=mode,
+        initial_score=float(initial_score),
+    )
+
+
 @telemetry.profiled("fused_frontier_step_batch")
 def fused_frontier_step_batch(
     ids,
@@ -106,6 +130,9 @@ def fused_frontier_step_batch(
     part_of,
     cand,
     node_weights,
+    payload=None,
+    table=None,
+    loc=None,
     *,
     cand_cap: int,
     increment: float = 1.0,
@@ -122,9 +149,11 @@ def fused_frontier_step_batch(
     (unsorted, duplicated) with the per-PE gate bits in its last column
     — the step's one host→device transfer. ``cand`` is the previous
     launch's on-device miss compaction; ``part_of`` and ``node_weights``
-    are persistent device tensors. Returns ``(ids2, scores2, valid2,
-    accessed3, weights2, cand_next, packed, counters)``; only ``packed``
-    crosses back to host.
+    are persistent device tensors. With a feature store's ``(table,
+    loc)`` device view, admission rows land in the ``(P*C, F)``
+    ``payload`` inside the step. Returns ``(ids2, scores2, valid2,
+    accessed3, weights2, payload2, cand_next, packed, counters)``; only
+    ``packed`` crosses back to host.
 
     Routed by ``ids.device``: the CPU runs the plain version
     (:func:`repro_torch.kernels.ref.fused_frontier_step`), CUDA the
@@ -134,22 +163,108 @@ def fused_frontier_step_batch(
     """
     constants = dict(
         cand_cap=int(cand_cap),
-        increment=float(increment),
-        decay=float(decay),
-        threshold=float(threshold),
-        score_cap=float(score_cap),
-        mode=mode,
-        initial_score=float(initial_score),
+        **_constants(increment, decay, threshold, score_cap, mode, initial_score),
     )
     args = (
         ids, scores, valid, accessed, in_capacity, weights,
-        touched_aug, part_of, cand, node_weights,
+        touched_aug, part_of, cand, node_weights, payload, table, loc,
     )
-    kind = ids.device.type
-    if kind == "cpu":
+    if _route("fused_frontier_step", ids) == "cpu":
         return ref.fused_frontier_step(*args, **constants)
-    if kind == "cuda":
-        from .fused_step import fused_frontier_step_cuda
+    from .fused_step import fused_frontier_step_cuda
 
-        return fused_frontier_step_cuda(*args, **constants)
-    raise ValueError(f"no fused_frontier_step kernel for device {ids.device}")
+    return fused_frontier_step_cuda(*args, **constants)
+
+
+@telemetry.profiled("fused_step_batch")
+def fused_step_batch(
+    ids,
+    scores,
+    valid,
+    accessed,
+    in_capacity,
+    weights,
+    queries,
+    cand,
+    cand_weights,
+    active_score,
+    do_replace,
+    active_probe,
+    *,
+    num_ids: int,
+    increment: float = 1.0,
+    decay: float = 0.95,
+    threshold: float = 0.95,
+    score_cap: float = 4.0,
+    mode: str = "accumulate",
+    initial_score: float = 1.0,
+):
+    """Fused per-minibatch step of the ragged-seed-block loop: score →
+    replace → probe over the ``(P, C)`` state, one launch.
+
+    ``queries`` ``(P, M)`` (host-deduped remote sets) and ``cand``
+    ``(P, K)`` (raw candidate lists; first-occurrence dedup happens in
+    the step) are int32, -1 padded; the gates are ``(P,)`` bool. Every
+    id lies in ``[0, num_ids)`` — the id space of the kernel's
+    direct-mapped maps. Returns ``(ids, scores, valid, accessed,
+    weights, hit, hit_slot, placed, slot_pos, n_placed, n_valid)``.
+
+    Narrow int32 ids only: int64 tensors (the reference's wide ``(hi,
+    lo)`` route) raise. ``C == 0`` cannot reach a launch: the engine's
+    state always has a slot (``PrefetchEngine`` pads ``C`` to at least
+    1), and both routes raise on it. Routed by ``ids.device``: the CPU
+    runs :func:`repro_torch.kernels.ref.fused_step`, CUDA the Hopper
+    kernel (:func:`repro_torch.kernels.fused_step.fused_step_cuda`).
+    """
+    for name, t in (("ids", ids), ("queries", queries), ("cand", cand)):
+        if t.dtype == torch.int64:
+            raise NotImplementedError(
+                f"int64 {name}: the wide (hi, lo) fused step is not ported yet "
+                "(ROADMAP Queue B #6)"
+            )
+    if ids.shape[1] == 0:
+        raise ValueError("fused_step_batch needs C >= 1 buffer slots")
+    constants = _constants(increment, decay, threshold, score_cap, mode, initial_score)
+    args = (
+        ids, scores, valid, accessed, in_capacity, weights, queries, cand,
+        cand_weights, active_score, do_replace, active_probe,
+    )
+    if _route("fused_step", ids) == "cpu":
+        return ref.fused_step(*args, **constants)
+    from .fused_step import fused_step_cuda
+
+    return fused_step_cuda(*args, num_ids=num_ids, **constants)
+
+
+@telemetry.profiled("pack_readback")
+def pack_readback(hit, hit_slot, placed, slot_pos, n_valid):
+    """The staged step's five host-facing outputs as one int32 block
+    ``[hit | hit_slot | placed | slot_pos | n_valid]`` (one device→host
+    transfer); PyTorch ops on either device
+    (:func:`repro_torch.kernels.ref.pack_readback`)."""
+    return ref.pack_readback(hit, hit_slot, placed, slot_pos, n_valid)
+
+
+@telemetry.profiled("gather_rows")
+def gather_rows(table, indices):
+    """``table (N, F)``, ``indices (M,)`` int32 → ``(M, F)``. CPU tensors:
+    :func:`repro_torch.kernels.ref.gather_rows`; CUDA: the Hopper gather
+    (:func:`repro_torch.kernels.gather_rows.gather_rows_cuda`)."""
+    if _route("gather_rows", table) == "cpu":
+        return ref.gather_rows(table, indices)
+    from .gather_rows import gather_rows_cuda
+
+    return gather_rows_cuda(table, indices)
+
+
+@telemetry.profiled("gather_rows_batch")
+def gather_rows_batch(tables, indices):
+    """``tables (P, N, F)``, ``indices (P, M)`` int32 → ``(P, M, F)``, the
+    feature store's per-home gather. CPU tensors:
+    :func:`repro_torch.kernels.ref.gather_rows_batch`; CUDA: the Hopper
+    gather (:func:`repro_torch.kernels.gather_rows.gather_rows_batch_cuda`)."""
+    if _route("gather_rows_batch", tables) == "cpu":
+        return ref.gather_rows_batch(tables, indices)
+    from .gather_rows import gather_rows_batch_cuda
+
+    return gather_rows_batch_cuda(tables, indices)

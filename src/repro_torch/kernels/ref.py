@@ -241,6 +241,107 @@ def fused_step_core(
     )
 
 
+def fused_step(
+    ids: torch.Tensor,
+    scores: torch.Tensor,
+    valid: torch.Tensor,
+    accessed: torch.Tensor,
+    in_capacity: torch.Tensor,
+    weights: torch.Tensor | None,
+    queries: torch.Tensor,
+    cand: torch.Tensor,
+    cand_weights: torch.Tensor | None,
+    active_score: torch.Tensor,
+    do_replace: torch.Tensor,
+    active_probe: torch.Tensor,
+    *,
+    increment: float = float(scoring.ACCESS_INCREMENT),
+    decay: float = float(scoring.DECAY_FACTOR),
+    threshold: float = float(scoring.STALE_THRESHOLD),
+    score_cap: float = 4.0,
+    mode: str = "accumulate",
+    initial_score: float = float(scoring.INITIAL_SCORE),
+):
+    """Plain version of the staged fused step (score → replace → probe
+    over host-deduped ``queries`` and raw ``cand`` lists), the spec of
+    ``csrc/fused_step.cu``. Returns ``(ids, scores, valid, accessed,
+    weights, hit, hit_slot, placed, slot_pos, n_placed, n_valid)``, as
+    the reference's ``fused_step``. ``slot_pos`` of a slot that is
+    neither free nor stale is the unpadded sentinel ``C + K + 1``. Needs
+    ``C >= 1``: the engine's state always has a slot (``PrefetchEngine``
+    pads ``C`` to at least 1)."""
+    return fused_step_core(
+        ids,
+        scores,
+        valid.to(torch.bool),
+        accessed.to(torch.bool),
+        in_capacity.to(torch.bool),
+        weights,
+        queries,
+        cand,
+        cand_weights,
+        active_score.to(torch.bool),
+        do_replace.to(torch.bool),
+        active_probe.to(torch.bool),
+        increment=increment,
+        decay=decay,
+        threshold=threshold,
+        score_cap=score_cap,
+        mode=mode,
+        initial_score=initial_score,
+    )
+
+
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table (N, F)``, ``idx (M,)`` → ``(M, F)``: the spec of
+    ``csrc/gather_rows.cu``'s single-table entry."""
+    return table[idx.long()]
+
+
+def gather_rows_batch(tables: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``tables (P, N, F)``, ``idx (P, M)`` → ``(P, M, F)`` with
+    ``out[p, i] = tables[p, idx[p, i]]``."""
+    P = tables.shape[0]
+    rows = torch.arange(P, device=tables.device)[:, None]
+    return tables[rows, idx.long()]
+
+
+def pack_readback(hit, hit_slot, placed, slot_pos, n_valid) -> torch.Tensor:
+    """The staged fused step's five host-facing outputs as one int32
+    block ``[hit | hit_slot | placed | slot_pos | n_valid]`` of width
+    ``2*M + K + C + 1``: one device→host transfer per step."""
+    return torch.cat(
+        [
+            hit.to(torch.int32),
+            hit_slot.to(torch.int32),
+            placed.to(torch.int32),
+            slot_pos.to(torch.int32),
+            n_valid[:, None].to(torch.int32),
+        ],
+        dim=1,
+    )
+
+
+def payload_scatter(
+    ids2: torch.Tensor,
+    slot_pos: torch.Tensor,
+    n_place: torch.Tensor,
+    payload: torch.Tensor,
+    table: torch.Tensor,
+    loc: torch.Tensor,
+) -> torch.Tensor:
+    """Admission rows (``slot_pos < n_place``) copied verbatim from the
+    store's flat ``(R, F)`` table into the ``(P*C, F)`` payload; every
+    other slot keeps its row. Returns the new payload."""
+    P, C = ids2.shape
+    F = table.shape[1]
+    filled = slot_pos < n_place[:, None]
+    rows = table[loc[ids2.clamp(min=0).long()].long()]
+    return torch.where(
+        filled[:, :, None], rows, payload.reshape(P, C, F)
+    ).reshape(P * C, F)
+
+
 def frontier_pack(
     sk: torch.Tensor,
     code: torch.Tensor,
@@ -248,11 +349,15 @@ def frontier_pack(
     slot_pos: torch.Tensor,
     n_place: torch.Tensor,
     n_valid: torch.Tensor,
+    ids2: torch.Tensor,
+    payload: torch.Tensor | None,
+    table: torch.Tensor | None,
+    loc: torch.Tensor | None,
     *,
     cand_cap: int,
 ):
-    """Epilogue of the frontier step: miss compaction and the packed
-    readback.
+    """Epilogue of the frontier step: miss compaction, the packed
+    readback and the in-launch payload scatter.
 
     * ``cand_next`` — the next launch's candidates: this probe's misses
       (``code == 1``) compacted to the first ``min(cand_cap, Mt)``
@@ -261,6 +366,8 @@ def frontier_pack(
     * ``packed`` — the step's host readback as one int32 block
       ``[sk | code | placed | slot_pos | n_valid]``.
     * ``counters`` — ``(P, 4)`` ``[n_remote, hits, n_place, n_valid]``.
+    * ``payload2`` — with a store table attached, :func:`payload_scatter`
+      of the admissions; else ``payload`` unchanged.
     """
     Mt = sk.shape[1]
     kc = min(int(cand_cap), Mt)
@@ -285,7 +392,10 @@ def frontier_pack(
         ],
         dim=1,
     )
-    return cand_next, packed, counters
+    payload2 = payload
+    if table is not None:
+        payload2 = payload_scatter(ids2, slot_pos, n_place, payload, table, loc)
+    return cand_next, packed, counters, payload2
 
 
 def fused_frontier_step(
@@ -299,6 +409,9 @@ def fused_frontier_step(
     part_of: torch.Tensor,
     cand: torch.Tensor,
     node_weights: torch.Tensor | None,
+    payload: torch.Tensor | None = None,
+    table: torch.Tensor | None = None,
+    loc: torch.Tensor | None = None,
     *,
     cand_cap: int,
     increment: float = float(scoring.ACCESS_INCREMENT),
@@ -309,14 +422,15 @@ def fused_frontier_step(
     initial_score: float = float(scoring.INITIAL_SCORE),
 ):
     """Plain version of the single-launch device step: dedup → score →
-    replace → probe over the raw frontier, then the miss compaction and
-    the packed readback.
+    replace → probe over the raw frontier, then the miss compaction, the
+    packed readback and (with a store ``table``) the payload scatter.
 
     Probe results come back as a per-sorted-position ``code`` stream:
     ``0`` = local or duplicate, ``1`` = remote miss, ``2 + slot`` =
     remote hit at ``slot``. Ids must lie in ``[0, len(part_of))`` (or be
     negative padding). Returns ``(ids2, scores2, valid2, accessed3,
-    weights2, cand_next, packed, counters)``.
+    weights2, payload2, cand_next, packed, counters)``, as the
+    reference's ``fused_frontier_step``.
     """
     (
         active_score,
@@ -367,7 +481,8 @@ def fused_frontier_step(
         torch.where(hit, hit_slot + 2, torch.ones_like(hit_slot)),
         torch.zeros_like(hit_slot),
     )
-    cand_next, packed, counters = frontier_pack(
-        sk, code, placed, slot_pos, n_place, n_valid, cand_cap=cand_cap
+    cand_next, packed, counters, payload2 = frontier_pack(
+        sk, code, placed, slot_pos, n_place, n_valid, ids2, payload, table, loc,
+        cand_cap=cand_cap,
     )
-    return ids2, s2, valid2, acc3, w2, cand_next, packed, counters
+    return ids2, s2, valid2, acc3, w2, payload2, cand_next, packed, counters

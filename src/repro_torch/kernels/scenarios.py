@@ -1,15 +1,22 @@
-"""Seeded input scenarios for the frontier-step kernel.
+"""Seeded input scenarios for the port's kernels.
 
-One set serves both checks of the kernel: the CPU tests run each
+One set per kernel serves both checks of it: the CPU tests run each
 scenario through the port's plain version and the reference's oracle
 and Pallas kernel, and ``chip_smoke.py`` runs each through the CUDA
 kernel and the plain version on the card. Inputs are numpy arrays made
 from a seed; the constants are those of the scoring policy.
 
-The set covers every scoring policy, weighted and unweighted, scores
-sitting on the stale threshold, capacity-masked slots, empty and
-all-duplicate frontier rows, the drained ``Mt == 1`` launch and the
-initial all -1 ``(P, 1)`` candidate block.
+* :func:`frontier_scenarios` (``fused_frontier_step``): every scoring
+  policy, weighted and unweighted, scores sitting on the stale
+  threshold, capacity-masked slots, empty and all-duplicate frontier
+  rows, the drained ``Mt == 1`` launch and the initial all -1 ``(P, 1)``
+  candidate block.
+* :func:`fused_step_scenarios` (``fused_step``): every policy, weighted
+  and unweighted, empty query and candidate rows, all-duplicate
+  candidates, candidates already resident, every gate off,
+  capacity-masked slots and scores on the threshold.
+* :func:`gather_scenarios` (``gather_rows_batch`` / ``gather_rows``):
+  ``F`` in {1, 3, 100, 128, 602}, ``M == 0`` and repeated indices.
 """
 
 from __future__ import annotations
@@ -143,4 +150,143 @@ def frontier_scenarios() -> list[Scenario]:
     out.append(make_scenario("initial-cand", 102, initial_cand=True))
     out.append(make_scenario("drained-initial", 103, drained=True, initial_cand=True))
     out.append(make_scenario("one-pe", 104, policy="hybrid", P=1, C=5, K=7, Mt=9, N=20))
+    return out
+
+
+# --------------------------------------------------------------------------- #
+@dataclass
+class FusedStepScenario:
+    name: str
+    ids: np.ndarray           # (P, C) int32, -1 empty; resident ids unique
+    scores: np.ndarray        # (P, C) float32
+    valid: np.ndarray         # (P, C) bool
+    accessed: np.ndarray      # (P, C) bool
+    in_capacity: np.ndarray   # (P, C) bool
+    weights: np.ndarray | None       # (P, C) float32
+    queries: np.ndarray       # (P, M) int32, unique per row, -1 padded
+    cand: np.ndarray          # (P, K) int32, -1 padded, duplicates allowed
+    cand_weights: np.ndarray | None  # (P, K) float32
+    active_score: np.ndarray  # (P,) bool
+    do_replace: np.ndarray    # (P,) bool
+    active_probe: np.ndarray  # (P,) bool
+    num_ids: int
+    constants: dict
+
+    def arrays(self) -> dict:
+        return {
+            k: getattr(self, k)
+            for k in (
+                "ids", "scores", "valid", "accessed", "in_capacity", "weights",
+                "queries", "cand", "cand_weights", "active_score", "do_replace",
+                "active_probe",
+            )
+        }
+
+
+def make_fused_step_scenario(
+    name: str,
+    seed: int,
+    policy: str = "rudder",
+    weighted: bool = False,
+    P: int = 3,
+    C: int = 16,
+    M: int = 20,
+    K: int = 24,
+    N: int = 64,
+    empty_rows: bool = False,
+    dup_cand: bool = False,
+    resident_cand: bool = False,
+    gates_off: bool = False,
+) -> FusedStepScenario:
+    base = make_scenario(name, seed, policy=policy, weighted=weighted, P=P, C=C,
+                         K=K, N=N)
+    rng = np.random.default_rng(seed + 1000)
+    queries = np.full((P, M), -1, dtype=np.int32)
+    for p in range(P):
+        n = int(rng.integers(0, M + 1))
+        queries[p, :n] = np.sort(rng.choice(N, size=n, replace=False))
+    cand = base.cand.copy()
+    if empty_rows:
+        queries[0] = -1
+        cand[0] = -1
+    if dup_cand:
+        cand[-1] = cand[-1, 0] if cand[-1, 0] >= 0 else 5
+    if resident_cand:
+        for p in range(P):
+            live = base.ids[p][base.valid[p]]
+            cand[p, : min(len(live), K)] = live[:K]
+    gates = base.touched_aug[:, -1]
+    if gates_off:
+        gates = np.zeros(P, dtype=np.int32)
+    cand_weights = None
+    if weighted:
+        cand_weights = np.where(
+            cand >= 0, base.node_weights[np.maximum(cand, 0)], np.float32(1.0)
+        ).astype(np.float32)
+    return FusedStepScenario(
+        name=name,
+        ids=base.ids,
+        scores=base.scores,
+        valid=base.valid,
+        accessed=base.accessed,
+        in_capacity=base.in_capacity,
+        weights=base.weights,
+        queries=queries,
+        cand=cand.astype(np.int32),
+        cand_weights=cand_weights,
+        active_score=(gates & 1) != 0,
+        do_replace=(gates & 2) != 0,
+        active_probe=(gates & 4) != 0,
+        num_ids=N,
+        constants=base.constants,
+    )
+
+
+def fused_step_scenarios() -> list[FusedStepScenario]:
+    """The seeded ``fused_step`` set (small shapes; see the module note)."""
+    out = []
+    seed = 200
+    for policy in POLICIES:
+        for weighted in (False, True):
+            out.append(
+                make_fused_step_scenario(
+                    f"{policy}-{'w' if weighted else 'u'}",
+                    seed, policy=policy, weighted=weighted,
+                )
+            )
+            seed += 1
+    out.append(make_fused_step_scenario("empty-rows", 300, empty_rows=True))
+    out.append(make_fused_step_scenario("dup-cand", 301, policy="degree",
+                                        weighted=True, dup_cand=True))
+    out.append(make_fused_step_scenario("resident-cand", 302, resident_cand=True))
+    out.append(make_fused_step_scenario("gates-off", 303, policy="hybrid",
+                                        weighted=True, gates_off=True))
+    out.append(make_fused_step_scenario("one-wide", 304, P=2, C=1, M=1, K=1, N=8))
+    return out
+
+
+# --------------------------------------------------------------------------- #
+@dataclass
+class GatherScenario:
+    name: str
+    tables: np.ndarray  # (P, N, F) float32
+    idx: np.ndarray     # (P, M) int32 in [0, N)
+
+
+def gather_scenarios() -> list[GatherScenario]:
+    """The seeded gather set: ``F`` in {1, 3, 100, 128, 602} (odd widths
+    take the kernel's 4-byte path, ``F % 4 == 0`` its 16-byte one),
+    ``M == 0``, and repeated indices."""
+    out = []
+    for i, (F, M, repeat) in enumerate(
+        [(1, 37, False), (3, 50, True), (100, 64, False), (128, 33, True),
+         (602, 17, False), (128, 0, False)]
+    ):
+        rng = np.random.default_rng(400 + i)
+        P, N = 3, 90
+        tables = rng.standard_normal((P, N, F)).astype(np.float32)
+        idx = rng.integers(0, N, size=(P, M)).astype(np.int32)
+        if repeat and M:
+            idx[:, M // 2 :] = idx[:, :1]
+        out.append(GatherScenario(f"F{F}-M{M}{'-rep' if repeat else ''}", tables, idx))
     return out

@@ -1,28 +1,30 @@
 """The device-resident minibatch loop of
 :meth:`repro_torch.gnn.train.DistributedTrainer.run`.
 
-Port of the reference's ``run_device`` single-launch raw path. Per step
-the whole cluster goes through the stages of
-:mod:`repro_torch.runtime.stage`, pipeline-rotated so the host decision
-plane runs between probes::
+Port of the reference's ``run_device``. Per step the whole cluster goes
+through the stages of :mod:`repro_torch.runtime.stage`,
+pipeline-rotated so the host decision plane runs between probes::
 
     sample(0) ── prime launch [probe(0)]
-    step t:   decide(t) → sample(t+1)
+    step t:   decide(t) → begin miss gather(t) → sample(t+1)
               → launch [score(t), replace(t), probe(t+1)]
-              → accounting / train for step t
+              → accounting / trace / train for step t
 
-Buffer state lives on the trainer's device
-(:class:`repro_torch.runtime.engine.DeviceEngine`); each step uploads the
-raw ``(P, Mt)`` frontier once, makes one kernel launch and reads one
-packed block back. The RNG draws, controller calls and in-kernel round
-order are those of the reference, so every exact stream (hits, misses,
-bytes, decisions, modeled step times) is bit-identical to it. The
-GraphSAGE step is data-parallel: per-PE gradients are summed, averaged
-over PEs and applied with SGD.
+Buffer state (and, with a feature store, the feature payload) lives on
+the trainer's device (:class:`repro_torch.runtime.engine.DeviceEngine`).
+When every PE's seed block has one constant length the loop takes the
+single-launch raw path: each step uploads the raw ``(P, Mt)`` frontier,
+makes one ``fused_frontier_step`` launch and reads one packed block
+back. Ragged seed blocks take the reference's staged-gather loop: the
+host dedups each PE's remote set and each step makes one ``fused_step``
+launch. The RNG draws, controller calls and in-kernel round order are
+those of the reference, so every exact stream (hits, misses, bytes,
+decisions, feat_sums, modeled step times, the trace's ``exact_digest``)
+is bit-identical to it. The GraphSAGE step is data-parallel: per-PE
+gradients are summed, averaged over PEs and applied with SGD.
 
-Not ported yet, and refused with ``NotImplementedError``: ragged per-PE
-seed blocks (the reference's staged-gather loop over ``fused_step``) and
-the ``readback_every > 1`` counter cadence.
+Not ported yet, and refused with ``NotImplementedError``: the
+``readback_every > 1`` counter cadence.
 """
 
 from __future__ import annotations
@@ -78,7 +80,8 @@ def run_device(trainer) -> "RunResult":  # noqa: F821 — see lazy import
     """Execute ``trainer``'s experiment on its device (see the module
     note). At the end of the run the device state is written back to
     ``trainer.engine`` for introspection; the kernel engine stays on
-    ``trainer.last_device_engine``."""
+    ``trainer.last_device_engine`` and a recorded trace on
+    ``trainer.last_trace``."""
     from ..gnn.train import RunResult, TrainerLog
     from .engine import DeviceEngine
 
@@ -87,18 +90,18 @@ def run_device(trainer) -> "RunResult":  # noqa: F821 — see lazy import
             "readback_every > 1 (the K-step counter cadence) is not ported "
             "yet (ROADMAP Queue A, readback cadence)"
         )
-    if not _device_raw_supported(trainer):
-        raise NotImplementedError(
-            "ragged per-PE seed blocks need the staged-gather device loop over "
-            "fused_step_pallas, which is not ported yet (ROADMAP Queue B #2)"
-        )
     P = trainer.parts.num_parts
-    sample = SampleStage(trainer.sampler_plane, P, trainer._seed_batch)
+    sample = SampleStage(
+        trainer.sampler_plane, P, trainer._seed_batch, trainer.parts.part_of
+    )
     decide = DecisionStage(trainer.controllers)
     time_engine = trainer.make_time_engine()
     dev = DeviceEngine(
         trainer.engine, device=trainer.device, part_of=trainer.parts.part_of
     )
+    store = trainer.feature_store
+    if store is not None:
+        dev.attach_store(store)
     trainer.last_device_engine = dev
     fused = FusedFetchStage(
         dev,
@@ -108,16 +111,23 @@ def run_device(trainer) -> "RunResult":  # noqa: F821 — see lazy import
         trainer.graph.features.shape[1],
         trainer.mode,
         part_of=trainer.parts.part_of,
+        store=store,
         feature_bytes=trainer.tm.feature_bytes,
     )
+    use_raw = _device_raw_supported(trainer)
 
     logs = [TrainerLog() for _ in range(P)]
     epoch_times = [0.0] * trainer.epochs
     losses: list[float] = []
+    recorder = trainer.make_trace_recorder()
     total = trainer.epochs * trainer.mb_per_epoch
 
-    minibatches, touched = sample.run_raw(0, 0, trainer.rng)
-    probe = fused.prime_raw(touched)
+    if use_raw:
+        minibatches, touched = sample.run_raw(0, 0, trainer.rng)
+        probe = fused.prime_raw(touched)
+    else:
+        minibatches, remote, n_remote = sample.run(0, 0, trainer.rng)
+        probe = fused.prime(remote, n_remote)
 
     for step in range(total):
         _step_sp = tel.begin("step", plane="runtime")
@@ -140,13 +150,27 @@ def run_device(trainer) -> "RunResult":  # noqa: F821 — see lazy import
         )
         decisions, stalls = decide.collect()
 
+        # Double buffer: this step's miss gather overlaps the next draw.
+        fused.begin_gather()
         nxt_mb = None
-        if step + 1 < total:
+        last = step + 1 == total
+        if not last:
             e2, m2 = divmod(step + 1, trainer.mb_per_epoch)
-            nxt_mb, nxt_touched = sample.run_raw(e2, m2, trainer.rng)
+        if use_raw:
+            if last:
+                nxt_touched = np.full((P, 0), -1, dtype=np.int32)
+            else:
+                nxt_mb, nxt_touched = sample.run_raw(e2, m2, trainer.rng)
+            commit, next_probe = fused.step_raw(decisions, stalls, nxt_touched)
         else:
-            nxt_touched = np.full((P, 0), -1, dtype=np.int32)
-        commit, next_probe = fused.step_raw(decisions, stalls, nxt_touched)
+            if last:
+                nxt_remote = [np.array([], dtype=np.int64) for _ in range(P)]
+                nxt_n_remote = np.zeros(P, dtype=np.int64)
+            else:
+                nxt_mb, nxt_remote, nxt_n_remote = sample.run(e2, m2, trainer.rng)
+            commit, next_probe = fused.step(
+                decisions, stalls, nxt_remote, nxt_n_remote
+            )
 
         for p in range(P):
             logs[p].pct_hits.append(float(probe.pct_hits[p]))
@@ -157,7 +181,42 @@ def run_device(trainer) -> "RunResult":  # noqa: F821 — see lazy import
             logs[p].replaced.append(int(commit.replaced[p]))
             logs[p].decisions.append(bool(decisions[p]))
             logs[p].step_time.append(float(commit.step_time[p]))
+            if store is not None:
+                logs[p].bytes_measured.append(int(commit.bytes_measured[p]))
+                logs[p].bytes_modeled.append(int(commit.bytes_modeled[p]))
+                logs[p].fetch_seconds.append(float(commit.fetch_seconds))
+                logs[p].feat_sums.append(float(commit.feat_sums[p]))
         epoch_times[epoch] += float(commit.step_time.max())
+
+        if recorder is not None:
+            store_kwargs: dict = {}
+            if store is not None:
+                store_kwargs = dict(
+                    feat_sums=commit.feat_sums,
+                    bytes_measured=commit.bytes_measured,
+                    bytes_modeled=commit.bytes_modeled,
+                    fetch_time_measured=np.full(
+                        P, commit.fetch_seconds, dtype=np.float64
+                    ),
+                )
+            recorder.record_step(
+                seeds=[m.seeds for m in minibatches],
+                remote=probe.remote,
+                missed=commit.missed,
+                placed=commit.placed,
+                decisions=decisions,
+                stalls=stalls,
+                pct_hits=probe.pct_hits,
+                hits=probe.hits,
+                n_remote=probe.n_remote,
+                replaced=commit.replaced,
+                total_comm=commit.total_comm,
+                occupancy_pre=probe.occupancy,
+                occupancy_post=commit.occupancy,
+                step_times=commit.step_time,
+                controllers=trainer.controllers,
+                **store_kwargs,
+            )
 
         if trainer.train_model:
             _train_sp = tel.begin("train", plane="train")
@@ -177,6 +236,10 @@ def run_device(trainer) -> "RunResult":  # noqa: F821 — see lazy import
         accuracy = trainer.model.accuracy(*trainer._features_of(minibatch))
 
     dev.sync_to_engine()
+    trace = None
+    if recorder is not None:
+        trace = recorder.finalize(epoch_times, time_engine.events)
+        trainer.last_trace = trace
     return RunResult(
         variant=trainer.variant,
         epoch_times=epoch_times,
@@ -186,4 +249,5 @@ def run_device(trainer) -> "RunResult":  # noqa: F821 — see lazy import
         controllers=trainer.controllers,
         graph_meta=trainer.graph_meta,
         sim_events=time_engine.events,
+        trace=trace,
     )

@@ -9,12 +9,15 @@ twin the trainer builds and warm-starts; its semantics are those of the
 reference package's ``PrefetchEngine``.
 
 :class:`DeviceEngine` is the device-resident twin the port's runtime
-drives: the same ``(P, C)`` state held as persistent torch tensors on
-one device and advanced one single-launch frontier step per training
-step (:func:`repro_torch.kernels.ops.fused_frontier_step_batch` — the
-Hopper kernel on a CUDA device, the plain version on the CPU), with one
-upload and one packed readback per step. Semantics and streams are
-bit-identical to the reference's ``DeviceEngine`` raw path.
+drives: the same ``(P, C)`` state (and, with a feature store, the
+``(P*C, F)`` feature payload) held as persistent torch tensors on one
+device and advanced one launch per training step — the single-launch
+frontier step over the raw frontier
+(:func:`repro_torch.kernels.ops.fused_frontier_step_batch`), or, for
+ragged seed blocks, the fused step over host-deduped query sets
+(:func:`repro_torch.kernels.ops.fused_step_batch`); the Hopper kernels on
+a CUDA device, the plain versions on the CPU. Semantics and streams are
+bit-identical to the reference's ``DeviceEngine``.
 """
 
 from __future__ import annotations
@@ -345,11 +348,8 @@ class PrefetchEngine:
 
 
 @dataclass
-class FrontierStepOut:
-    """Host-visible outputs of one single-launch frontier step
-    (:meth:`DeviceEngine.fused_step_raw`), which derives the deduped
-    remote query sets on device — the host never sees the raw frontier
-    again after the upload."""
+class FusedStepOut:
+    """Host-visible outputs of one fused step (:meth:`DeviceEngine.fused_step`)."""
 
     hit_masks: list[np.ndarray]    # per PE, aligned with its query list
     missed: list[np.ndarray]       # per PE, int64 miss ids (query order)
@@ -359,8 +359,17 @@ class FrontierStepOut:
     placed: list[np.ndarray]       # per PE, int64 placed ids (cand order)
     placed_slots: list[np.ndarray] # per PE, slots filled (aligned w/ placed)
     n_valid: np.ndarray            # (P,) int64 post-round occupancy counts
-    remote: list[np.ndarray]       # per PE, int64 unique remote ids (sorted)
-    n_remote: np.ndarray           # (P,) int64 remote query counts
+
+
+@dataclass
+class FrontierStepOut(FusedStepOut):
+    """:class:`FusedStepOut` of a single-launch frontier step
+    (:meth:`DeviceEngine.fused_step_raw`), which also derives the deduped
+    remote query sets on device — the host never sees the raw frontier
+    again after the upload."""
+
+    remote: list[np.ndarray] = None   # per PE, int64 unique remote ids (sorted)
+    n_remote: np.ndarray = None       # (P,) int64 remote query counts
 
 
 def _split_by_counts(flat: np.ndarray, counts: np.ndarray) -> list[np.ndarray]:
@@ -370,6 +379,16 @@ def _split_by_counts(flat: np.ndarray, counts: np.ndarray) -> list[np.ndarray]:
     ends = np.cumsum(counts)
     starts = ends - counts
     return [flat[a:b] for a, b in zip(starts, ends)]
+
+
+def _gate_bits(active_score, do_replace, active_probe) -> np.ndarray:
+    """Per-PE int32 gate bits ``active_score | do_replace << 1 |
+    active_probe << 2``, as the kernels read them."""
+    return (
+        np.asarray(active_score, dtype=bool).astype(np.int32)
+        | (np.asarray(do_replace, dtype=bool).astype(np.int32) << 1)
+        | (np.asarray(active_probe, dtype=bool).astype(np.int32) << 2)
+    )
 
 
 def resolve_device(device) -> torch.device:
@@ -395,10 +414,13 @@ class DeviceEngine:
     Construction snapshots a warm-started ``PrefetchEngine`` into
     persistent torch tensors on ``device`` (ids int32, scores float32,
     valid / accessed / in-capacity masks, degree weights when the policy
-    reads them) and from then on advances the whole cluster's buffer
-    state one single-launch frontier step per training step
-    (:meth:`fused_step_raw`): one ``(P, Mt + 1)`` upload, one launch,
-    one packed readback. The ``(P, C)`` state never round-trips.
+    reads them, the feature payload when the engine has one) and from
+    then on advances the whole cluster's buffer state one launch per
+    training step: :meth:`fused_step_raw` (one ``(P, Mt + 1)`` upload,
+    one launch, one packed readback) or, for ragged seed blocks,
+    :meth:`fused_step` (one packed upload of queries, candidates and
+    gates, one launch, one packed readback). The ``(P, C)`` state never
+    round-trips.
 
     Statistics are *shared* with the source engine (``self.stats is
     engine.stats``); :meth:`sync_to_engine` writes the tensor state
@@ -455,6 +477,14 @@ class DeviceEngine:
             else None
         )
         self._weights0 = engine.weights.copy()
+        # The payload is written in place (place_rows_batch): a copy, so
+        # the numpy twin never changes under it on the CPU.
+        self.payload = (
+            upload(engine.payload.reshape(-1, engine.feature_dim), torch.float32).clone()
+            if engine.payload is not None
+            else None
+        )
+        self._store = None  # FeatureStore for the in-launch payload scatter
         self.last_placed = [np.array([], dtype=np.int64) for _ in range(P)]
         self.last_slots = [np.array([], dtype=np.int64) for _ in range(P)]
         self.last_hit_slots = [np.array([], dtype=np.int64) for _ in range(P)]
@@ -462,6 +492,9 @@ class DeviceEngine:
         # part_of rides on device so dedup + remoteness run in-launch;
         # node degree weights likewise when the policy scores with them.
         self._num_nodes = len(part_of) if part_of is not None else 0
+        # Id space of the kernels' direct-mapped maps: every id the state
+        # holds or a launch brings lies below it (grown as ids arrive).
+        self._id_bound = max(self._num_nodes, max_known + 1)
         self._part_of_dev = (
             upload(np.asarray(part_of).astype(np.int32), torch.int32)
             if part_of is not None
@@ -491,6 +524,184 @@ class DeviceEngine:
             self.capacity > 0, n_valid / np.maximum(self.capacity, 1), 0.0
         )
 
+    def _count(self, way: str, nbytes: int) -> None:
+        self.transfers[way] += 1
+        self.transfers[f"{way}_bytes"] += int(nbytes)
+        tel.count(f"device.{way}_bytes", int(nbytes))
+
+    def fused_step(
+        self,
+        queries: list[np.ndarray],
+        candidates: list[np.ndarray],
+        active_score: np.ndarray,
+        do_replace: np.ndarray,
+        active_probe: np.ndarray,
+    ) -> FusedStepOut:
+        """One fused launch: score (``end_round(active_score)``) → replace
+        (``replace_round(candidates, do_replace)``) → probe
+        (``lookup(queries, active_probe)``) — the step of the
+        ragged-seed-block loop (see the pipeline rotation in
+        :class:`repro_torch.runtime.stage.FusedFetchStage`).
+
+        Ragged inputs are -1 padded to the widest PE (at least 1;
+        candidate dedup happens in the step). Queries, candidates, gates
+        and (for weighted policies) the candidate weights, bit-cast to
+        int32, travel as one flat upload — one h2d transfer per step
+        where the reference makes five (six when weighted); the five
+        outputs come back as one packed readback. Per-PE stats and the
+        ``last_*`` bookkeeping are updated exactly as the staged engine
+        does."""
+        from ..kernels import ops
+
+        P = self.num_pes
+        do_rep = np.asarray(do_replace, dtype=bool)
+        empty64 = np.array([], dtype=np.int64)
+        qlen = np.fromiter(map(len, queries), np.int64, count=P)
+        cands = (
+            list(candidates)
+            if do_rep.all()
+            else [candidates[p] if do_rep[p] else empty64 for p in range(P)]
+        )
+        clen = np.fromiter(map(len, cands), np.int64, count=P)
+        allq = (
+            np.concatenate(queries, dtype=np.int64, casting="unsafe")
+            if qlen.sum()
+            else empty64
+        )
+        allc = (
+            np.concatenate(cands, dtype=np.int64, casting="unsafe")
+            if clen.sum()
+            else empty64
+        )
+        max_in = max(
+            int(allq.max()) if allq.size else -1,
+            int(allc.max()) if allc.size else -1,
+        )
+        if not ops.int32_id_eligible(max_in):
+            raise ValueError("device engine needs node ids < 2^31")
+        if self._num_nodes and max_in >= self._num_nodes:
+            raise ValueError(
+                f"id {max_in} outside the partition map "
+                f"(len(part_of) = {self._num_nodes})"
+            )
+        self._id_bound = max(self._id_bound, max_in + 1)
+        M = max(int(qlen.max(initial=0)), 1)
+        K = max(int(clen.max(initial=0)), 1)
+        qmask = np.arange(M) < qlen[:, None]
+        cmask = np.arange(K) < clen[:, None]
+        q = np.full((P, M), -1, dtype=np.int32)
+        c = np.full((P, K), -1, dtype=np.int32)
+        q[qmask] = allq
+        c[cmask] = allc
+        parts = [q.ravel(), c.ravel(), _gate_bits(active_score, do_rep, active_probe)]
+        if self._weights is not None:
+            cw = np.ones((P, K), dtype=np.float32)
+            if self._node_weights is not None and allc.size:
+                cw[cmask] = self._node_weights[allc - self.id_base]
+            parts.append(cw.view(np.int32).ravel())
+        block = np.concatenate(parts)
+        blk = torch.from_numpy(block).to(self.device)
+        self._count("h2d", block.nbytes)
+        q_d = blk[: P * M].view(P, M)
+        c_d = blk[P * M : P * (M + K)].view(P, K)
+        g_d = blk[P * (M + K) : P * (M + K + 1)]
+        cw_d = (
+            blk[P * (M + K + 1) :].view(torch.float32).view(P, K)
+            if self._weights is not None
+            else None
+        )
+
+        _launch_sp = tel.begin("device.launch", plane="device")
+        (
+            self._ids,
+            self._scores,
+            self._valid,
+            self._accessed,
+            w2,
+            hit_d,
+            hit_slot_d,
+            placed_d,
+            slot_pos_d,
+            _n_placed,
+            n_valid_d,
+        ) = ops.fused_step_batch(
+            self._ids,
+            self._scores,
+            self._valid,
+            self._accessed,
+            self._in_cap,
+            self._weights,
+            q_d,
+            c_d,
+            cw_d,
+            (g_d & 1) != 0,
+            (g_d & 2) != 0,
+            (g_d & 4) != 0,
+            num_ids=self._id_bound,
+            **self.policy.kernel_constants(),
+        )
+        tel.end(_launch_sp)
+        if w2 is not None:
+            self._weights = w2
+        with tel.span("device.readback", plane="device"):
+            packed = ops.pack_readback(
+                hit_d, hit_slot_d, placed_d, slot_pos_d, n_valid_d
+            ).cpu().numpy()
+        self._count("d2h", packed.nbytes)
+        C = self.max_capacity
+        hit = packed[:, :M] != 0
+        hit_slot = packed[:, M : 2 * M]
+        placed_m = packed[:, 2 * M : 2 * M + K] != 0
+        slot_pos = packed[:, 2 * M + K : 2 * M + K + C]
+        n_valid = packed[:, -1].astype(np.int64)
+
+        # --- probe bookkeeping (PrefetchEngine.lookup) ----------------- #
+        lengths = np.where(np.asarray(active_probe, dtype=bool), qlen, 0)
+        self.stats.lookups += lengths
+        hits_per_pe = hit.sum(axis=1).astype(np.int64)
+        self.stats.hits += hits_per_pe
+        self.stats.misses += lengths - hits_per_pe
+        flat_hit = hit[qmask]
+        hit_masks = _split_by_counts(flat_hit, qlen)
+        missed = _split_by_counts(allq[~flat_hit], qlen - hits_per_pe)
+        hit_slots = _split_by_counts(
+            hit_slot[qmask][flat_hit].astype(np.int64), hits_per_pe
+        )
+        self.last_hit_slots = list(hit_slots)
+
+        # --- replacement bookkeeping (PrefetchEngine.replace_round) ---- #
+        pm = placed_m & cmask
+        n_per = pm.sum(axis=1).astype(np.int64)
+        rounds = do_rep & (n_per > 0)
+        self.stats.skipped_rounds += do_rep & (n_per == 0)
+        self.stats.replaced_total += np.where(rounds, n_per, 0)
+        self.stats.replacement_rounds += rounds
+        replaced = np.where(rounds, n_per, 0)
+        self.last_placed = _split_by_counts(allc[pm[cmask]], n_per)
+        # Placed candidates come out in candidate (= fresh-rank) order and
+        # the r-th placed candidate fills the slot of fill rank r: a
+        # stable argsort of the per-slot fill ranks pairs them up.
+        order = np.argsort(slot_pos, axis=1, kind="stable").astype(np.int64)
+        rank_mask = np.arange(slot_pos.shape[1]) < n_per[:, None]
+        self.last_slots = _split_by_counts(order[rank_mask], n_per)
+        return FusedStepOut(
+            hit_masks=hit_masks,
+            missed=missed,
+            hits=hits_per_pe,
+            hit_slots=hit_slots,
+            replaced=replaced,
+            placed=list(self.last_placed),
+            placed_slots=list(self.last_slots),
+            n_valid=n_valid,
+        )
+
+    def attach_store(self, store) -> None:
+        """Wire a :class:`repro_torch.store.FeatureStore` into the
+        single-launch step: admission rows are copied from the store's
+        flat table (:meth:`FeatureStore.device_view` on this engine's
+        device) straight into the payload."""
+        self._store = store
+
     def fused_step_raw(
         self,
         touched: np.ndarray,
@@ -500,8 +711,9 @@ class DeviceEngine:
         want: str = "full",
     ) -> FrontierStepOut:
         """One single-launch device step over the *raw* sampled frontier:
-        dedup → score → replace → probe, one launch, one ``(P, Mt+1)``
-        upload (frontier + packed gate bits) and one packed readback.
+        dedup → score → replace → probe → payload scatter, one launch,
+        one ``(P, Mt+1)`` upload (frontier + packed gate bits) and one
+        packed readback.
 
         ``touched`` is the dense ``(P, Mt)`` frontier block straight from
         the sampler (unsorted, duplicated; -1 padding allowed), with ids
@@ -541,16 +753,14 @@ class DeviceEngine:
             # prologue needs; an all(-1) row dedups to zero queries.
             touched = np.full((P, 1), -1, dtype=np.int32)
         do_rep = np.asarray(do_replace, dtype=bool)
-        gates = (
-            np.asarray(active_score, dtype=bool).astype(np.int32)
-            | (do_rep.astype(np.int32) << 1)
-            | (np.asarray(active_probe, dtype=bool).astype(np.int32) << 2)
-        )
+        gates = _gate_bits(active_score, do_rep, active_probe)
         aug = np.concatenate([touched, gates[:, None]], axis=1)
         aug_d = torch.from_numpy(aug).to(self.device)
-        self.transfers["h2d"] += 1
-        self.transfers["h2d_bytes"] += aug.nbytes
-        tel.count("device.h2d_bytes", aug.nbytes)
+        self._count("h2d", aug.nbytes)
+
+        table = loc = None
+        if self._store is not None and self.payload is not None:
+            table, loc = self._store.device_view(self.device)
 
         Kc = self._cand_ready.shape[1]
         _launch_sp = tel.begin("device.launch", plane="device")
@@ -560,6 +770,7 @@ class DeviceEngine:
             self._valid,
             self._accessed,
             w2,
+            payload2,
             cand_next,
             packed_d,
             _counters_d,
@@ -574,18 +785,21 @@ class DeviceEngine:
             self._part_of_dev,
             self._cand_ready,
             self._node_w_dev,
+            self.payload,
+            table,
+            loc,
             cand_cap=self.cand_cap,
             **self.policy.kernel_constants(),
         )
         tel.end(_launch_sp)
         if w2 is not None:
             self._weights = w2
+        if payload2 is not None:
+            self.payload = payload2
 
         with tel.span("device.readback", plane="device"):
             packed = packed_d.cpu().numpy()
-        self.transfers["d2h"] += 1
-        self.transfers["d2h_bytes"] += packed.nbytes
-        tel.count("device.d2h_bytes", packed.nbytes)
+        self._count("d2h", packed.nbytes)
         C = self.max_capacity
         Mt = aug.shape[1] - 1
         sk = packed[:, :Mt]
@@ -658,6 +872,65 @@ class DeviceEngine:
         )
 
     # ------------------------------------------------------------------ #
+    # feature payload (device-resident)
+    # ------------------------------------------------------------------ #
+    def pull_rows(self, slots_per_pe: list[np.ndarray]) -> list[np.ndarray]:
+        """Payload rows at per-PE slots, one batched device gather and one
+        readback (the probe-time hit-row capture of the store data
+        plane)."""
+        if self.payload is None:
+            raise ValueError("engine has no payload (feature_dim=0)")
+        C = self.max_capacity
+        lengths = [len(s) for s in slots_per_pe]
+        if sum(lengths) == 0:
+            empty = np.zeros((0, self.feature_dim), dtype=np.float32)
+            return [empty.copy() for _ in slots_per_pe]
+        flat = np.concatenate(
+            [
+                np.asarray(s, dtype=np.int64) + p * C
+                for p, s in enumerate(slots_per_pe)
+            ]
+        )
+        with tel.span("device.readback", plane="device"):
+            rows = (
+                self.payload.index_select(0, torch.from_numpy(flat).to(self.device))
+                .cpu()
+                .numpy()
+            )
+        self._count("d2h", rows.nbytes)
+        return [
+            np.ascontiguousarray(b)
+            for b in np.split(rows, np.cumsum(lengths)[:-1])
+        ]
+
+    def place_rows_batch(self, slots_per_pe, blocks, device_block=None):
+        """Scatter admission rows into the device payload (one indexed
+        write, in place); ``device_block`` skips the host→device upload
+        when the store gather already produced a device copy."""
+        if self.payload is None:
+            raise ValueError("engine has no payload (feature_dim=0)")
+        C = self.max_capacity
+        idx, rows = [], []
+        for p, slots in enumerate(slots_per_pe):
+            if len(slots) != len(blocks[p]):
+                raise ValueError(
+                    f"PE {p}: {len(slots)} slots != {len(blocks[p])} rows"
+                )
+            if len(slots):
+                idx.append(np.asarray(slots, dtype=np.int64) + p * C)
+                rows.append(blocks[p])
+        if not idx:
+            return
+        flat = torch.from_numpy(np.concatenate(idx)).to(self.device)
+        if device_block is not None:
+            data = device_block.to(self.device)
+        else:
+            host = np.concatenate(rows, dtype=np.float32)
+            data = torch.from_numpy(host).to(self.device)
+            self._count("h2d", host.nbytes)
+        self.payload[flat] = data
+
+    # ------------------------------------------------------------------ #
     def sync_to_engine(self) -> PrefetchEngine:
         """Write the device state back into the numpy twin (end of a
         device-mode run: snapshots, state-equality tests, reuse)."""
@@ -679,6 +952,10 @@ class DeviceEngine:
                 ].astype(np.float32),
                 self._weights0,
             ).astype(np.float32)
+        if self.payload is not None:
+            eng.payload = self.payload.cpu().numpy().reshape(
+                self.num_pes, self.max_capacity, self.feature_dim
+            )
         eng.last_placed = [a.copy() for a in self.last_placed]
         eng.last_slots = [a.copy() for a in self.last_slots]
         eng.last_hit_slots = [a.copy() for a in self.last_hit_slots]

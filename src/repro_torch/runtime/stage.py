@@ -6,15 +6,17 @@ each advancing all P trainer PEs in one batched pass:
 * :class:`SampleStage` — per-PE seed blocks through the batched
   :class:`repro_torch.graph.sampler.SamplerPlane`: dense ``(P, B)``
   fanout expansion on the shared CSR, handing the raw ``(P, Mt)``
-  frontier to the device;
+  frontier to the device (uniform seed blocks), or the host-deduped
+  remote sets (ragged seed blocks);
 * :class:`DecisionStage` — the paper's request/response queue hand-off
   (§4.5, Fig. 11) as a double-buffered two-slot stage over the batched
   :class:`repro_torch.core.controller.DecisionPlane`;
 * :class:`FusedFetchStage` — the device-resident fetch plane: one
-  single-launch frontier step per training step
-  (:meth:`repro_torch.runtime.engine.DeviceEngine.fused_step_raw`) plus
-  the wall-clock accounting via the run's time engine
-  (:mod:`repro_torch.sim`).
+  launch per training step
+  (:meth:`repro_torch.runtime.engine.DeviceEngine.fused_step_raw` or
+  :meth:`~repro_torch.runtime.engine.DeviceEngine.fused_step`), the
+  feature-store data path when a store is attached, and the wall-clock
+  accounting via the run's time engine (:mod:`repro_torch.sim`).
 
 Each stage preserves the reference runtime's operation order, so
 hit/miss/byte counts, decision streams and modeled step times are
@@ -23,7 +25,7 @@ bit-identical to it.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
@@ -64,15 +66,29 @@ class DecisionStage:
 
 
 class SampleStage:
-    """Batched sampling stage: per-PE seed blocks → minibatches + the raw
-    frontier. ``seed_fn(p, epoch, mb)`` supplies PE p's seed block; only
-    the fanout draws consume the shared RNG, in the reference's PE-major
+    """Batched sampling stage: per-PE seed blocks → minibatches + fetch
+    sets. ``seed_fn(p, epoch, mb)`` supplies PE p's seed block; only the
+    fanout draws consume the shared RNG, in the reference's PE-major
     order."""
 
-    def __init__(self, plane: SamplerPlane, num_pes: int, seed_fn):
+    def __init__(self, plane: SamplerPlane, num_pes: int, seed_fn, part_of):
         self.plane = plane
         self.num_pes = num_pes
         self.seed_fn = seed_fn
+        self.part_of = part_of
+
+    @tel.spanned("sample", plane="sampling")
+    def run(
+        self, epoch: int, mb: int, rng: np.random.Generator
+    ) -> tuple[list[MiniBatch], list[np.ndarray], np.ndarray]:
+        """``(minibatches, remote, n_remote)`` for all P PEs: the
+        host-deduped remote fetch sets of the ragged-seed-block loop."""
+        seed_blocks = [self.seed_fn(p, epoch, mb) for p in range(self.num_pes)]
+        minibatches, remote = self.plane.sample_all(
+            seed_blocks, rng, part_of=self.part_of
+        )
+        n_remote = np.array([len(r) for r in remote], dtype=np.int64)
+        return minibatches, remote, n_remote
 
     @tel.spanned("sample", plane="sampling")
     def run_raw(
@@ -80,7 +96,8 @@ class SampleStage:
     ) -> tuple[list[MiniBatch], np.ndarray]:
         """``(minibatches, touched)`` where ``touched`` is the raw
         ``(P, Mt)`` frontier destined for the single-launch device step
-        — no host dedup or remote extraction."""
+        — no host dedup or remote extraction (same RNG consumption as
+        :meth:`run`)."""
         seed_blocks = [self.seed_fn(p, epoch, mb) for p in range(self.num_pes)]
         return self.plane.sample_all_raw(seed_blocks, rng)
 
@@ -96,8 +113,8 @@ class ProbeResult:
     comm: np.ndarray          # (P,) int64 — miss fetches only
     occupancy: np.ndarray     # (P,) float64, pre-replacement
     replaced_pct: np.ndarray  # (P,) float64, previous round's churn
-    #: The probed remote query sets, derived on device from the raw
-    #: frontier and handed back in the packed readback.
+    #: The probed remote query sets (on the raw path derived on device
+    #: from the frontier and handed back in the packed readback).
     remote: list[np.ndarray]
     n_remote: np.ndarray
 
@@ -112,6 +129,21 @@ class CommitResult:
     occupancy: np.ndarray     # (P,) float64, post-replacement
     missed: list[np.ndarray]  # this minibatch's miss fetches
     placed: list[np.ndarray]  # this round's replacement admissions
+    #: Feature-store outputs (None / empty when the store is off).
+    #: ``features[p]`` is PE p's (n_remote, F) remote feature block in
+    #: sampled-remote order — hits served from the engine payload,
+    #: misses from the store gather.
+    features: list[np.ndarray] | None = None
+    feat_sums: np.ndarray = field(
+        default_factory=lambda: np.zeros(0, dtype=np.float64)
+    )                         # (P,) float64 — content-sensitive block sums
+    bytes_measured: np.ndarray = field(
+        default_factory=lambda: np.zeros(0, dtype=np.int64)
+    )                         # (P,) int64 — bytes the store actually moved
+    bytes_modeled: np.ndarray = field(
+        default_factory=lambda: np.zeros(0, dtype=np.int64)
+    )                         # (P,) int64 — §4.5.3 accounting bytes
+    fetch_seconds: float = 0.0  # wall-clock time of this step's gathers
 
 
 def _count_fetch(
@@ -139,11 +171,13 @@ def _count_fetch(
 
 
 class FusedFetchStage:
-    """Device-resident fetch plane: one single-launch step per training step.
+    """Device-resident fetch plane: one launch per training step.
 
     Drives a :class:`repro_torch.runtime.engine.DeviceEngine`: buffer
     state persists on the device and each training step issues exactly
-    one launch over the raw frontier.
+    one launch — over the raw frontier (:meth:`prime_raw` /
+    :meth:`step_raw`) or, for ragged seed blocks, over host-deduped
+    remote sets (:meth:`prime` / :meth:`step`).
 
     **Pipeline rotation.** The controller decision for step t is
     computed on host from probe(t)'s metrics, so probe(t+1) — not
@@ -157,6 +191,14 @@ class FusedFetchStage:
     the staged order ``end_round`` → ``replace_round`` → next
     ``lookup``, so RNG draws, decision streams, and every exact stream
     stay bit-identical to the reference runtime.
+
+    **Feature store.** With a store attached, :meth:`begin_gather` lets
+    the driver dispatch step t's miss-row gather before drawing step
+    t+1's sample. On the ragged path admission rows land in the device
+    payload in one batched scatter (``DeviceEngine.place_rows_batch``);
+    on the raw path the launch itself copied them in. Hit rows for the
+    next probe are captured from the updated payload — the
+    capture-before-overwrite order of the reference.
     """
 
     def __init__(
@@ -168,10 +210,16 @@ class FusedFetchStage:
         feature_dim: int,
         mode: str,
         part_of: np.ndarray | None = None,
+        store=None,
         feature_bytes: int = 4,
     ):
         if time_engine.needs_pairs and part_of is None:
             raise ValueError("per-home comm pricing needs part_of")
+        if store is not None and dev.payload is None:
+            raise ValueError(
+                "feature store needs an engine payload "
+                "(PrefetchEngine(feature_dim=...))"
+            )
         P = dev.num_pes
         self.dev = dev
         self.uses_buffer = uses_buffer
@@ -181,6 +229,7 @@ class FusedFetchStage:
         self.feature_bytes = int(feature_bytes)
         self.mode = mode
         self.part_of = part_of
+        self.store = store
         self.active = uses_buffer & (dev.capacity > 0)
         self._capacity = dev.capacity.astype(np.float64)
         self._prev_missed: list[np.ndarray] = [
@@ -193,40 +242,44 @@ class FusedFetchStage:
 
     # ------------------------------------------------------------------ #
     @tel.spanned("fused.prime", plane="engine")
-    def prime_raw(self, touched: np.ndarray) -> ProbeResult:
-        """Launch 0: probe the first minibatch only (score and replace
-        gated off); dedup and the remote extraction happen on device."""
+    def prime(self, remote: list[np.ndarray], n_remote: np.ndarray) -> ProbeResult:
+        """Launch 0 of the ragged loop: probe the first minibatch only
+        (score and replace gated off)."""
         if self._pending is not None:
-            raise RuntimeError("already primed: step_raw() the pending round")
+            raise RuntimeError("already primed: step() the pending round")
+        P = self.dev.num_pes
+        out = self.dev.fused_step(
+            remote,
+            [np.array([], dtype=np.int64)] * P,
+            self._no_decision,
+            self._no_decision,
+            self.active,
+        )
+        return self._stash_probe(remote, n_remote, out)
+
+    @tel.spanned("fused.prime", plane="engine")
+    def prime_raw(self, touched: np.ndarray) -> ProbeResult:
+        """Launch 0 of the raw loop: probe the first minibatch only
+        (score and replace gated off); dedup and the remote extraction
+        happen on device."""
+        if self._pending is not None:
+            raise RuntimeError("already primed: step() the pending round")
         out = self.dev.fused_step_raw(
             touched, self._no_decision, self._no_decision, self.active
         )
-        return self._stash_probe(out)
+        return self._stash_probe(out.remote, out.n_remote, out)
 
-    @tel.spanned("fused.step", plane="engine")
-    def step_raw(
-        self,
-        decisions: np.ndarray,
-        stalls: np.ndarray,
-        next_touched: np.ndarray,
-    ) -> tuple[CommitResult, ProbeResult]:
-        """Close round t and open round t+1 from the raw ``(P, Mt)``
-        frontier — one launch covers dedup(t+1) → score(t) → replace(t)
-        → probe(t+1). Replacement candidates never touch the host: the
-        launch two steps back compacted its misses on device. The final
-        step passes an empty ``next_touched`` block and discards the
-        returned probe."""
-        if self._pending is None:
-            raise RuntimeError("nothing probed: prime_raw() the pipeline first")
-        pending, self._pending = self._pending, None
+    def begin_gather(self) -> None:
+        """Overlap hook: dispatch the pending round's miss-row gather now
+        (before the next sample draw). Idempotent; no-op without a store."""
+        pending = self._pending
+        if self.store is None or pending is None or "miss_gather" in pending:
+            return
+        pending["miss_gather"] = self.store.gather_batch(pending["missed"])
+
+    def _commit(self, out, missed, stalls) -> CommitResult:
+        """Round t's accounting from the launch that closed it."""
         dev = self.dev
-        out = dev.fused_step_raw(
-            next_touched,
-            self.uses_buffer,
-            decisions & self.uses_buffer,
-            self.active,
-        )
-        missed = pending["missed"]
         self._prev_missed = missed
         self._last_replaced = out.replaced
         self._have_replaced = True
@@ -249,7 +302,7 @@ class FusedFetchStage:
             ),
             stalls,
         )
-        commit = CommitResult(
+        return CommitResult(
             replaced=out.replaced,
             total_comm=total_comm,
             step_time=t,
@@ -257,12 +310,72 @@ class FusedFetchStage:
             missed=missed,
             placed=list(dev.last_placed),
         )
-        return commit, self._stash_probe(out)
+
+    @tel.spanned("fused.step", plane="engine")
+    def step(
+        self,
+        decisions: np.ndarray,
+        stalls: np.ndarray,
+        next_remote: list[np.ndarray],
+        next_n_remote: np.ndarray,
+    ) -> tuple[CommitResult, ProbeResult]:
+        """Close round t and open round t+1 in one fused launch over the
+        host-deduped remote sets. Returns ``(commit(t), probe(t+1))``;
+        the final step passes empty ``next_remote`` sets and discards
+        the returned probe."""
+        if self._pending is None:
+            raise RuntimeError("nothing probed: prime() the pipeline first")
+        pending, self._pending = self._pending, None
+        out = self.dev.fused_step(
+            next_remote,
+            self._prev_missed,
+            self.uses_buffer,
+            decisions & self.uses_buffer,
+            self.active,
+        )
+        commit = self._commit(out, pending["missed"], stalls)
+        if self.store is not None:
+            self._serve_features(commit, pending)
+        # Stash after serving: probe(t+1)'s hit rows must see round t's
+        # admissions in the payload (capture-before-overwrite order).
+        probe = self._stash_probe(next_remote, next_n_remote, out)
+        return commit, probe
+
+    @tel.spanned("fused.step", plane="engine")
+    def step_raw(
+        self,
+        decisions: np.ndarray,
+        stalls: np.ndarray,
+        next_touched: np.ndarray,
+    ) -> tuple[CommitResult, ProbeResult]:
+        """Close round t and open round t+1 from the raw ``(P, Mt)``
+        frontier — one launch covers dedup(t+1) → score(t) → replace(t)
+        → probe(t+1) → payload scatter(t). Replacement candidates never
+        touch the host: the launch two steps back compacted its misses on
+        device. The final step passes an empty ``next_touched`` block and
+        discards the returned probe."""
+        if self._pending is None:
+            raise RuntimeError("nothing probed: prime_raw() the pipeline first")
+        pending, self._pending = self._pending, None
+        out = self.dev.fused_step_raw(
+            next_touched,
+            self.uses_buffer,
+            decisions & self.uses_buffer,
+            self.active,
+        )
+        commit = self._commit(out, pending["missed"], stalls)
+        if self.store is not None:
+            self._serve_features_raw(commit, pending)
+        probe = self._stash_probe(out.remote, out.n_remote, out)
+        return commit, probe
 
     # ------------------------------------------------------------------ #
-    def _stash_probe(self, out) -> ProbeResult:
-        self._pending = {"missed": out.missed}
-        n_remote = out.n_remote
+    def _stash_probe(self, remote, n_remote, out) -> ProbeResult:
+        pending = {"missed": out.missed}
+        if self.store is not None:
+            pending["hit_masks"] = out.hit_masks
+            pending["hit_rows"] = self.dev.pull_rows(out.hit_slots)
+        self._pending = pending
         pct_hits = np.where(
             self.active,
             np.where(
@@ -283,6 +396,69 @@ class FusedFetchStage:
             comm=np.array([len(m) for m in out.missed], dtype=np.int64),
             occupancy=self.dev.occupancy_of(out.n_valid),
             replaced_pct=replaced_pct,
-            remote=list(out.remote),
+            remote=list(remote),
             n_remote=np.asarray(n_remote, dtype=np.int64),
         )
+
+    def _assemble(self, result, pending, miss_gather, placed_bytes) -> None:
+        """Per-PE remote blocks (hits from the probe-time payload
+        capture, misses from the store, in sampled-remote order) and the
+        measured streams."""
+        P = self.dev.num_pes
+        F = self.dev.feature_dim
+        hit_masks = pending["hit_masks"]
+        hit_rows = pending["hit_rows"]
+        features: list[np.ndarray] = []
+        feat_sums = np.zeros(P, dtype=np.float64)
+        bytes_measured = np.zeros(P, dtype=np.int64)
+        for p in range(P):
+            block = np.empty((len(hit_masks[p]), F), dtype=np.float32)
+            block[hit_masks[p]] = hit_rows[p]
+            block[~hit_masks[p]] = miss_gather.blocks[p]
+            features.append(block)
+            feat_sums[p] = block.sum(dtype=np.float64)
+            bytes_measured[p] = miss_gather.blocks[p].nbytes + placed_bytes[p]
+        result.features = features
+        result.feat_sums = feat_sums
+        result.bytes_measured = bytes_measured
+        result.bytes_modeled = (
+            result.total_comm * self.feature_dim * self.feature_bytes
+        )
+
+    @tel.spanned("fetch.serve", plane="store")
+    def _serve_features(self, result: CommitResult, pending: dict) -> None:
+        """Store data path of the ragged loop: the miss gather (maybe
+        pre-dispatched by :meth:`begin_gather`) and one store gather of
+        the admissions, which scatter into the device payload."""
+        dev = self.dev
+        miss_gather = pending.get("miss_gather") or self.store.gather_batch(
+            result.missed
+        )
+        placed_gather = self.store.gather_batch(dev.last_placed, device=True)
+        dev.place_rows_batch(
+            dev.last_slots,
+            placed_gather.blocks,
+            device_block=placed_gather.device_block,
+        )
+        self._assemble(
+            result, pending, miss_gather, [b.nbytes for b in placed_gather.blocks]
+        )
+        result.fetch_seconds = miss_gather.seconds + placed_gather.seconds
+
+    @tel.spanned("fetch.serve", plane="store")
+    def _serve_features_raw(self, result: CommitResult, pending: dict) -> None:
+        """Store data path of the raw loop: admission rows were copied
+        into the device payload inside the launch (verbatim float32 store
+        rows), so only the miss rows cross the store here. Admissions
+        are charged at exactly the staged gather's size
+        (``n_placed * F * 4``)."""
+        dev = self.dev
+        miss_gather = pending.get("miss_gather") or self.store.gather_batch(
+            result.missed
+        )
+        row_bytes = dev.feature_dim * 4  # store rows are float32
+        self._assemble(
+            result, pending, miss_gather,
+            [len(placed) * row_bytes for placed in dev.last_placed],
+        )
+        result.fetch_seconds = miss_gather.seconds

@@ -159,3 +159,146 @@ def test_frontier_outside_partition_map_raises():
     on = np.ones(2, dtype=bool)
     with pytest.raises(ValueError, match="partition map"):
         dev.fused_step_raw(np.full((2, 3), 10, np.int64), on, on, on)
+
+
+# --------------------------------------------------------------------------- #
+# The ragged loop's staged fused step, and the feature payload.
+STEP_FIELDS = (
+    "hit_masks", "missed", "hits", "hit_slots", "replaced", "placed",
+    "placed_slots", "n_valid",
+)
+
+
+def _assert_fields_equal(a, b, fields, what):
+    for f in fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if isinstance(x, list):
+            assert len(x) == len(y), f"{what} {f}"
+            for p, (u, v) in enumerate(zip(x, y)):
+                np.testing.assert_array_equal(u, v, err_msg=f"{what} {f} PE {p}")
+        else:
+            np.testing.assert_array_equal(x, y, err_msg=f"{what} {f}")
+
+
+def _stores(P, n_nodes, part_of, F=5):
+    from repro.store import FeatureStore as JStore
+    from repro_torch.store import FeatureStore
+
+    feats = np.random.default_rng(7).standard_normal((n_nodes, F)).astype(np.float32)
+    return (
+        JStore(feats, part_of, P, backend="numpy"),
+        FeatureStore(feats, part_of, P, device="cpu"),
+    )
+
+
+@pytest.mark.parametrize(
+    "seed,policy,with_store",
+    [
+        (10, "rudder", False),
+        (11, "degree", True),
+        (12, "hybrid", False),
+        (13, "frequency", True),
+    ],
+)
+def test_rotated_fused_steps_match_reference(seed, policy, with_store):
+    """The ragged loop's launches: host-deduped query sets of different
+    lengths per PE, the previous round's misses as candidates (duplicates
+    and resident ids included), rotated as ``FusedFetchStage`` drives
+    them; with a store, admission rows go through ``place_rows_batch``
+    and hit rows come back through ``pull_rows``."""
+    P, n_nodes, steps = 4, 200, 6
+    rng, ref_eng, port_eng = _engines(seed, P, n_nodes, policy)
+    part_of = rng.integers(0, P, size=n_nodes).astype(np.int64)
+    F = 5
+    if with_store:
+        caps = [int(c) for c in ref_eng.capacity]
+        ref_eng = jeng.PrefetchEngine(caps, policy=policy, feature_dim=F,
+                                      node_weights=ref_eng._node_weights)
+        port_eng = teng.PrefetchEngine(caps, policy=policy, feature_dim=F,
+                                       node_weights=port_eng._node_weights)
+    ref_dev = jeng.DeviceEngine(copy.deepcopy(ref_eng), backend="jnp", part_of=part_of)
+    port_dev = teng.DeviceEngine(port_eng, device="cpu", part_of=part_of)
+    if with_store:
+        jstore, tstore = _stores(P, n_nodes, part_of, F)
+
+    uses_buffer = rng.random(P) > 0.2
+    active = uses_buffer & (ref_eng.capacity > 0)
+    zeros = np.zeros(P, dtype=bool)
+    prev = [np.array([], np.int64)] * P
+    for t in range(steps + 1):
+        queries = [
+            np.unique(rng.integers(0, n_nodes, size=int(rng.integers(0, 25))))
+            for _ in range(P)
+        ]
+        if t == 0:
+            args = (queries, [np.array([], np.int64)] * P, zeros, zeros, active)
+        else:
+            dec = (rng.random(P) > 0.3) & uses_buffer
+            args = (queries, prev, uses_buffer, dec, active)
+        want = ref_dev.fused_step(*args)
+        got = port_dev.fused_step(*args)
+        _assert_fields_equal(got, want, STEP_FIELDS, f"launch {t}")
+        _assert_unique_resident(port_dev)
+        prev = [np.concatenate([m, m[:2]]) for m in want.missed]  # with repeats
+        if with_store:
+            for dev, store in ((ref_dev, jstore), (port_dev, tstore)):
+                g = store.gather_batch(dev.last_placed, device=True)
+                dev.place_rows_batch(dev.last_slots, g.blocks, device_block=g.device_block)
+            for a, b in zip(port_dev.pull_rows(got.hit_slots), ref_dev.pull_rows(want.hit_slots)):
+                np.testing.assert_array_equal(a, b)
+
+    # One packed upload and one packed readback per launch (plus one
+    # readback per non-empty pull_rows), where the reference makes five
+    # uploads per launch (six with degree weights); its d2h bytes follow
+    # its 64-bucketed widths, the port's the exact ones.
+    n = steps + 1
+    assert port_dev.transfers["d2h"] == ref_dev.transfers["d2h"] >= n
+    assert port_dev.transfers["h2d"] == n
+    assert ref_dev.transfers["h2d"] == n * (6 if policy == "degree" else 5)
+    ref_state, port_state = ref_dev.sync_to_engine(), port_dev.sync_to_engine()
+    for f in STATE + (("payload",) if with_store else ()):
+        a, b = getattr(port_state, f), getattr(ref_state, f)
+        assert a.dtype == b.dtype, f
+        np.testing.assert_array_equal(a, b, err_msg=f)
+    for f in STATS:
+        np.testing.assert_array_equal(
+            getattr(port_dev.stats, f), getattr(ref_dev.stats, f), err_msg=f
+        )
+
+
+def test_raw_launches_scatter_admission_rows_like_the_reference():
+    """The single-launch step with a store attached: admission rows are
+    copied from the store's device view into the payload inside the step."""
+    P, n_nodes = 3, 120
+    rng = np.random.default_rng(21)
+    part_of = rng.integers(0, P, size=n_nodes).astype(np.int64)
+    caps = [6, 0, 9]
+    ref_dev = jeng.DeviceEngine(
+        jeng.PrefetchEngine(caps, feature_dim=5), backend="jnp", part_of=part_of
+    )
+    port_dev = teng.DeviceEngine(
+        teng.PrefetchEngine(caps, feature_dim=5), device="cpu", part_of=part_of
+    )
+    jstore, tstore = _stores(P, n_nodes, part_of)
+    ref_dev.attach_store(jstore)
+    port_dev.attach_store(tstore)
+    on = np.ones(P, dtype=bool)
+    for t in range(6):
+        f = rng.integers(-1, n_nodes, size=(P, 30))
+        args = (f, on if t else ~on, on if t else ~on, on)
+        want, got = ref_dev.fused_step_raw(*args), port_dev.fused_step_raw(*args)
+        _assert_out_equal(got, want, f"launch {t}")
+        np.testing.assert_array_equal(port_dev.payload.numpy(), np.asarray(ref_dev.payload))
+    assert int(port_dev.stats.replaced_total.sum()) > 0
+    ref_state, port_state = ref_dev.sync_to_engine(), port_dev.sync_to_engine()
+    np.testing.assert_array_equal(port_state.payload, ref_state.payload)
+
+
+def test_fused_step_ids_outside_partition_map_raise():
+    dev = teng.DeviceEngine(
+        teng.PrefetchEngine([4, 4]), device="cpu", part_of=np.zeros(10, np.int64)
+    )
+    on = np.ones(2, dtype=bool)
+    empty = [np.array([], np.int64)] * 2
+    with pytest.raises(ValueError, match="partition map"):
+        dev.fused_step([np.array([10]), np.array([1])], empty, on, on, on)

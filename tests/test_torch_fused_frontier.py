@@ -7,8 +7,9 @@ reference's Pallas kernel in interpret mode, on the seeded scenario set
 that ``chip_smoke.py`` also runs on the card: all five scoring policies,
 weighted and unweighted, scores on the stale threshold, capacity-masked
 slots, empty and all-duplicate frontier rows, the drained ``Mt == 1``
-launch and the initial all -1 ``(P, 1)`` candidate block. Scores are
-compared as their int32 bit patterns.
+launch and the initial all -1 ``(P, 1)`` candidate block — each with and
+without a feature-store table, whose admission rows the step copies into
+the payload. Scores are compared as their int32 bit patterns.
 """
 
 import numpy as np
@@ -21,8 +22,8 @@ from repro_torch.kernels import native, ops, ref, scenarios
 
 SCENARIOS = scenarios.frontier_scenarios()
 OUT_NAMES = (
-    "ids2", "scores2", "valid2", "accessed3", "weights2", "cand_next",
-    "packed", "counters",
+    "ids2", "scores2", "valid2", "accessed3", "weights2", "payload2",
+    "cand_next", "packed", "counters",
 )
 
 
@@ -46,23 +47,45 @@ def _assert_same(got, want, what):
         np.testing.assert_array_equal(_bits(a), _bits(b), err_msg=f"{what}: {name}")
 
 
-def _drop_payload(out):
-    """The reference returns ``payload2`` in slot 5; the port has no
-    feature store on this path yet."""
-    return [x for i, x in enumerate(out) if i != 5]
+def _store_view(sc, F=3):
+    """A seeded ``(payload, table, loc)`` triple for the scenario: the
+    flat store table is a permutation of its rows, as the store's
+    partition-major layout is."""
+    P, C = sc.ids.shape
+    N = sc.part_of.shape[0]
+    rng = np.random.default_rng(P * 1000 + C)
+    payload = rng.standard_normal((P * C, F)).astype(np.float32)
+    table = rng.standard_normal((N + 5, F)).astype(np.float32)
+    loc = rng.permutation(N + 5)[:N].astype(np.int32)
+    return payload, table, loc
+
+
+def _check(sc, view):
+    arr = sc.arrays()
+    kw = dict(cand_cap=sc.cand_cap, **sc.constants)
+    got = ops.fused_frontier_step_batch(
+        *[_torch(a) for a in (*arr.values(), *view)], **kw
+    )
+    oracle = jref.fused_frontier_step(*arr.values(), *view, **kw)
+    pallas = fused_frontier_step_pallas(*arr.values(), *view, interpret=True, **kw)
+    _assert_same(got, oracle, f"{sc.name} vs jnp oracle")
+    _assert_same(got, pallas, f"{sc.name} vs Pallas")
+    return got
 
 
 @pytest.mark.parametrize("sc", SCENARIOS, ids=[s.name for s in SCENARIOS])
 def test_plain_matches_oracle_and_pallas(sc):
-    arr = sc.arrays()
-    kw = dict(cand_cap=sc.cand_cap, **sc.constants)
-    got = ops.fused_frontier_step_batch(*[_torch(a) for a in arr.values()], **kw)
-    oracle = jref.fused_frontier_step(*arr.values(), None, None, None, **kw)
-    pallas = fused_frontier_step_pallas(
-        *arr.values(), None, None, None, interpret=True, **kw
-    )
-    _assert_same(got, _drop_payload(oracle), f"{sc.name} vs jnp oracle")
-    _assert_same(got, _drop_payload(pallas), f"{sc.name} vs Pallas")
+    _check(sc, (None, None, None))
+
+
+STORE_CASES = [s for s in SCENARIOS if s.name in ("rudder-u", "degree-w", "drained-Mt1", "one-pe")]
+
+
+@pytest.mark.parametrize("sc", STORE_CASES, ids=[s.name for s in STORE_CASES])
+def test_payload_scatter_matches_oracle_and_pallas(sc):
+    payload, table, loc = _store_view(sc)
+    got = _check(sc, (payload, table, loc))
+    assert got[5].shape == payload.shape
 
 
 def test_scenarios_cover_the_edge_cases():
@@ -103,7 +126,7 @@ def test_scores_on_the_threshold_flip_exactly():
     kw = dict(cand_cap=4, threshold=float(pol_t))
     out = ref.fused_frontier_step(*[_torch(a) for a in args.values()], **kw)
     oracle = jref.fused_frontier_step(*args.values(), None, None, None, **kw)
-    _assert_same(out, _drop_payload(oracle), "threshold")
+    _assert_same(out, oracle, "threshold")
     # slot 0 decays to exactly 0.95 and stays; slot 1 goes stale and is replaced
     assert out[0].tolist() == [[3, 5]]
 

@@ -1,0 +1,151 @@
+"""The port's plain ``fused_step`` against the reference package.
+
+``repro_torch.kernels.ref.fused_step`` is the spec the Hopper kernel
+``csrc/fused_step.cu`` is held to on the card. Here, on the CPU, it is held
+bit for bit (tolerance: none; scores compared as their int32 bit patterns)
+against the reference's jnp oracle (``repro.kernels.ref.fused_step``) and
+its Pallas kernel in interpret mode, over the seeded scenario set that
+``chip_smoke.py`` also runs on the card: all five scoring policies,
+weighted and unweighted, empty query and candidate rows, all-duplicate
+candidates, candidates already resident, every gate off, capacity-masked
+slots and scores on the stale threshold.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.fused_step import fused_step_pallas
+from repro_torch.kernels import native, ops, scenarios
+from repro_torch.runtime.engine import PrefetchEngine
+
+SCENARIOS = scenarios.fused_step_scenarios()
+OUT_NAMES = (
+    "ids2", "scores2", "valid2", "accessed3", "weights2", "hit", "hit_slot",
+    "placed", "slot_pos", "n_placed", "n_valid",
+)
+
+
+def _torch(a):
+    return None if a is None else torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _bits(a):
+    a = np.asarray(a)
+    return a.view(np.int32) if a.dtype == np.float32 else a
+
+
+def _run(sc):
+    return ops.fused_step_batch(
+        *[_torch(a) for a in sc.arrays().values()],
+        num_ids=sc.num_ids, **sc.constants,
+    )
+
+
+def _assert_same(got, want, what):
+    assert len(got) == len(want) == len(OUT_NAMES)
+    for name, a, b in zip(OUT_NAMES, got, want):
+        if a is None or b is None:
+            assert a is None and b is None, f"{what}: {name}"
+            continue
+        a = a.numpy()
+        b = np.asarray(b)
+        assert a.shape == b.shape, f"{what}: {name} {a.shape} vs {b.shape}"
+        np.testing.assert_array_equal(_bits(a), _bits(b), err_msg=f"{what}: {name}")
+
+
+@pytest.mark.parametrize("sc", SCENARIOS, ids=[s.name for s in SCENARIOS])
+def test_plain_matches_oracle_and_pallas(sc):
+    arr = sc.arrays()
+    got = _run(sc)
+    _assert_same(got, jref.fused_step(*arr.values(), **sc.constants), f"{sc.name} oracle")
+    _assert_same(
+        got,
+        fused_step_pallas(*arr.values(), interpret=True, **sc.constants),
+        f"{sc.name} Pallas",
+    )
+
+
+def test_scenarios_cover_the_edge_cases():
+    by = {s.name: s for s in SCENARIOS}
+    for policy in scenarios.POLICIES:
+        assert by[f"{policy}-u"].weights is None
+        assert by[f"{policy}-w"].cand_weights is not None
+    assert (by["empty-rows"].queries[0] == -1).all()
+    assert (by["empty-rows"].cand[0] == -1).all()
+    dup = by["dup-cand"].cand[-1]
+    assert (dup == dup[0]).all()
+    res = by["resident-cand"]
+    assert np.isin(res.cand[0], res.ids[0][res.valid[0]]).any()
+    off = by["gates-off"]
+    assert not (off.active_score | off.do_replace | off.active_probe).any()
+    assert any((~s.in_capacity).any() for s in SCENARIOS)
+    assert any(_run(s)[9].sum() > 0 for s in SCENARIOS)  # something placed
+    assert any(_run(s)[5].any() for s in SCENARIOS)      # something hit
+    for s in SCENARIOS:
+        for p in range(s.ids.shape[0]):
+            live = s.ids[p][s.valid[p]]
+            assert len(np.unique(live)) == len(live)
+        # queries are host-deduped remote sets: unique per row
+        for row in s.queries:
+            q = row[row >= 0]
+            assert len(np.unique(q)) == len(q)
+
+
+def test_every_gate_off_keeps_the_state():
+    sc = next(s for s in SCENARIOS if s.name == "gates-off")
+    ids2, s2, valid2, acc3, _w2, hit, hit_slot, placed, *_ = _run(sc)
+    np.testing.assert_array_equal(ids2.numpy(), sc.ids)
+    np.testing.assert_array_equal(_bits(s2.numpy()), _bits(sc.scores))
+    np.testing.assert_array_equal(valid2.numpy(), sc.valid)
+    np.testing.assert_array_equal(acc3.numpy(), sc.accessed)
+    assert not hit.any() and not placed.any() and (hit_slot == -1).all()
+
+
+def test_zero_capacity_is_impossible_by_construction():
+    """``C == 0`` never reaches a launch: the engine pads ``C`` to at least
+    one slot (a zero-capacity PE owns only padding slots), and the
+    dispatcher refuses ``C == 0`` on either device — the reference's jnp
+    route for it (``ops.py:274-277``) has no counterpart on the card."""
+    assert PrefetchEngine([0, 0, 0]).max_capacity == 1
+    assert PrefetchEngine([]).max_capacity == 1
+    sc = SCENARIOS[0]
+    arr = {k: _torch(v) for k, v in sc.arrays().items()}
+    for k in ("ids", "scores", "valid", "accessed", "in_capacity"):
+        arr[k] = arr[k][:, :0]
+    with pytest.raises(ValueError, match="C >= 1"):
+        ops.fused_step_batch(*arr.values(), num_ids=sc.num_ids, **sc.constants)
+
+
+def test_wide_ids_raise():
+    sc = SCENARIOS[0]
+    args = [_torch(a) for a in sc.arrays().values()]
+    args[6] = args[6].to(torch.int64)  # queries
+    with pytest.raises(NotImplementedError, match="Queue B #6"):
+        ops.fused_step_batch(*args, num_ids=sc.num_ids, **sc.constants)
+
+
+def test_pack_readback_matches_reference():
+    from repro.kernels import ops as jops
+
+    out = _run(SCENARIOS[1])
+    host = [out[i] for i in (5, 6, 7, 8, 10)]
+    got = ops.pack_readback(*host).numpy()
+    want = np.asarray(jops.pack_readback(*[h.numpy() for h in host]))
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == np.int32
+
+
+def test_cpu_route_launches_nothing_and_wrapper_refuses_cpu():
+    before = dict(native.LAUNCHES)
+    _run(SCENARIOS[0])
+    assert native.LAUNCHES == before
+    from repro_torch.kernels.fused_step import fused_step_cuda
+
+    sc = SCENARIOS[0]
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        fused_step_cuda(
+            *[_torch(a) for a in sc.arrays().values()],
+            num_ids=sc.num_ids, **sc.constants,
+        )

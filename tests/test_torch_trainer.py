@@ -5,10 +5,14 @@
 experiment (the ``products`` preset at ``scale=0.15``, 4 trainers, batch 16,
 2 epochs, GraphSAGE training on) for every variant: sampling, decisions,
 the single-launch device step, the time engine and the data-parallel SGD
-step. The graph arrays the two packages generate are equal; every log
-stream, ``engine.stats`` and the final buffer state are bit-identical; the
-losses agree per step to ``rtol=1e-5, atol=1e-6`` (float32 sums in another
-order, compounded over the SGD steps) and the accuracies exactly.
+step. Then the ragged-seed-block loop (batch 72 and 1000: the PEs' local
+train sets of 73, 70, 74 and 71 nodes give blocks of unequal length) and
+feature-store runs on both loops. The graph arrays the two packages
+generate are equal; every log stream (the store's ``bytes_measured``,
+``bytes_modeled`` and ``feat_sums`` included), ``engine.stats`` and the
+final buffer state and payload are bit-identical; the losses agree per
+step to ``rtol=1e-5, atol=1e-6`` (float32 sums in another order,
+compounded over the SGD steps) and the accuracies exactly.
 """
 
 import jax
@@ -20,6 +24,9 @@ import repro.gnn as jgnn
 import repro.graph as jgraph
 import repro_torch.gnn as tgnn
 import repro_torch.graph as tgraph
+from repro.store import FeatureStore as JStore
+from repro_torch.runtime import driver
+from repro_torch.store import FeatureStore
 
 RTOL, ATOL = 1e-5, 1e-6
 COMMON = dict(epochs=2, batch_size=16, train_model=True, buffer_frac=0.25)
@@ -31,6 +38,7 @@ STATS = (
     "lookups", "hits", "misses", "replaced_total", "replacement_rounds",
     "skipped_rounds",
 )
+STORE_STREAMS = ("bytes_measured", "bytes_modeled", "feat_sums")
 
 
 @pytest.fixture(scope="module")
@@ -112,11 +120,93 @@ def test_torch_init_without_reference_params(parts):
     assert a.losses == b.losses and np.isfinite(a.losses).all()
 
 
+def _compare(parts, variant, store=None, port_store=None, **kw):
+    """Run both trainers; assert every stream, stat and state is equal."""
+    ref_parts, port_parts = parts
+    kw = dict(COMMON, **kw)
+    if variant == "rudder":
+        kw["deciders"] = ["gemma3-4b"]
+    ref_tr = jgnn.DistributedTrainer(
+        ref_parts, variant=variant, device="jnp", feature_store=store, **kw
+    )
+    init = jax.tree_util.tree_map(np.asarray, ref_tr.params) if kw["train_model"] else None
+    port_tr = tgnn.DistributedTrainer(
+        port_parts, variant=variant, device="cpu", init_params=init,
+        feature_store=port_store, **kw,
+    )
+    ref_run, port_run = ref_tr.run(), port_tr.run()
+    streams = STREAMS + (STORE_STREAMS if store is not None else ())
+    for p, (a, b) in enumerate(zip(port_run.logs, ref_run.logs)):
+        for f in streams:
+            assert getattr(a, f) == getattr(b, f), f"PE {p} {f}"
+    assert port_run.epoch_times == ref_run.epoch_times
+    for f in STATS:
+        np.testing.assert_array_equal(
+            getattr(port_tr.engine.stats, f), getattr(ref_tr.engine.stats, f), err_msg=f
+        )
+    state = ("ids", "scores", "valid", "accessed", "weights")
+    for f in state + (("payload",) if store is not None else ()):
+        np.testing.assert_array_equal(
+            getattr(port_tr.engine, f), getattr(ref_tr.engine, f), err_msg=f
+        )
+    np.testing.assert_allclose(port_run.losses, ref_run.losses, rtol=RTOL, atol=ATOL)
+    assert port_run.accuracy == pytest.approx(ref_run.accuracy, abs=1e-7)
+    return port_tr, port_run
+
+
+@pytest.mark.parametrize(
+    "variant,batch,train",
+    [("rudder", 72, True), ("fixed", 72, False), ("massivegnn", 1000, True)],
+)
+def test_ragged_seed_blocks_match_reference(parts, variant, batch, train):
+    _, port = parts
+    tr, run = _compare(parts, variant, batch_size=batch, train_model=train)
+    assert not driver._device_raw_supported(tr)
+    steps = COMMON["epochs"] * tr.mb_per_epoch
+    assert len(run.logs[0].pct_hits) == steps
+    # One packed upload and one packed readback per fused_step launch
+    # (prime + one per step); the reference makes five uploads per launch.
+    assert tr.last_device_engine.transfers["h2d"] == steps + 1
+    assert tr.last_device_engine.transfers["d2h"] == steps + 1
+
+
+@pytest.mark.parametrize(
+    "variant,batch,use_kernel",
+    [("massivegnn", 16, True), ("rudder", 16, False), ("fixed", 72, True),
+     ("massivegnn", 72, False)],
+)
+def test_feature_store_runs_match_reference(parts, variant, batch, use_kernel):
+    """Store-enabled runs on the raw loop (batch 16: the in-launch payload
+    scatter) and the ragged loop (batch 72: ``place_rows_batch``). The
+    reference's store gathers on the host; the port's goes through its
+    ``gather_rows_batch`` route where ``use_kernel`` is set — the rows
+    are the same either way."""
+    ref_parts, port_parts = parts
+    store = JStore.for_partitions(ref_parts, backend="numpy")
+    port_store = FeatureStore.for_partitions(port_parts, device="cpu", use_kernel=use_kernel)
+    tr, run = _compare(
+        parts, variant, store=store, port_store=port_store, batch_size=batch
+    )
+    assert driver._device_raw_supported(tr) == (batch == 16)
+    assert run.total_bytes_measured == run.total_bytes_modeled > 0
+    assert all(np.isfinite(log.fetch_seconds).all() for log in run.logs)
+    assert (port_store.kernel_gathers > 0) == use_kernel
+
+
+def test_feature_store_true_builds_a_store_on_the_trainer_device(parts):
+    _, port = parts
+    tr = tgnn.DistributedTrainer(
+        port, variant="fixed", device="cpu", feature_store=True, **COMMON
+    )
+    assert isinstance(tr.feature_store, FeatureStore)
+    assert tr.feature_store.device == tr.device
+    assert tr.engine.payload.shape[2] == port.graph.features.shape[1]
+    assert tr.features is None  # the training step reads through the store
+
+
 @pytest.mark.parametrize(
     "kwargs,match",
     [
-        (dict(trace=True), "trace"),
-        (dict(feature_store=True), "feature store"),
         (dict(telemetry=True), "telemetry"),
         (dict(runtime="legacy"), "legacy"),
         (dict(device=False), "staged"),
@@ -134,7 +224,6 @@ def test_unported_options_raise(parts, kwargs, match):
     "kwargs,match",
     [
         (dict(readback_every=2), "readback_every"),
-        (dict(batch_size=1000), "ragged"),
     ],
 )
 def test_unported_run_paths_raise(parts, kwargs, match):
