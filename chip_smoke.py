@@ -10,7 +10,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 2. every kernel against its plain PyTorch version on the card, bit for bit,
    on the seeded scenario sets of the CPU tests: ``fused_frontier_step``
    (with and without a feature-store table), ``fused_step``,
-   ``gather_rows_batch`` and ``gather_rows``;
+   ``gather_rows_batch`` and ``gather_rows``; ``fused_frontier_step_wide``
+   and ``fused_step_wide`` on the wide sets (int64 ids at bases past 2^31
+   and 2^32, ids ending at ``WIDE_ID_MAX``, a sparse set spread over 2^40),
+   each in both index modes of the kernels (direct maps and sorted);
 3. the raw main path: ``DistributedTrainer(device="cuda")`` on the products
    preset at ``scale=10`` (240k nodes), 4 trainers, batch 2000, fanouts
    (10, 25), 25% buffers, rudder variant, 3 epochs of GraphSAGE training;
@@ -22,12 +25,24 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    card, 8 epochs of one step each; ``fused_step`` and ``gather_rows_batch``
    against their plain versions on the run's captured launches, all timed;
 4. card vs CPU: the raw path at ``scale=1`` (batch 256), the same with the
-   feature store (the in-launch payload scatter), and a ragged store run
-   (products ``scale=0.15``, batch 72): every integer and bool stream, the
-   store streams, the buffer state and payload identical, losses allclose;
+   feature store (the in-launch payload scatter), a ragged store run
+   (products ``scale=0.15``, batch 72), the raw path on the graph rebased
+   past 2^31 (wide ids) and on the readback cadence: every integer and bool
+   stream, the store streams, the buffer state and payload identical,
+   losses allclose;
 5. the 8 committed golden traces re-recorded on the card, modeled and with
    the feature store: each ``exact_digest`` equals the golden's;
-6. a ``kernels`` JSON line, and as the last line the device JSON line.
+6. the wide raw loop: phase 3's graph rebased to id_base ``2**31 + 1000``,
+   phase 3's run through ``fused_frontier_step_wide`` only: every stream,
+   stat and buffer state equal to phase 3's (ids shifted), the kernel
+   bit-exact on every launch of the run, timed, stage times beside phase 3's;
+6b. the wide ragged loop with the store: phase 3b's graph rebased, phase
+   3b's run through ``fused_step_wide`` and ``gather_rows_batch``: streams,
+   ``feat_sums``, bytes, state and payload equal to phase 3b's;
+7. the readback cadence: phase 3's graph, narrow and rebased, the ``fixed``
+   controller at ``readback_every=4`` against ``readback_every=1``: equal
+   logs, one counter pull per 4 launches, the readback time per step;
+8. a ``kernels`` JSON line, and as the last line the device JSON line.
 
 Each path's launch counts are zeroed just before it runs and read just
 after. Every phase raises on failure, so any failure exits non-zero.
@@ -71,6 +86,13 @@ SMALL = dict(RUN, batch_size=256, epochs=2)
 SMALL_RAGGED = dict(RUN, batch_size=72, epochs=2)
 MAIN_SCALE, RAGGED_SCALE, SMALL_SCALE, SMALL_RAGGED_SCALE = 10, 10, 1, 0.15
 DEVICE = "cuda"
+#: Phases 6, 6b and 7: the wide runs rebase phase 3's and 3b's graphs to
+#: this id base (just past int32); the cadence reads counters back every
+#: CADENCE launches, with the ``fixed`` controller (the adaptive ones read
+#: per-step metrics, which the cadence never materialises).
+WIDE_BASE = 2**31 + 1000
+CADENCE = 4
+FIXED = dict(RUN, variant="fixed")
 
 #: Loss tolerance of the card-vs-CPU runs: the same float32 math, summed in
 #: another order by the card's matmul and reduction kernels, over a few SGD
@@ -344,9 +366,34 @@ def print_stages(tag, stage_ms, steps, wall):
           + json.dumps({k: round(v[0], 3) for k, v in stage_ms.items() if len(v)}))
 
 
-def compare_runs(what, a_tr, a_run, b_tr, b_run, store: bool):
-    """Card run ``a`` against CPU run ``b``: every stream, stat and the
-    buffer state (and store streams and payload) identical, losses allclose."""
+def stage_medians(clock) -> dict:
+    """Median ms per step of the raw loop's stages (the drained last
+    launch left out), for the side-by-side prints of phases 6 and 7."""
+    import numpy as np
+
+    return {
+        k: float(np.median(v)) for k, v in {
+            "step": clock.ms("step"),
+            "sample_host": clock.ms("sample"),
+            "launch_host": clock.ms("device.launch", True),
+            "readback": clock.ms("device.readback", True),
+            "train": clock.ms("train"),
+        }.items() if len(v)
+    }
+
+
+def shift_ids(ids, base: int):
+    """Engine ids with every valid (non-negative) id moved up by ``base``."""
+    import numpy as np
+
+    return np.where(ids >= 0, ids + np.int64(base), ids)
+
+
+def compare_runs(what, a_tr, a_run, b_tr, b_run, store: bool, base: int = 0):
+    """Run ``a`` against run ``b`` (card against CPU, or a rebased run
+    against its narrow twin, whose ids ``base`` lower): every stream, stat
+    and the buffer state (and store streams and payload) identical, ids
+    shifted by ``base``, losses allclose."""
     import numpy as np
 
     streams = STREAMS + (STORE_STREAMS if store else ())
@@ -358,7 +405,10 @@ def compare_runs(what, a_tr, a_run, b_tr, b_run, store: bool):
         if not np.array_equal(getattr(a_tr.engine.stats, f), getattr(b_tr.engine.stats, f)):
             raise AssertionError(f"{what}: engine.stats.{f} differs")
     for f in ("ids", "scores", "valid", "accessed", "weights") + (("payload",) if store else ()):
-        if not np.array_equal(getattr(a_tr.engine, f), getattr(b_tr.engine, f)):
+        b_val = getattr(b_tr.engine, f)
+        if f == "ids" and base:
+            b_val = shift_ids(b_val, base)
+        if not np.array_equal(getattr(a_tr.engine, f), b_val):
             raise AssertionError(f"{what}: engine.{f} differs")
     np.testing.assert_allclose(a_run.losses, b_run.losses, rtol=LOSS_RTOL, atol=LOSS_ATOL)
     if store and a_run.total_bytes_measured != a_run.total_bytes_modeled:
@@ -464,13 +514,63 @@ def main() -> int:
             compare_outputs(single, ref.gather_rows(tables[0], idx[0]), ["out"],
                             f"gather_rows {sc.name}"),
         )
+    # The wide sets, in both index modes of the kernels: as the wrapper
+    # picks them (direct maps, the sorted mode for the sparse fused-step
+    # sets), then with a map budget of 0, which forces the sorted mode.
+    wide_cases = scenarios.wide_frontier_scenarios()
+    budget = fs.MAP_BUDGET_BYTES
+    for sc in wide_cases:
+        args = to_device(sc.arrays().values(), dev)
+        kw = sc.kwargs()
+        views = [(None, None, None)]
+        if sc.name.startswith(("rudder-u@", "degree-w@", "drained-Mt1@")):
+            P, C = sc.ids.shape
+            N = sc.part_of.shape[0]
+            rng = np.random.default_rng(7)
+            views.append(tuple(to_device((
+                rng.standard_normal((P * C, 5)).astype(np.float32),
+                rng.standard_normal((N + 3, 5)).astype(np.float32),
+                rng.permutation(N + 3)[:N].astype(np.int32),
+            ), dev)))
+        for view in views:
+            want = ref.fused_frontier_step_wide(*args, *view, **kw)
+            for b in (budget, 0):
+                fs.MAP_BUDGET_BYTES = b
+                got = fs.fused_frontier_step_wide_cuda(*args, *view, **kw)
+                torch.cuda.synchronize()
+                max_err["fused_frontier_step_wide"] = max(
+                    max_err["fused_frontier_step_wide"],
+                    compare_outputs(got, want, FRONTIER_OUT,
+                                    f"frontier wide {sc.name} budget={b}"),
+                )
+            fs.MAP_BUDGET_BYTES = budget
+    wide_steps = scenarios.wide_fused_step_scenarios()
+    for sc in wide_steps:
+        args = to_device(sc.arrays().values(), dev)
+        want = ref.fused_step_wide(*args, **sc.constants)
+        for b in (budget, 0):
+            fs.MAP_BUDGET_BYTES = b
+            got = fs.fused_step_wide_cuda(
+                *args, id_lo=sc.id_lo, num_ids=sc.num_ids, **sc.constants
+            )
+            torch.cuda.synchronize()
+            max_err["fused_step_wide"] = max(
+                max_err["fused_step_wide"],
+                compare_outputs(got, want, STEP_OUT,
+                                f"fused_step wide {sc.name} budget={b}"),
+            )
+        fs.MAP_BUDGET_BYTES = budget
     phase2 = dict(native.LAUNCHES)
     print(
         f"phase 2: kernel == plain, bit-exact: fused_frontier_step on "
         f"{len(cases)} scenarios (3 also with a store table), fused_step on "
         f"{len(steps_cases)} ({', '.join(s.name for s in steps_cases)}), "
         f"gather_rows_batch and gather_rows on {len(gathers)} "
-        f"({', '.join(s.name for s in gathers)}); launches {phase2}"
+        f"({', '.join(s.name for s in gathers)}); fused_frontier_step_wide on "
+        f"{len(wide_cases)} wide scenarios (bases {sorted({s.id_base for s in wide_cases})}; "
+        f"3 per base also with a store table), fused_step_wide on {len(wide_steps)} "
+        f"({', '.join(s.name for s in wide_steps)}), each in both index modes "
+        f"(direct maps and sorted); launches {phase2}"
     )
 
     # -- 3. the raw main path on the card --------------------------------- #
@@ -557,6 +657,9 @@ def main() -> int:
     )
     print("phase 3: device time per launch by kernel (torch.profiler): "
           + profile_rows(lambda: fs.fused_frontier_step_cuda(*args, **kw)))
+    # Phases 6 and 7 rebase this graph and compare with this run.
+    g_main, main = g, (trainer, result)
+    stages_main = stage_medians(clock)
     del trainer, result, clock, captured, g, parts
 
     # -- 3b. the ragged path, with the feature store ----------------------- #
@@ -713,6 +816,7 @@ def main() -> int:
         f"index_select {l_ms:.4f} ms; {nbytes} bytes ({uniq0} distinct rows read); "
         f"bound {b_ms:.4f} ms ({b_by})"
     )
+    g_papers, papers = g, (trainer, result)
     del trainer, result, clock, step_caps, gather_caps, store, g, parts, tables, idx
 
     # -- 4. card vs CPU, end to end --------------------------------------- #
@@ -720,10 +824,13 @@ def main() -> int:
     p1g = partition_graph(g1, 4)
     g2 = generate("products", seed=0, scale=SMALL_RAGGED_SCALE)
     p2g = partition_graph(g2, 4)
+    p1w = partition_graph(g1.rebase(WIDE_BASE), 4)
     for what, parts_, cfg, with_store in (
         ("raw", p1g, SMALL, False),
         ("raw + store", p1g, SMALL, True),
         ("ragged + store", p2g, SMALL_RAGGED, True),
+        ("raw, wide ids", p1w, SMALL, False),
+        ("raw, cadence", p1g, dict(SMALL, variant="fixed", readback_every=CADENCE), False),
     ):
         raw_path = what.startswith("raw")
         runs = {}
@@ -760,24 +867,224 @@ def main() -> int:
     print(f"phase 5: all {len(goldens)} goldens re-recorded on the card, modeled and "
           f"with the feature store: exact_digest matched ({', '.join(p.stem for p in goldens)})")
 
-    # -- 6. results ------------------------------------------------------- #
+    # -- 6. the wide raw loop at full width --------------------------------- #
+    t0 = time.perf_counter()
+    parts = partition_graph(g_main.rebase(WIDE_BASE), 4)
+    trainer = DistributedTrainer(parts, device=DEVICE, **RUN)
+    steps = trainer.epochs * trainer.mb_per_epoch
+    print(f"phase 6: products scale={MAIN_SCALE} rebased to id_base {WIDE_BASE} "
+          f"(ids {WIDE_BASE}..{WIDE_BASE + g_main.num_nodes - 1}), phase 3's run; "
+          f"set-up {time.perf_counter() - t0:.1f} s")
+    clock = StageClock(["fused_frontier_step_wide_batch"])
+    native.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with telemetry.active(clock):
+        result = trainer.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_wide = dict(native.LAUNCHES)
+    if launches_wide["fused_frontier_step_wide"] != steps + 1 or launches_wide["fused_frontier_step"]:
+        raise AssertionError(f"phase 6: launches {launches_wide}")
+    dev_w = trainer.last_device_engine
+    if not dev_w.wide or dev_w.transfers["h2d"] != steps + 1 or dev_w.transfers["d2h"] != steps + 1:
+        raise AssertionError(f"phase 6: wide {dev_w.wide}, transfers {dev_w.transfers}")
+    diff = compare_runs("phase 6 (wide vs phase 3)", trainer, result, *main, False, WIDE_BASE)
+    captured = clock.launches["fused_frontier_step_wide_batch"]
+    print(
+        f"phase 6: {steps} steps, launches {launches_wide} (fused_frontier_step_wide = "
+        f"steps + 1, no narrow launch), transfers {dev_w.transfers}; every stream, "
+        f"engine.stats and the buffer state equal phase 3's (ids + {WIDE_BASE}), losses "
+        f"allclose (max |diff| {diff:.3g}); wall {wall:.2f} s"
+    )
+    print_stages("phase 6", {
+        "step": clock.ms("step"),
+        "sample_host": clock.ms("sample"),
+        "decide_host": clock.ms("decision"),
+        "launch_device_cuda_events": clock.device_ms("fused_frontier_step_wide_batch", True),
+        "launch_host": clock.ms("device.launch", True),
+        "readback": clock.ms("device.readback", True),
+        "train": clock.ms("train"),
+    }, steps, wall)
+    wide_stages = stage_medians(clock)
+    print("phase 6 vs phase 3, median ms per step: " + json.dumps(
+        {k: [round(wide_stages[k], 3), round(v, 3)] for k, v in stages_main.items()}))
+    for i, (args, kw) in enumerate(captured):
+        got = fs.fused_frontier_step_wide_cuda(*args, **kw)
+        want = ref.fused_frontier_step_wide(*args, **kw)
+        torch.cuda.synchronize()
+        max_err["fused_frontier_step_wide"] = max(
+            max_err["fused_frontier_step_wide"],
+            compare_outputs(got, want, FRONTIER_OUT, f"wide launch {i}"),
+        )
+    print(f"phase 6: kernel == plain, bit-exact, on all {len(captured)} launches of the run")
+    args, kw = captured[len(captured) // 2]
+    k_ms, p_ms, _, raw = time_pair(
+        lambda: fs.fused_frontier_step_wide_cuda(*args, **kw),
+        lambda: ref.fused_frontier_step_wide(*args, **kw),
+        flush,
+    )
+    outs = fs.fused_frontier_step_wide_cuda(*args, **kw)
+    nbytes = tensor_bytes(args, outs)
+    nops = frontier_ops(args)
+    b_ms, b_by = bound(nbytes, nops)
+    timings["fused_frontier_step_wide"] = (k_ms, p_ms, None, b_ms, b_by)
+    print(
+        f"phase 6: fused_frontier_step_wide at P={args[0].shape[0]}, "
+        f"Mt={args[6].shape[1] - 1}, C={args[0].shape[1]}, K={args[8].shape[1]}: "
+        f"kernel {raw[0]:.4f}/{raw[1]:.4f} ms, plain {raw[2]:.4f}/{raw[3]:.4f} ms; "
+        f"{nbytes} bytes, {nops} ops; bound {b_ms:.4f} ms ({b_by})"
+    )
+    print("phase 6: device time per launch by kernel (torch.profiler): "
+          + profile_rows(lambda: fs.fused_frontier_step_wide_cuda(*args, **kw)))
+    del trainer, result, clock, captured, parts, dev_w
+
+    # -- 6b. the wide ragged loop, with the feature store ------------------ #
+    t0 = time.perf_counter()
+    parts = partition_graph(g_papers.rebase(WIDE_BASE), 4)
+    store = FeatureStore.for_partitions(parts, device=DEVICE, use_kernel=True)
+    trainer = DistributedTrainer(parts, device=DEVICE, feature_store=store, **RAGGED)
+    steps = trainer.epochs * trainer.mb_per_epoch
+    print(f"phase 6b: papers scale={RAGGED_SCALE} rebased to id_base {WIDE_BASE}, "
+          f"phase 3b's run; set-up {time.perf_counter() - t0:.1f} s")
+    clock = StageClock(["fused_step_wide_batch", "gather_rows_batch"])
+    native.reset_launches()
+    store.kernel_gathers = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with telemetry.active(clock):
+        result = trainer.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_wide_ragged = dict(native.LAUNCHES)
+    if (launches_wide_ragged["fused_step_wide"] != steps + 1
+            or launches_wide_ragged["fused_step"]
+            or launches_wide_ragged["gather_rows_batch"] != store.kernel_gathers
+            or launches_wide_ragged["gather_rows_batch"]
+            != launches_ragged["gather_rows_batch"]):
+        raise AssertionError(f"phase 6b: launches {launches_wide_ragged}")
+    diff = compare_runs("phase 6b (wide vs phase 3b)", trainer, result, *papers, True, WIDE_BASE)
+    print(
+        f"phase 6b: {steps} steps, launches {launches_wide_ragged} (fused_step_wide = "
+        f"steps + 1, gather_rows_batch = phase 3b's), transfers "
+        f"{trainer.last_device_engine.transfers}; every stream (feat_sums and bytes "
+        f"included), engine.stats, the buffer state and payload equal phase 3b's "
+        f"(ids + {WIDE_BASE}), losses allclose (max |diff| {diff:.3g}); wall {wall:.2f} s"
+    )
+    print_stages("phase 6b", {
+        "step": clock.ms("step"),
+        "sample_host": clock.ms("sample"),
+        "launch_device_cuda_events": clock.device_ms("fused_step_wide_batch", True),
+        "launch_host": clock.ms("device.launch", True),
+        "readback_per_step": clock.per_step("device.readback"),
+        "store_serve": clock.ms("fetch.serve"),
+        "train": clock.ms("train"),
+    }, steps, wall)
+    step_caps = clock.launches["fused_step_wide_batch"]
+    for i, (args, kw) in enumerate(step_caps):
+        plain_kw = {k: v for k, v in kw.items() if k not in ("id_lo", "num_ids")}
+        got = fs.fused_step_wide_cuda(*args, **kw)
+        want = ref.fused_step_wide(*args, **plain_kw)
+        torch.cuda.synchronize()
+        max_err["fused_step_wide"] = max(
+            max_err["fused_step_wide"],
+            compare_outputs(got, want, STEP_OUT, f"fused_step_wide {i}"),
+        )
+    print(f"phase 6b: kernel == plain, bit-exact, on all {len(step_caps)} "
+          f"fused_step_wide launches of the run")
+    args, kw = max(step_caps, key=lambda c: c[0][6].shape[1] + c[0][7].shape[1])
+    plain_kw = {k: v for k, v in kw.items() if k not in ("id_lo", "num_ids")}
+    k_ms, p_ms, _, raw = time_pair(
+        lambda: fs.fused_step_wide_cuda(*args, **kw),
+        lambda: ref.fused_step_wide(*args, **plain_kw),
+        flush,
+    )
+    outs = fs.fused_step_wide_cuda(*args, **kw)
+    nbytes = tensor_bytes(args, outs)
+    nops = step_ops(args)
+    b_ms, b_by = bound(nbytes, nops)
+    timings["fused_step_wide"] = (k_ms, p_ms, None, b_ms, b_by)
+    print(
+        f"phase 6b: fused_step_wide at P={args[0].shape[0]}, C={args[0].shape[1]}, "
+        f"M={args[6].shape[1]}, K={args[7].shape[1]}, id_lo={kw['id_lo']}, "
+        f"num_ids={kw['num_ids']}: kernel {raw[0]:.4f}/{raw[1]:.4f} ms, plain "
+        f"{raw[2]:.4f}/{raw[3]:.4f} ms; {nbytes} bytes, {nops} ops; "
+        f"bound {b_ms:.4f} ms ({b_by})"
+    )
+    print("phase 6b: fused_step_wide device time per launch by kernel (torch.profiler): "
+          + profile_rows(lambda: fs.fused_step_wide_cuda(*args, **kw)))
+    del trainer, result, clock, step_caps, store, parts, papers, g_papers
+
+    # -- 7. the readback cadence ------------------------------------------ #
+    g_wide = g_main.rebase(WIDE_BASE)
+    for tag, graph in (("narrow", g_main), ("wide", g_wide)):
+        parts = partition_graph(graph, 4)
+        runs = {}
+        for k in (1, CADENCE):
+            tr = DistributedTrainer(parts, device=DEVICE, readback_every=k, **FIXED)
+            clock = StageClock([])
+            native.reset_launches()
+            torch.cuda.synchronize()
+            with telemetry.active(clock):
+                run = tr.run()
+            torch.cuda.synchronize()
+            runs[k] = (tr, run, clock, dict(native.LAUNCHES))
+        (t1, r1, c1, l1), (tk, rk, ck, lk) = runs[1], runs[CADENCE]
+        steps = tk.epochs * tk.mb_per_epoch
+        kernel = "fused_frontier_step_wide" if tag == "wide" else "fused_frontier_step"
+        if l1[kernel] != steps + 1 or lk[kernel] != steps + 1:
+            raise AssertionError(f"phase 7 ({tag}): launches {l1} / {lk}")
+        d2h = tk.last_device_engine.transfers["d2h"]
+        if d2h != math.ceil((steps + 1) / CADENCE) or t1.last_device_engine.transfers["d2h"] != steps + 1:
+            raise AssertionError(f"phase 7 ({tag}): d2h {d2h} with K={CADENCE}")
+        diff = compare_runs(f"phase 7 ({tag}, K={CADENCE} vs K=1)", tk, rk, t1, r1, False)
+        cad_ms = sum(ck.ms("device.readback")) / steps
+        k1_ms = float(np.median(c1.ms("device.readback", True)))
+        print(
+            f"phase 7 ({tag}): fixed, readback_every={CADENCE}: {steps} steps, "
+            f"{lk[kernel]} {kernel} launches, d2h {d2h} pulls against "
+            f"{t1.last_device_engine.transfers['d2h']} at K=1; logs, engine.stats and "
+            f"buffer state equal the K=1 run's, losses allclose (max |diff| {diff:.3g}); "
+            f"readback {cad_ms:.4f} ms per step (all {d2h} pulls / {steps} steps) against "
+            f"{k1_ms:.4f} ms median at K=1 (phase 3: {stages_main.get('readback', 0.0):.4f}); "
+            f"step median {np.median(ck.ms('step')):.3f} ms against {np.median(c1.ms('step')):.3f}"
+        )
+        if tag == "narrow":
+            launches_cadence = lk
+        else:
+            launches_cadence_wide = lk
+        del runs, t1, r1, tk, rk, parts
+    del g_main, main, g_wide
+
+    # -- 8. results ------------------------------------------------------- #
     replaces = {
         "fused_frontier_step": "src/repro/kernels/fused_step.py:698",
         "fused_step": "src/repro/kernels/fused_step.py:302",
         "gather_rows_batch": "src/repro/kernels/gather_rows.py:73",
         "gather_rows": "src/repro/kernels/gather_rows.py:37",
+        "fused_frontier_step_wide": "src/repro/kernels/fused_step.py:873",
+        "fused_step_wide": "src/repro/kernels/fused_step.py:445",
     }
     sources = {
         "fused_frontier_step": "src/repro_torch/kernels/csrc/fused_frontier_step.cu",
         "fused_step": "src/repro_torch/kernels/csrc/fused_step.cu",
         "gather_rows_batch": "src/repro_torch/kernels/csrc/gather_rows.cu",
         "gather_rows": "src/repro_torch/kernels/csrc/gather_rows.cu",
+        "fused_frontier_step_wide": "src/repro_torch/kernels/csrc/fused_frontier_step.cu",
+        "fused_step_wide": "src/repro_torch/kernels/csrc/fused_step.cu",
     }
     launches = {
         "fused_frontier_step": (launches_raw["fused_frontier_step"], "phase 3 (raw path)"),
         "fused_step": (launches_ragged["fused_step"], "phase 3b (ragged path)"),
         "gather_rows_batch": (launches_ragged["gather_rows_batch"], "phase 3b (ragged path)"),
         "gather_rows": (phase2["gather_rows"], "phase 2 only: no trainer path calls it"),
+        "fused_frontier_step_wide": (
+            launches_wide["fused_frontier_step_wide"],
+            "phase 6 (wide raw path); phase 7 cadence: "
+            f"{launches_cadence_wide['fused_frontier_step_wide']} (wide), narrow "
+            f"fused_frontier_step {launches_cadence['fused_frontier_step']}",
+        ),
+        "fused_step_wide": (launches_wide_ragged["fused_step_wide"], "phase 6b (wide ragged path)"),
     }
     kernels = []
     for name in native.KERNELS:

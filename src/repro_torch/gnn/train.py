@@ -22,7 +22,9 @@ Every run is device-resident (:func:`repro_torch.runtime.driver.
 run_device`): the buffer state, the graph features (or the feature
 store's tables) and the model live on ``device`` — the card by default
 (``device="cuda"``), or the CPU (``device="cpu"``), where the kernels run
-as their plain versions.
+as their plain versions. Graphs whose global ids sit at an ``id_base``
+(``Graph.rebase``) or pass ``2**31 - 2`` run in the engine's wide mode,
+and ``readback_every=K > 1`` runs the K-step counter readback cadence.
 """
 
 from __future__ import annotations
@@ -225,9 +227,11 @@ class DistributedTrainer:
     moves real feature rows — ``True`` builds a store on the trainer's
     device.
 
-    Not ported yet, and refused with ``NotImplementedError``:
-    ``runtime="legacy"``, the staged (non-device) path
-    (``device=False``) and ``telemetry``.
+    Wide ids (an ``id_base``, or ids past ``2**31 - 2``, up to
+    ``WIDE_ID_MAX``) and ``readback_every > 1`` run on both devices; the
+    engine and the driver refuse what they cannot serve. Not ported yet,
+    and refused with ``NotImplementedError``: ``runtime="legacy"``, the
+    staged (non-device) path (``device=False``) and ``telemetry``.
     """
 
     def __init__(

@@ -9,15 +9,36 @@
 //     candidate order;
 //   * placement: the candidate of fresh rank r takes the slot of fill
 //     rank r, at initial_score.
-// Membership and first-occurrence dedup go through per-PE direct-mapped
-// maps over the id space [0, N) instead of the Pallas kernels' dense
-// (K, C) / (K, K) comparison tiles:
-//   slot_of[p][id]    slot holding id (or -1), left updated for the probe
-//                     that follows in the including file;
-//   cand_first[p][id] earliest candidate position holding id (atomicMin).
-// Both are (P, N) int32 scratch, filled by the wrapper (-1 and INT_MAX).
-// The maps rely on resident ids being unique per PE, which the replacement
-// round guarantees (it only admits non-resident, first-occurrence ids).
+//
+// Ids are a template parameter: int32_t on the narrow path, int64_t on the
+// wide one (graphs whose global ids sit at an id_base or pass 2^31 - 2).
+// Membership and first-occurrence dedup go through an IdIndex instead of
+// the Pallas kernels' dense (K, C) / (K, K) comparison tiles, in one of
+// two modes:
+//   direct (kSorted = false): per-PE direct-mapped maps keyed by the
+//     offset id - lo over [0, span):
+//       slot_of[p][id - lo]    slot holding id (or -1), left updated for
+//                              the probe that follows in the including file;
+//       cand_first[p][id - lo] earliest candidate position holding id
+//                              (atomicMin).
+//     Both are (P, span) int32 scratch, filled by the wrapper (-1 and
+//     INT_MAX). The narrow path is lo = 0, span = N: the maps, loads and
+//     stores of the slice-1 kernel.
+//   sorted (kSorted = true): for a launch whose span is past the wrapper's
+//     memory budget for the maps. Per PE, the resident ids sorted once
+//     (invalid slots as the sentinel, the largest Id, which no eligible id
+//     reaches) with their slots, and the candidates stable-sorted with
+//     their positions; membership is a binary search, and a candidate is
+//     its id's first occurrence when the stable sort put it first among
+//     the equal ids. Placement records each admitted candidate's slot in
+//     cand_slot for the probe.
+// Both modes rely on resident ids being unique per PE, which the
+// replacement round guarantees (it only admits non-resident,
+// first-occurrence ids).
+//
+// lo is also the origin of the local-indexed per-node arrays (part_of,
+// node_weights): node_weights[id - lo]. On the frontier path lo is the
+// graph's id_base in both modes.
 //
 // Scores are bit-exact with the plain version: every float operation is
 // an explicit round-to-nearest intrinsic and the sources are built with
@@ -46,12 +67,13 @@ struct Policy {
 };
 
 // Gate bits of PE p (active_score | do_replace << 1 | active_probe << 2)
-// packed into the last column of a (P, stride) int32 block.
+// packed into the last column of a (P, stride) id block.
+template <typename Id>
 struct PackedGates {
-  const int32_t* aug;
+  const Id* aug;
   int stride;
   __device__ __forceinline__ int operator()(int p) const {
-    return aug[(int64_t)p * stride + (stride - 1)];
+    return static_cast<int>(aug[(int64_t)p * stride + (stride - 1)]);
   }
 };
 
@@ -64,6 +86,68 @@ struct SplitGates {
     return (score[p] != 0) | ((replace[p] != 0) << 1) | ((probe[p] != 0) << 2);
   }
 };
+
+// Where a launch looks ids up (see the note at the top). Direct mode reads
+// lo, span, slot_of and cand_first; sorted mode reads lo (for the per-node
+// arrays) and the sorted rows. The unused pointers are null.
+template <typename Id>
+struct IdIndex {
+  Id lo;
+  int64_t span;
+  int32_t* slot_of;           // (P, span)
+  int32_t* cand_first;        // (P, span)
+  const Id* res_sorted;       // (P, C) resident ids, ascending
+  const int64_t* res_order;   // (P, C) their slots
+  const Id* cand_sorted;      // (P, K) candidates, stable ascending
+  const int64_t* cand_order;  // (P, K) their positions
+  int32_t* cand_slot;         // (P, K) slot of each placed candidate
+
+  // Offset of id in the direct maps, or -1 when it lies outside them
+  // (padding included: every id >= 0 and lo >= 0).
+  __device__ __forceinline__ int64_t offset(Id id) const {
+    const int64_t d = static_cast<int64_t>(id) - static_cast<int64_t>(lo);
+    return (id >= 0 && d >= 0 && d < span) ? d : -1;
+  }
+};
+
+// First position in row[0, n) whose value is >= v.
+template <typename Id>
+__device__ __forceinline__ int lower_bound(const Id* row, int n, Id v) {
+  int a = 0, b = n;
+  while (a < b) {
+    const int m = (a + b) >> 1;
+    if (row[m] < v) {
+      a = m + 1;
+    } else {
+      b = m;
+    }
+  }
+  return a;
+}
+
+// Slot of q in PE p's post-replace state, or -1 (sorted mode): q was
+// resident before the round and its slot was not refilled, or q was
+// admitted by this round.
+template <typename Id>
+__device__ __forceinline__ int32_t sorted_lookup(
+    const IdIndex<Id>& ix, int p, int C, int K, Id q, const Id* ids2,
+    const uint8_t* valid2, const uint8_t* placed) {
+  const int64_t row_c = (int64_t)p * C;
+  const int64_t row_k = (int64_t)p * K;
+  int j = lower_bound(ix.res_sorted + row_c, C, q);
+  if (j < C && ix.res_sorted[row_c + j] == q) {
+    const int64_t c = ix.res_order[row_c + j];
+    if (valid2[row_c + c] != 0 && ids2[row_c + c] == q) {
+      return static_cast<int32_t>(c);
+    }
+  }
+  j = lower_bound(ix.cand_sorted + row_k, K, q);
+  if (j < K && ix.cand_sorted[row_k + j] == q) {
+    const int64_t k = ix.cand_order[row_k + j];
+    if (placed[row_k + k] != 0) return ix.cand_slot[row_k + k];
+  }
+  return -1;
+}
 
 // Exclusive block-wide scan of two counters at once; returns the totals.
 // Every thread of the block must call it.
@@ -122,26 +206,25 @@ __device__ __forceinline__ float score_round(float s, bool accessed, float w,
 }
 
 // One block per PE: score, rank, place. A placed slot's weight comes from
-// cand_w[k] (per candidate) when given, else node_weights[id], else 1.0.
-template <class Gates>
+// cand_w[k] (per candidate) when given, else node_weights[id - lo], else
+// 1.0.
+template <typename Id, bool kSorted, class Gates>
 __global__ void __launch_bounds__(kStateThreads)
-    prefetch_state_kernel(int C, int K, int N, Gates gates,
-                          const int32_t* __restrict__ ids,
+    prefetch_state_kernel(int C, int K, Gates gates, IdIndex<Id> ix,
+                          const Id* __restrict__ ids,
                           const float* __restrict__ scores,
                           const uint8_t* __restrict__ valid,
                           const uint8_t* __restrict__ accessed,
                           const uint8_t* __restrict__ in_cap,
                           const float* __restrict__ weights,
-                          const int32_t* __restrict__ cand,
+                          const Id* __restrict__ cand,
                           const float* __restrict__ cand_w,
                           const float* __restrict__ node_weights,
-                          int32_t* __restrict__ ids2, float* __restrict__ s2,
+                          Id* __restrict__ ids2, float* __restrict__ s2,
                           uint8_t* __restrict__ valid2,
                           uint8_t* __restrict__ acc3, float* __restrict__ w2,
                           uint8_t* __restrict__ placed,
                           int32_t* __restrict__ slot_pos,
-                          int32_t* __restrict__ slot_of,
-                          int32_t* __restrict__ cand_first,
                           int32_t* __restrict__ rank_slot, Policy pol) {
   const int p = blockIdx.x;
   const int t = threadIdx.x;
@@ -152,9 +235,9 @@ __global__ void __launch_bounds__(kStateThreads)
 
   const int64_t row_c = (int64_t)p * C;
   const int64_t row_k = (int64_t)p * K;
-  const int64_t row_n = (int64_t)p * N;
-  int32_t* my_slot_of = slot_of + row_n;
-  int32_t* my_cand_first = cand_first + row_n;
+  const int64_t row_n = (int64_t)p * ix.span;
+  int32_t* my_slot_of = kSorted ? nullptr : ix.slot_of + row_n;
+  int32_t* my_cand_first = kSorted ? nullptr : ix.cand_first + row_n;
 
   // Contiguous chunks keep ranks in slot / candidate order.
   const int chunk_c = (C + T - 1) / T;
@@ -171,19 +254,24 @@ __global__ void __launch_bounds__(kStateThreads)
     const float w = weights ? weights[i] : 1.0f;
     float s = scores[i];
     if (active_score && v) s = score_round(s, a, w, pol);
-    const int32_t id = ids[i];
+    const Id id = ids[i];
     s2[i] = s;
     ids2[i] = id;
     valid2[i] = v;
     acc3[i] = a && !active_score;
     if (weights) w2[i] = w;
-    if (v && id >= 0 && id < N) my_slot_of[id] = c;
+    if constexpr (!kSorted) {
+      const int64_t d = ix.offset(id);
+      if (v && d >= 0) my_slot_of[d] = c;
+    }
     n_free_mine += (!v && in_cap[i] != 0);
     n_stale_mine += (v && s < pol.threshold);
   }
-  for (int k = k0; k < k1; ++k) {
-    const int32_t id = cand[row_k + k];
-    if (id >= 0 && id < N) atomicMin(&my_cand_first[id], k);
+  if constexpr (!kSorted) {
+    for (int k = k0; k < k1; ++k) {
+      const int64_t d = ix.offset(cand[row_k + k]);
+      if (d >= 0) atomicMin(&my_cand_first[d], k);
+    }
   }
   int free_before, stale_before, n_free, n_stale;
   block_scan2(n_free_mine, n_stale_mine, &free_before, &stale_before, &n_free,
@@ -209,9 +297,19 @@ __global__ void __launch_bounds__(kStateThreads)
   // re-reads slot_of while other threads update it.
   int n_fresh_mine = 0;
   for (int k = k0; k < k1; ++k) {
-    const int32_t id = cand[row_k + k];
-    const bool fresh = do_replace && id >= 0 && id < N && my_slot_of[id] < 0 &&
-                       my_cand_first[id] == k;
+    const Id id = cand[row_k + k];
+    bool fresh = false;
+    if (do_replace && id >= 0) {
+      if constexpr (kSorted) {
+        const int jr = lower_bound(ix.res_sorted + row_c, C, id);
+        const bool resident = jr < C && ix.res_sorted[row_c + jr] == id;
+        const int jc = lower_bound(ix.cand_sorted + row_k, K, id);
+        fresh = !resident && ix.cand_order[row_k + jc] == k;
+      } else {
+        const int64_t d = ix.offset(id);
+        fresh = d >= 0 && my_slot_of[d] < 0 && my_cand_first[d] == k;
+      }
+    }
     placed[row_k + k] = fresh;
     n_fresh_mine += fresh;
   }
@@ -232,18 +330,26 @@ __global__ void __launch_bounds__(kStateThreads)
         is_placed = true;
         const int c = rank_slot[row_c + r];
         const int64_t i = row_c + c;
-        const int32_t id = cand[j];
-        if (valid[i] != 0) {
-          const int32_t old = ids[i];
-          if (old >= 0 && old < N) my_slot_of[old] = -1;
+        const Id id = cand[j];
+        if constexpr (kSorted) {
+          ix.cand_slot[j] = c;
+        } else {
+          if (valid[i] != 0) {
+            const int64_t d_old = ix.offset(ids[i]);
+            if (d_old >= 0) my_slot_of[d_old] = -1;
+          }
+          my_slot_of[ix.offset(id)] = c;
         }
-        my_slot_of[id] = c;
         ids2[i] = id;
         s2[i] = pol.initial_score;
         valid2[i] = 1;
         acc3[i] = 0;
         if (weights) {
-          w2[i] = cand_w ? cand_w[j] : (node_weights ? node_weights[id] : 1.0f);
+          w2[i] = cand_w ? cand_w[j]
+                         : (node_weights
+                                ? node_weights[static_cast<int64_t>(id) -
+                                               static_cast<int64_t>(ix.lo)]
+                                : 1.0f);
         }
       }
     }

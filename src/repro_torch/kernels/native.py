@@ -32,9 +32,13 @@ SOURCES = {
     "gather_rows": "gather_rows.cu",
 }
 
-#: The wrappers that launch a kernel; ``gather_rows`` and
+#: The wrappers that launch a kernel. A ``_wide`` kernel (int64 ids) is
+#: the second entry of its narrow twin's library; ``gather_rows`` and
 #: ``gather_rows_batch`` share the ``gather_rows`` library.
-KERNELS = ("fused_frontier_step", "fused_step", "gather_rows_batch", "gather_rows")
+KERNELS = (
+    "fused_frontier_step", "fused_step", "gather_rows_batch", "gather_rows",
+    "fused_frontier_step_wide", "fused_step_wide",
+)
 
 #: kernel name -> launches on the card (each wrapper adds one per launch).
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}

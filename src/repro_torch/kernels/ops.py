@@ -22,7 +22,9 @@ from .native import LAUNCHES, reset_launches
 
 __all__ = [
     "fused_frontier_step_batch",
+    "fused_frontier_step_wide_batch",
     "fused_step_batch",
+    "fused_step_wide_batch",
     "pack_readback",
     "gather_rows",
     "gather_rows_batch",
@@ -176,6 +178,66 @@ def fused_frontier_step_batch(
     return fused_frontier_step_cuda(*args, **constants)
 
 
+@telemetry.profiled("fused_frontier_step_wide_batch")
+def fused_frontier_step_wide_batch(
+    ids,
+    scores,
+    valid,
+    accessed,
+    in_capacity,
+    weights,
+    touched_aug,
+    part_of,
+    cand,
+    node_weights,
+    payload=None,
+    table=None,
+    loc=None,
+    *,
+    cand_cap: int,
+    id_base: int = 0,
+    increment: float = 1.0,
+    decay: float = 0.95,
+    threshold: float = 0.95,
+    score_cap: float = 4.0,
+    mode: str = "accumulate",
+    initial_score: float = 1.0,
+):
+    """Wide-id twin of :func:`fused_frontier_step_batch`: ``touched_aug``
+    is the int64 ``(P, Mt + 1)`` block of global frontier ids (gates in
+    the last column; still the step's one host→device transfer),
+    ``ids`` and ``cand`` are int64, and ``id_base`` is the graph's
+    global-id offset for the local-indexed ``part_of``,
+    ``node_weights`` and ``loc``. Returns the nine outputs of
+    :func:`repro_torch.kernels.ref.fused_frontier_step_wide` (the
+    reference returns eleven: its ids ride as ``(hi, lo)`` planes); only
+    ``packed`` (width ``3*Mt + K + C + 1``) or, on the readback cadence,
+    ``counters`` crosses back to host.
+
+    Routed by ``ids.device``: the CPU runs the plain version, CUDA the
+    Hopper kernel
+    (:func:`repro_torch.kernels.fused_step.fused_frontier_step_wide_cuda`).
+    """
+    constants = dict(
+        cand_cap=int(cand_cap),
+        id_base=int(id_base),
+        **_constants(increment, decay, threshold, score_cap, mode, initial_score),
+    )
+    args = (
+        ids, scores, valid, accessed, in_capacity, weights,
+        touched_aug, part_of, cand, node_weights, payload, table, loc,
+    )
+    if _route("fused_frontier_step_wide", ids) == "cpu":
+        return ref.fused_frontier_step_wide(*args, **constants)
+    from .fused_step import fused_frontier_step_wide_cuda
+
+    return fused_frontier_step_wide_cuda(*args, **constants)
+
+
+def _max_id(t) -> int:
+    return int(t.max()) if t.numel() else -1
+
+
 @telemetry.profiled("fused_step_batch")
 def fused_step_batch(
     ids,
@@ -204,27 +266,39 @@ def fused_step_batch(
 
     ``queries`` ``(P, M)`` (host-deduped remote sets) and ``cand``
     ``(P, K)`` (raw candidate lists; first-occurrence dedup happens in
-    the step) are int32, -1 padded; the gates are ``(P,)`` bool. Every
-    id lies in ``[0, num_ids)`` — the id space of the kernel's
-    direct-mapped maps. Returns ``(ids, scores, valid, accessed,
-    weights, hit, hit_slot, placed, slot_pos, n_placed, n_valid)``.
+    the step) are -1 padded; the gates are ``(P,)`` bool. Every id lies
+    in ``[0, num_ids)`` — the id space of the kernel's direct-mapped
+    maps. Returns ``(ids, scores, valid, accessed, weights, hit,
+    hit_slot, placed, slot_pos, n_placed, n_valid)``.
 
-    Narrow int32 ids only: int64 tensors (the reference's wide ``(hi,
-    lo)`` route) raise. ``C == 0`` cannot reach a launch: the engine's
-    state always has a slot (``PrefetchEngine`` pads ``C`` to at least
-    1), and both routes raise on it. Routed by ``ids.device``: the CPU
-    runs :func:`repro_torch.kernels.ref.fused_step`, CUDA the Hopper
-    kernel (:func:`repro_torch.kernels.fused_step.fused_step_cuda`).
+    Ids are int32, or int64 as the reference takes them: int64 ids up to
+    :data:`INT32_ID_MAX` run the narrow step (``ids`` comes back
+    int32), larger ones the wide step (:func:`fused_step_wide_batch`,
+    ``ids`` int64), and ids past :data:`WIDE_ID_MAX` raise
+    ``ValueError``. ``C == 0`` cannot reach a launch: the engine's state
+    always has a slot (``PrefetchEngine`` pads ``C`` to at least 1), and
+    both routes raise on it. Routed by ``ids.device``: the CPU runs
+    :func:`repro_torch.kernels.ref.fused_step`, CUDA the Hopper kernel
+    (:func:`repro_torch.kernels.fused_step.fused_step_cuda`).
     """
-    for name, t in (("ids", ids), ("queries", queries), ("cand", cand)):
-        if t.dtype == torch.int64:
-            raise NotImplementedError(
-                f"int64 {name}: the wide (hi, lo) fused step is not ported yet "
-                "(ROADMAP Queue B #6)"
-            )
     if ids.shape[1] == 0:
         raise ValueError("fused_step_batch needs C >= 1 buffer slots")
     constants = _constants(increment, decay, threshold, score_cap, mode, initial_score)
+    id_args = (ids, queries, cand)
+    if any(t.dtype == torch.int64 for t in id_args):
+        top = [_max_id(t) for t in id_args]
+        if not int32_id_eligible(max(top)):
+            for m in top:
+                if not wide_id_eligible(m):
+                    raise ValueError(
+                        "node ids exceed the wide-id device bound "
+                        f"(max {m} > {WIDE_ID_MAX})"
+                    )
+            return fused_step_wide_batch(
+                ids, scores, valid, accessed, in_capacity, weights, queries, cand,
+                cand_weights, active_score, do_replace, active_probe, **constants,
+            )
+        ids, queries, cand = (t.to(torch.int32) for t in id_args)
     args = (
         ids, scores, valid, accessed, in_capacity, weights, queries, cand,
         cand_weights, active_score, do_replace, active_probe,
@@ -234,6 +308,53 @@ def fused_step_batch(
     from .fused_step import fused_step_cuda
 
     return fused_step_cuda(*args, num_ids=num_ids, **constants)
+
+
+@telemetry.profiled("fused_step_wide_batch")
+def fused_step_wide_batch(
+    ids,
+    scores,
+    valid,
+    accessed,
+    in_capacity,
+    weights,
+    queries,
+    cand,
+    cand_weights,
+    active_score,
+    do_replace,
+    active_probe,
+    *,
+    id_lo: int | None = None,
+    num_ids: int | None = None,
+    increment: float = 1.0,
+    decay: float = 0.95,
+    threshold: float = 0.95,
+    score_cap: float = 4.0,
+    mode: str = "accumulate",
+    initial_score: float = 1.0,
+):
+    """Wide-id twin of :func:`fused_step_batch`: ``ids``, ``queries`` and
+    ``cand`` are int64 (the reference's ``(hi, lo)`` word planes), and
+    the outputs are :func:`fused_step_batch`'s with ``ids`` int64 (the
+    reference returns the ``hi`` plane as a twelfth output). Every id
+    lies in ``[id_lo, id_lo + num_ids)``, the kernel's map range; without
+    them the kernel reads the range off the tensors. Routed by
+    ``ids.device``: the CPU runs
+    :func:`repro_torch.kernels.ref.fused_step_wide`, CUDA the Hopper
+    kernel (:func:`repro_torch.kernels.fused_step.fused_step_wide_cuda`)."""
+    if ids.shape[1] == 0:
+        raise ValueError("fused_step_wide_batch needs C >= 1 buffer slots")
+    constants = _constants(increment, decay, threshold, score_cap, mode, initial_score)
+    args = (
+        ids, scores, valid, accessed, in_capacity, weights, queries, cand,
+        cand_weights, active_score, do_replace, active_probe,
+    )
+    if _route("fused_step_wide", ids) == "cpu":
+        return ref.fused_step_wide(*args, **constants)
+    from .fused_step import fused_step_wide_cuda
+
+    return fused_step_wide_cuda(*args, id_lo=id_lo, num_ids=num_ids, **constants)
 
 
 @telemetry.profiled("pack_readback")

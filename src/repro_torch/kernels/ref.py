@@ -13,6 +13,14 @@ rank-table gather. At the main path's shape (Mt = 522,000 frontier
 positions, C ≈ 12.6k slots per PE) the dense tiles would need billions
 of compares; these stay O((Mt + K + C) log) per PE.
 
+The ``_wide`` functions are the same steps on int64 ids, for graphs whose
+global ids sit at an ``id_base`` or pass ``2**31 - 2``: the reference
+carries such ids as ``(hi, lo)`` int32 word planes because its device
+math is int32; here they are int64 tensors, and the per-node arrays
+(``part_of``, ``node_weights``, the store's ``loc``) are indexed by the
+local id ``id - id_base`` (:func:`wide_local_index`). On int32 ids every
+function computes exactly what it did before.
+
 Also home of the numpy :func:`frontier_dedup` the sampler imports.
 """
 
@@ -26,6 +34,17 @@ from ..core import scoring
 #: Sentinel of the miss compaction (``int32.max``); the narrow id bound
 #: ``kernels.ops.INT32_ID_MAX`` strictly excludes it.
 _SENTINEL = int(np.iinfo(np.int32).max)
+#: The wide miss compaction's sentinel (``int64.max``): the wide id bound
+#: ``kernels.ops.WIDE_ID_MAX`` (about 2^61) lies far below it.
+_SENTINEL64 = int(np.iinfo(np.int64).max)
+
+
+def wide_local_index(ids: torch.Tensor, id_base: int, num_nodes: int) -> torch.Tensor:
+    """Local index ``id - id_base`` of global ids, clamped to ``[0,
+    num_nodes)`` so it is always safe to gather with (padding and other
+    out-of-range lanes give garbage the caller masks), as the reference's
+    ``wide_local_index`` over ``(hi, lo)`` planes."""
+    return (ids.to(torch.int64) - int(id_base)).clamp(0, max(int(num_nodes) - 1, 0))
 
 
 def frontier_dedup(
@@ -51,7 +70,9 @@ def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(float(x), dtype=torch.float32, device=like.device)
 
 
-def frontier_prologue(touched_aug: torch.Tensor, part_of: torch.Tensor):
+def frontier_prologue(
+    touched_aug: torch.Tensor, part_of: torch.Tensor, id_base: int | None = None
+):
     """Frontier ingest: unpack the gate column and row-sort the frontier.
 
     ``touched_aug`` is the raw ``(P, Mt + 1)`` int32 block — the sampled
@@ -60,24 +81,40 @@ def frontier_prologue(touched_aug: torch.Tensor, part_of: torch.Tensor):
     Returns the three gate vectors, the row-sorted keys ``sk``, their
     left-shifted predecessors ``prev``, the per-position remoteness
     ``rem`` (``part_of[sk] != own``) and the unique-remote mask
-    ``remote = first & rem``.
+    ``remote = first & rem``. With ``id_base`` the block is int64 global
+    ids (:func:`frontier_prologue_wide`).
     """
     P = touched_aug.shape[0]
-    touched = touched_aug[:, :-1].to(torch.int32)
+    idt = torch.int32 if id_base is None else torch.int64
+    touched = touched_aug[:, :-1].to(idt)
     gates = touched_aug[:, -1].to(torch.int32)
     active_score = (gates & 1) != 0
     do_replace = (gates & 2) != 0
     active_probe = (gates & 4) != 0
     sk = torch.sort(touched, dim=1).values
     prev = torch.cat(
-        [torch.full((P, 1), -1, dtype=torch.int32, device=sk.device), sk[:, :-1]],
+        [torch.full((P, 1), -1, dtype=idt, device=sk.device), sk[:, :-1]],
         dim=1,
     )
     first = (sk != prev) & (sk >= 0)
     own = torch.arange(P, dtype=torch.int32, device=sk.device)[:, None]
-    rem = part_of[sk.clamp(min=0).long()].to(torch.int32) != own
+    if id_base is None:
+        local = sk.clamp(min=0).long()
+    else:
+        local = wide_local_index(sk, id_base, part_of.shape[0])
+    rem = part_of[local].to(torch.int32) != own
     remote = first & rem
     return active_score, do_replace, active_probe, sk, prev, rem, remote
+
+
+def frontier_prologue_wide(
+    touched_aug: torch.Tensor, part_of: torch.Tensor, *, id_base: int
+):
+    """:func:`frontier_prologue` over the int64 ``(P, Mt + 1)`` block of
+    global ids (gates in the last column): numeric int64 order is the
+    reference's lexicographic ``(hi, lo)`` order, and ``part_of`` is read
+    at the local id (:func:`wide_local_index`)."""
+    return frontier_prologue(touched_aug, part_of, id_base=int(id_base))
 
 
 def cand_weights_of(cand: torch.Tensor, node_weights: torch.Tensor | None):
@@ -89,6 +126,17 @@ def cand_weights_of(cand: torch.Tensor, node_weights: torch.Tensor | None):
         node_weights[cand.clamp(min=0).long()].to(torch.float32),
         _f32(1.0, cand),
     )
+
+
+def cand_weights_of_wide(
+    cand: torch.Tensor, node_weights: torch.Tensor | None, *, id_base: int
+):
+    """:func:`cand_weights_of` for int64 global ids: ``node_weights`` is
+    local-indexed, so the gather goes through :func:`wide_local_index`."""
+    if node_weights is None:
+        return torch.ones(cand.shape, dtype=torch.float32, device=cand.device)
+    local = wide_local_index(cand, id_base, node_weights.shape[0])
+    return torch.where(cand >= 0, node_weights[local].to(torch.float32), _f32(1.0, cand))
 
 
 def _row_lookup(table: torch.Tensor, keys: torch.Tensor):
@@ -134,17 +182,19 @@ def fused_step_core(
     in ascending slot order, in candidate order, at ``initial_score``;
     probe answers ``queries`` against the post-replace ids and marks hit
     slots accessed. Resident ids must be unique per PE (the engine
-    guarantees it). Returns ``(ids2, s2, valid2, acc3, w2, hit,
-    hit_slot, placed, slot_pos, n_place, n_valid)``.
+    guarantees it). Ids are int32, or int64 when ``ids`` is (the wide
+    path); ``ids2`` keeps that type. Returns ``(ids2, s2, valid2, acc3,
+    w2, hit, hit_slot, placed, slot_pos, n_place, n_valid)``.
     """
     P, C = ids.shape
     K = cand.shape[1]
     if C == 0:
         raise ValueError("fused_step_core needs C >= 1 buffer slots")
     dev = ids.device
-    ids = ids.to(torch.int32)
-    cand = cand.to(torch.int32)
-    queries = queries.to(torch.int32)
+    idt = torch.int64 if ids.dtype == torch.int64 else torch.int32
+    ids = ids.to(idt)
+    cand = cand.to(idt)
+    queries = queries.to(idt)
     scores = scores.to(torch.float32)
     a_score = active_score[:, None]
 
@@ -221,7 +271,9 @@ def fused_step_core(
     ids_post = torch.where(valid2, ids2, torch.full_like(ids2, -2))
     found, slot = _row_lookup(ids_post, queries)
     hit = found & active_probe[:, None]
-    hit_slot = torch.where(hit, slot.to(torch.int32), torch.full_like(queries, -1))
+    hit_slot = torch.where(
+        hit, slot.to(torch.int32), torch.full_like(queries, -1, dtype=torch.int32)
+    )
     marks = torch.zeros((P, C), dtype=torch.int32, device=dev)
     marks.scatter_add_(1, torch.where(hit, slot, 0), hit.to(torch.int32))
     acc3 = acc2 | (marks > 0)
@@ -292,6 +344,34 @@ def fused_step(
     )
 
 
+def fused_step_wide(
+    ids: torch.Tensor,
+    scores: torch.Tensor,
+    valid: torch.Tensor,
+    accessed: torch.Tensor,
+    in_capacity: torch.Tensor,
+    weights: torch.Tensor | None,
+    queries: torch.Tensor,
+    cand: torch.Tensor,
+    cand_weights: torch.Tensor | None,
+    active_score: torch.Tensor,
+    do_replace: torch.Tensor,
+    active_probe: torch.Tensor,
+    **constants,
+):
+    """:func:`fused_step` on int64 ids (state, queries, candidates): the
+    spec of ``csrc/fused_step.cu``'s wide entry and the counterpart of the
+    reference's ``fused_step_wide``, which takes ``(hi, lo)`` planes and
+    returns the ``hi`` plane of ``ids2`` as a second output. Here
+    ``ids2`` is one int64 tensor; the other ten outputs are those of
+    :func:`fused_step`."""
+    return fused_step(
+        ids.to(torch.int64), scores, valid, accessed, in_capacity, weights,
+        queries.to(torch.int64), cand.to(torch.int64), cand_weights,
+        active_score, do_replace, active_probe, **constants,
+    )
+
+
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``table (N, F)``, ``idx (M,)`` → ``(M, F)``: the spec of
     ``csrc/gather_rows.cu``'s single-table entry."""
@@ -329,14 +409,21 @@ def payload_scatter(
     payload: torch.Tensor,
     table: torch.Tensor,
     loc: torch.Tensor,
+    id_base: int | None = None,
 ) -> torch.Tensor:
     """Admission rows (``slot_pos < n_place``) copied verbatim from the
     store's flat ``(R, F)`` table into the ``(P*C, F)`` payload; every
-    other slot keeps its row. Returns the new payload."""
+    other slot keeps its row. ``loc`` is indexed by the node id, or with
+    ``id_base`` by the local id (:func:`wide_local_index`). Returns the
+    new payload."""
     P, C = ids2.shape
     F = table.shape[1]
     filled = slot_pos < n_place[:, None]
-    rows = table[loc[ids2.clamp(min=0).long()].long()]
+    if id_base is None:
+        local = ids2.clamp(min=0).long()
+    else:
+        local = wide_local_index(ids2, id_base, loc.shape[0])
+    rows = table[loc[local].long()]
     return torch.where(
         filled[:, :, None], rows, payload.reshape(P, C, F)
     ).reshape(P * C, F)
@@ -355,6 +442,7 @@ def frontier_pack(
     loc: torch.Tensor | None,
     *,
     cand_cap: int,
+    id_base: int | None = None,
 ):
     """Epilogue of the frontier step: miss compaction, the packed
     readback and the in-launch payload scatter.
@@ -368,14 +456,17 @@ def frontier_pack(
     * ``counters`` — ``(P, 4)`` ``[n_remote, hits, n_place, n_valid]``.
     * ``payload2`` — with a store table attached, :func:`payload_scatter`
       of the admissions; else ``payload`` unchanged.
+
+    With ``id_base`` the ids are int64 (:func:`frontier_pack_wide`).
     """
     Mt = sk.shape[1]
     kc = min(int(cand_cap), Mt)
-    sent = torch.full_like(sk, _SENTINEL)
+    sentinel = _SENTINEL if id_base is None else _SENTINEL64
+    sent = torch.full_like(sk, sentinel)
     miss_keys = torch.where(code == 1, sk, sent)
     cand_next = torch.sort(miss_keys, dim=1).values[:, :kc]
     cand_next = torch.where(
-        cand_next == _SENTINEL, torch.full_like(cand_next, -1), cand_next
+        cand_next == sentinel, torch.full_like(cand_next, -1), cand_next
     )
     n_remote = (code > 0).sum(dim=1, dtype=torch.int32)
     hits = (code >= 2).sum(dim=1, dtype=torch.int32)
@@ -384,7 +475,7 @@ def frontier_pack(
     )
     packed = torch.cat(
         [
-            sk,
+            sk if id_base is None else sk.contiguous().view(torch.int32),
             code,
             placed.to(torch.int32),
             slot_pos.to(torch.int32),
@@ -394,8 +485,38 @@ def frontier_pack(
     )
     payload2 = payload
     if table is not None:
-        payload2 = payload_scatter(ids2, slot_pos, n_place, payload, table, loc)
+        payload2 = payload_scatter(
+            ids2, slot_pos, n_place, payload, table, loc, id_base=id_base
+        )
     return cand_next, packed, counters, payload2
+
+
+def frontier_pack_wide(
+    sk: torch.Tensor,
+    code: torch.Tensor,
+    placed: torch.Tensor,
+    slot_pos: torch.Tensor,
+    n_place: torch.Tensor,
+    n_valid: torch.Tensor,
+    ids2: torch.Tensor,
+    payload: torch.Tensor | None,
+    table: torch.Tensor | None,
+    loc: torch.Tensor | None,
+    *,
+    cand_cap: int,
+    id_base: int,
+):
+    """:func:`frontier_pack` on int64 ids. The miss compaction pads with
+    ``int64.max``, which sorts after every id the wide path accepts
+    (``<= WIDE_ID_MAX``); ``cand_next`` is int64. The packed readback is
+    still one int32 block, ``[sk as int32 pairs | code | placed |
+    slot_pos | n_valid]`` of width ``3*Mt + K + C + 1`` (the reference's
+    wide width): the host views its first ``2*Mt`` columns as int64. The
+    payload scatter reads ``loc`` at the local id."""
+    return frontier_pack(
+        sk, code, placed, slot_pos, n_place, n_valid, ids2, payload, table, loc,
+        cand_cap=cand_cap, id_base=int(id_base),
+    )
 
 
 def fused_frontier_step(
@@ -484,5 +605,98 @@ def fused_frontier_step(
     cand_next, packed, counters, payload2 = frontier_pack(
         sk, code, placed, slot_pos, n_place, n_valid, ids2, payload, table, loc,
         cand_cap=cand_cap,
+    )
+    return ids2, s2, valid2, acc3, w2, payload2, cand_next, packed, counters
+
+
+def fused_frontier_step_wide(
+    ids: torch.Tensor,
+    scores: torch.Tensor,
+    valid: torch.Tensor,
+    accessed: torch.Tensor,
+    in_capacity: torch.Tensor,
+    weights: torch.Tensor | None,
+    touched_aug: torch.Tensor,
+    part_of: torch.Tensor,
+    cand: torch.Tensor,
+    node_weights: torch.Tensor | None,
+    payload: torch.Tensor | None = None,
+    table: torch.Tensor | None = None,
+    loc: torch.Tensor | None = None,
+    *,
+    cand_cap: int,
+    id_base: int,
+    increment: float = float(scoring.ACCESS_INCREMENT),
+    decay: float = float(scoring.DECAY_FACTOR),
+    threshold: float = float(scoring.STALE_THRESHOLD),
+    score_cap: float = 4.0,
+    mode: str = "accumulate",
+    initial_score: float = float(scoring.INITIAL_SCORE),
+):
+    """:func:`fused_frontier_step` on int64 global ids, the spec of
+    ``csrc/fused_frontier_step.cu``'s wide entry and the counterpart of
+    the reference's ``fused_frontier_step_wide``: ``touched_aug`` is the
+    int64 ``(P, Mt + 1)`` block (gates in the last column), ``ids`` and
+    ``cand`` are int64, and ``part_of``, ``node_weights`` and ``loc`` are
+    read at the local id ``id - id_base``. Returns the nine outputs of
+    :func:`fused_frontier_step`, with ``ids2`` and ``cand_next`` int64
+    and ``packed`` as :func:`frontier_pack_wide` lays it out."""
+    id_base = int(id_base)
+    (
+        active_score,
+        do_replace,
+        active_probe,
+        sk,
+        _prev,
+        _rem,
+        remote,
+    ) = frontier_prologue_wide(touched_aug, part_of, id_base=id_base)
+    queries = torch.where(remote, sk, torch.full_like(sk, -1))
+    cand = cand.to(torch.int64)
+    cw = (
+        cand_weights_of_wide(cand, node_weights, id_base=id_base)
+        if weights is not None
+        else None
+    )
+    (
+        ids2,
+        s2,
+        valid2,
+        acc3,
+        w2,
+        hit,
+        hit_slot,
+        placed,
+        slot_pos,
+        n_place,
+        n_valid,
+    ) = fused_step_core(
+        ids.to(torch.int64),
+        scores,
+        valid,
+        accessed,
+        in_capacity,
+        weights,
+        queries,
+        cand,
+        cw,
+        active_score,
+        do_replace,
+        active_probe,
+        increment=increment,
+        decay=decay,
+        threshold=threshold,
+        score_cap=score_cap,
+        mode=mode,
+        initial_score=initial_score,
+    )
+    code = torch.where(
+        remote,
+        torch.where(hit, hit_slot + 2, torch.ones_like(hit_slot)),
+        torch.zeros_like(hit_slot),
+    )
+    cand_next, packed, counters, payload2 = frontier_pack_wide(
+        sk, code, placed, slot_pos, n_place, n_valid, ids2, payload, table, loc,
+        cand_cap=cand_cap, id_base=id_base,
     )
     return ids2, s2, valid2, acc3, w2, payload2, cand_next, packed, counters

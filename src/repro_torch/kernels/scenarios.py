@@ -17,17 +17,40 @@ from a seed; the constants are those of the scoring policy.
   capacity-masked slots and scores on the threshold.
 * :func:`gather_scenarios` (``gather_rows_batch`` / ``gather_rows``):
   ``F`` in {1, 3, 100, 128, 602}, ``M == 0`` and repeated indices.
+* :func:`wide_frontier_scenarios` (``fused_frontier_step_wide``) and
+  :func:`wide_fused_step_scenarios` (``fused_step_wide``): int64 ids.
+  Every narrow scenario shifted by :data:`BASE` (``2**31 + 1000``, the
+  smallest interesting wide base); a base past ``2**32`` whose ids cross
+  a ``2**30`` word boundary of the reference's ``(hi, lo)`` split; ids
+  ending at ``WIDE_ID_MAX``; and, for the fused step, a sparse set whose
+  ids spread over ``[BASE, BASE + 2**40]``, far past any direct map (the
+  kernel's sorted mode). Each wide scenario keeps its narrow source, so
+  the tests can hold wide against narrow under the id map.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 
 from ..core import scoring
+from .ops import WIDE_ID_MAX
 
 POLICIES = ("rudder", "degree", "recency", "frequency", "hybrid")
+
+#: The wide sets' base: just past int32 (the reference's own test base).
+BASE = 2**31 + 1000
+
+
+def lift(a: np.ndarray, ids_of: np.ndarray) -> np.ndarray:
+    """``a`` as int64 with every non-negative entry ``v`` replaced by
+    ``ids_of[v]`` (padding and masked entries stay as they are)."""
+    a = np.asarray(a)
+    out = a.astype(np.int64)
+    live = a >= 0
+    out[live] = ids_of[a[live]]
+    return out
 
 
 @dataclass
@@ -45,6 +68,10 @@ class Scenario:
     node_weights: np.ndarray | None  # (N,) float32
     cand_cap: int
     constants: dict
+    #: Wide sets: the global id of local node 0 (ids int64 in
+    #: ``[id_base, id_base + N)``), and the narrow scenario lifted.
+    id_base: int = 0
+    narrow: "Scenario | None" = None
 
     def arrays(self) -> dict:
         return {
@@ -54,6 +81,14 @@ class Scenario:
                 "touched_aug", "part_of", "cand", "node_weights",
             )
         }
+
+    def kwargs(self) -> dict:
+        """The keyword arguments of the step: ``cand_cap``, the policy's
+        constants and, on a wide set, ``id_base``."""
+        kw = dict(cand_cap=self.cand_cap, **self.constants)
+        if self.narrow is not None:
+            kw["id_base"] = self.id_base
+        return kw
 
 
 def make_scenario(
@@ -169,8 +204,13 @@ class FusedStepScenario:
     active_score: np.ndarray  # (P,) bool
     do_replace: np.ndarray    # (P,) bool
     active_probe: np.ndarray  # (P,) bool
-    num_ids: int
+    num_ids: int | None       # span of the ids from id_lo (None: unknown)
     constants: dict
+    #: Wide sets: the smallest id (None: unknown), the narrow scenario
+    #: lifted, and the map from its local ids to these.
+    id_lo: int | None = 0
+    narrow: "FusedStepScenario | None" = None
+    ids_of: np.ndarray | None = None
 
     def arrays(self) -> dict:
         return {
@@ -289,4 +329,73 @@ def gather_scenarios() -> list[GatherScenario]:
         if repeat and M:
             idx[:, M // 2 :] = idx[:, :1]
         out.append(GatherScenario(f"F{F}-M{M}{'-rep' if repeat else ''}", tables, idx))
+    return out
+
+
+# --------------------------------------------------------------------------- #
+def widen(sc: Scenario, id_base: int) -> Scenario:
+    """The frontier scenario ``sc`` on int64 global ids ``id_base + v``."""
+    N = sc.part_of.shape[0]
+    ids_of = np.int64(id_base) + np.arange(N, dtype=np.int64)
+    aug = sc.touched_aug.astype(np.int64)
+    aug[:, :-1] = lift(sc.touched_aug[:, :-1], ids_of)
+    return replace(
+        sc,
+        name=f"{sc.name}@{id_base}",
+        ids=lift(sc.ids, ids_of),
+        touched_aug=aug,
+        cand=lift(sc.cand, ids_of),
+        id_base=int(id_base),
+        narrow=sc,
+    )
+
+
+def wide_frontier_scenarios() -> list[Scenario]:
+    """The wide frontier set (see the module note)."""
+    narrow = frontier_scenarios()
+    out = [widen(sc, BASE) for sc in narrow]
+    by = {sc.name: sc for sc in narrow}
+    # Local ids 0..63 cross the 2**30 boundary 20 ids in.
+    out.append(widen(by["rudder-u"], 2**32 + 2**30 - 20))
+    out.append(widen(by["degree-w"], WIDE_ID_MAX - by["degree-w"].part_of.shape[0] + 1))
+    out.append(widen(by["hybrid-w"], 2**40 + 3))
+    return out
+
+
+def widen_step(sc: FusedStepScenario, ids_of: np.ndarray, name: str, known: bool):
+    """The fused-step scenario ``sc`` on int64 ids ``ids_of[v]``
+    (ascending, so the id order is kept). ``known``: the scenario states
+    the id range of the kernel's maps, as the engine does; else the
+    kernel reads it off the tensors."""
+    return replace(
+        sc,
+        name=name,
+        ids=lift(sc.ids, ids_of),
+        queries=lift(sc.queries, ids_of),
+        cand=lift(sc.cand, ids_of),
+        id_lo=int(ids_of[0]) if known else None,
+        num_ids=int(ids_of[-1] - ids_of[0] + 1) if known else None,
+        narrow=sc,
+        ids_of=ids_of,
+    )
+
+
+def wide_fused_step_scenarios() -> list[FusedStepScenario]:
+    """The wide fused-step set (see the module note)."""
+    narrow = fused_step_scenarios()
+    out = []
+    for sc in narrow:
+        ids_of = np.int64(BASE) + np.arange(sc.num_ids, dtype=np.int64)
+        out.append(widen_step(sc, ids_of, f"{sc.name}@base", known=True))
+    by = {sc.name: sc for sc in narrow}
+    top = by["degree-w"]
+    ids_of = np.int64(WIDE_ID_MAX - top.num_ids + 1) + np.arange(top.num_ids, dtype=np.int64)
+    out.append(widen_step(top, ids_of, "degree-w@top", known=False))
+    for name in ("rudder-u", "hybrid-w", "resident-cand", "dup-cand"):
+        sc = by[name]
+        rng = np.random.default_rng(500 + len(out))
+        spread = np.unique(rng.integers(0, 2**40 + 1, size=4 * sc.num_ids))
+        spread = np.sort(rng.choice(spread, size=sc.num_ids, replace=False))
+        spread[0], spread[-1] = 0, 2**40  # the span is the whole 2**40
+        out.append(widen_step(sc, np.int64(BASE) + spread, f"{name}@sparse", known=False))
     return out

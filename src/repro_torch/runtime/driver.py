@@ -23,8 +23,14 @@ decisions, feat_sums, modeled step times, the trace's ``exact_digest``)
 is bit-identical to it. The GraphSAGE step is data-parallel: per-PE
 gradients are summed, averaged over PEs and applied with SGD.
 
-Not ported yet, and refused with ``NotImplementedError``: the
-``readback_every > 1`` counter cadence.
+Graphs whose global ids sit at an ``id_base`` or pass ``2**31 - 2`` run
+both loops in the engine's wide mode (int64 ids, the ``_wide`` kernels).
+With ``readback_every=K > 1`` the raw loop reads back only each launch's
+``(P, 4)`` counters, K launches at a time
+(:func:`_run_device_cadence`), for runs that consume no per-step id
+stream (:func:`_check_cadence_eligible`). Ids past ``WIDE_ID_MAX`` need
+the reference's staged pipeline, which is not ported yet: they raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,7 +39,13 @@ import numpy as np
 import torch
 
 from .. import telemetry as tel
+from ..core.controller import (
+    FixedController,
+    NoPrefetchController,
+    PeriodicController,
+)
 from ..core.metrics import Metrics
+from ..sim import StepComm
 from .stage import DecisionStage, FusedFetchStage, SampleStage
 
 
@@ -76,6 +88,198 @@ def train_step(trainer, minibatches) -> float:
     return loss_acc
 
 
+def _check_cadence_eligible(trainer, time_engine, use_raw: bool) -> None:
+    """``readback_every > 1`` trades per-step readbacks for counters —
+    valid only when nothing consumes the per-step id streams. Anything
+    else is a configuration error, not a silent downgrade."""
+    K = trainer.readback_every
+    reasons = []
+    if not use_raw:
+        reasons.append("ragged per-PE seed blocks (staged fallback path)")
+    if trainer.trace:
+        reasons.append("trace recording needs per-step id streams")
+    if trainer.feature_store is not None:
+        reasons.append("the feature store moves per-step rows")
+    if time_engine.needs_pairs:
+        reasons.append("per-home comm pricing needs per-step id sets")
+    bad = [
+        type(c).__name__
+        for c in trainer.controllers
+        if type(c) not in (NoPrefetchController, FixedController, PeriodicController)
+    ]
+    if bad:
+        reasons.append(f"controllers {sorted(set(bad))} read per-step metrics")
+    if reasons:
+        raise ValueError(
+            f"readback_every={K} is incompatible with this run: " + "; ".join(reasons)
+        )
+
+
+def _run_device_cadence(
+    trainer, sample, decide, time_engine, dev, fused, K: int
+) -> "RunResult":  # noqa: F821 — see lazy import
+    """The K-step readback cadence of the raw loop.
+
+    Launches run as in :func:`run_device`'s raw loop, but each hands back
+    only its ``(P, 4)`` ``[n_remote, hits, n_place, n_valid]`` counters as
+    a device tensor (``fused_step_raw(want="counts")``), and one
+    ``torch.stack(pending).cpu()`` every K launches pulls them
+    (``dev.transfers["d2h"]`` counts each pull). Per-step logs, stats and
+    step times are rebuilt from the counters: step t's probe counters
+    ride in launch t, its replacement counters in launch t+1 (the
+    pipeline rotation), so a step is accounted once both are on the
+    host. :func:`_check_cadence_eligible` guarantees nothing in the run
+    reads the per-step id streams this loop never materialises, and the
+    eligible controllers never read the metrics, so the decision stream
+    is that of the K=1 loop. ``last_*`` bookkeeping stays stale; the
+    state is written back by ``sync_to_engine`` and the stats are
+    shared."""
+    from ..gnn.train import RunResult, TrainerLog
+
+    P = dev.num_pes
+    active = fused.active
+    uses_buffer = fused.uses_buffer
+    logs = [TrainerLog() for _ in range(P)]
+    epoch_times = [0.0] * trainer.epochs
+    losses: list[float] = []
+    total = trainer.epochs * trainer.mb_per_epoch
+
+    counters: list[np.ndarray] = []  # per launch, (P, 4) on the host
+    pending: list[torch.Tensor] = []  # device counter blocks not pulled yet
+    meta: list[tuple] = []            # per step: (epoch, decisions, stalls)
+    done = 0                          # steps fully accounted
+
+    def account(t: int) -> None:
+        epoch, decisions, stalls = meta[t]
+        probe_c, repl_c = counters[t], counters[t + 1]
+        n_remote = probe_c[:, 0].astype(np.int64)
+        hits = probe_c[:, 1].astype(np.int64)
+        n_place = repl_c[:, 2].astype(np.int64)
+        n_valid = repl_c[:, 3].astype(np.int64)
+        do_rep = decisions & uses_buffer
+        # Probe bookkeeping (lookup): inactive PEs probe nothing but still
+        # fetch their whole remote set (hits == 0 there).
+        lengths = np.where(active, n_remote, 0)
+        miss = n_remote - hits
+        dev.stats.lookups += lengths
+        dev.stats.hits += hits
+        dev.stats.misses += lengths - hits
+        # Replacement bookkeeping (replace_round).
+        rounds = do_rep & (n_place > 0)
+        dev.stats.skipped_rounds += do_rep & (n_place == 0)
+        dev.stats.replaced_total += np.where(rounds, n_place, 0)
+        dev.stats.replacement_rounds += rounds
+        replaced = np.where(rounds, n_place, 0)
+        total_comm = miss + replaced
+        step_time = time_engine.step(StepComm(miss, replaced), stalls)
+        pct_hits = np.where(
+            active,
+            np.where(n_remote > 0, 100.0 * hits / np.maximum(n_remote, 1), 100.0),
+            0.0,
+        )
+        occupancy = dev.occupancy_of(n_valid)
+        for p in range(P):
+            logs[p].pct_hits.append(float(pct_hits[p]))
+            logs[p].comm_volume.append(int(total_comm[p]))
+            logs[p].comm_missed.append(int(miss[p]))
+            logs[p].occupancy.append(float(occupancy[p]))
+            logs[p].unique_remote.append(int(n_remote[p]))
+            logs[p].replaced.append(int(replaced[p]))
+            logs[p].decisions.append(bool(decisions[p]))
+            logs[p].step_time.append(float(step_time[p]))
+        epoch_times[epoch] += float(step_time.max())
+
+    def flush() -> None:
+        nonlocal pending, done
+        if pending:
+            with tel.span("device.readback", plane="device"):
+                block = torch.stack(pending).cpu().numpy()
+            dev._count("d2h", block.nbytes)
+            counters.extend(block)
+            pending = []
+        while done < len(meta) and done + 1 < len(counters):
+            account(done)
+            done += 1
+
+    minibatches, touched = sample.run_raw(0, 0, trainer.rng)
+    pending.append(
+        dev.fused_step_raw(
+            touched, fused._no_decision, fused._no_decision, active, want="counts"
+        )
+    )
+
+    for step in range(total):
+        _step_sp = tel.begin("step", plane="runtime")
+        epoch, mb = divmod(step, trainer.mb_per_epoch)
+        # The eligible controllers never read the metric values, so zeros
+        # keep the decision stream that of the K=1 loop while the real
+        # counters wait on the device for the next flush.
+        decide.submit(
+            [
+                Metrics(
+                    minibatch=mb,
+                    total_minibatches=trainer.mb_per_epoch,
+                    epoch=epoch,
+                    total_epochs=trainer.epochs,
+                    pct_hits=0.0,
+                    comm_volume=0,
+                    replaced_pct=0.0,
+                    buffer_occupancy=0.0,
+                    buffer_capacity=int(trainer.engine.capacity[p]),
+                )
+                for p in range(P)
+            ]
+        )
+        decisions, stalls = decide.collect()
+
+        if step + 1 < total:
+            e2, m2 = divmod(step + 1, trainer.mb_per_epoch)
+            nxt_mb, nxt_touched = sample.run_raw(e2, m2, trainer.rng)
+        else:
+            nxt_mb = None
+            nxt_touched = np.full((P, 0), -1, dtype=np.int32)
+        pending.append(
+            dev.fused_step_raw(
+                nxt_touched, uses_buffer, decisions & uses_buffer, active,
+                want="counts",
+            )
+        )
+        meta.append((epoch, decisions, stalls))
+        if len(pending) >= K:
+            flush()
+
+        if trainer.train_model:
+            _train_sp = tel.begin("train", plane="train")
+            losses.append(train_step(trainer, minibatches))
+            tel.end(_train_sp)
+
+        minibatches = nxt_mb
+        tel.end(_step_sp)
+
+    flush()
+
+    accuracy = 0.0
+    if trainer.train_model:
+        batch = trainer.graph.train_nodes[
+            : min(512, len(trainer.graph.train_nodes))
+        ]
+        minibatch = trainer.sampler.sample(batch, trainer.rng)
+        accuracy = trainer.model.accuracy(*trainer._features_of(minibatch))
+
+    dev.sync_to_engine()
+    return RunResult(
+        variant=trainer.variant,
+        epoch_times=epoch_times,
+        losses=losses,
+        accuracy=accuracy,
+        logs=logs,
+        controllers=trainer.controllers,
+        graph_meta=trainer.graph_meta,
+        sim_events=time_engine.events,
+        trace=None,
+    )
+
+
 def run_device(trainer) -> "RunResult":  # noqa: F821 — see lazy import
     """Execute ``trainer``'s experiment on its device (see the module
     note). At the end of the run the device state is written back to
@@ -83,12 +287,15 @@ def run_device(trainer) -> "RunResult":  # noqa: F821 — see lazy import
     ``trainer.last_device_engine`` and a recorded trace on
     ``trainer.last_trace``."""
     from ..gnn.train import RunResult, TrainerLog
+    from ..kernels import ops
     from .engine import DeviceEngine
 
-    if trainer.readback_every > 1:
+    max_id = trainer.graph.id_base + trainer.graph.num_nodes - 1
+    if not ops.wide_id_eligible(max_id):
         raise NotImplementedError(
-            "readback_every > 1 (the K-step counter cadence) is not ported "
-            "yet (ROADMAP Queue A, readback cadence)"
+            f"node ids up to {max_id} pass the wide-id device bound "
+            f"({ops.WIDE_ID_MAX}); the reference serves them on its staged "
+            "pipeline, which is not ported yet (ROADMAP, the staged-path slice)"
         )
     P = trainer.parts.num_parts
     sample = SampleStage(
@@ -115,6 +322,11 @@ def run_device(trainer) -> "RunResult":  # noqa: F821 — see lazy import
         feature_bytes=trainer.tm.feature_bytes,
     )
     use_raw = _device_raw_supported(trainer)
+    if trainer.readback_every > 1:
+        _check_cadence_eligible(trainer, time_engine, use_raw)
+        return _run_device_cadence(
+            trainer, sample, decide, time_engine, dev, fused, trainer.readback_every
+        )
 
     logs = [TrainerLog() for _ in range(P)]
     epoch_times = [0.0] * trainer.epochs

@@ -17,7 +17,9 @@ frontier step over the raw frontier
 ragged seed blocks, the fused step over host-deduped query sets
 (:func:`repro_torch.kernels.ops.fused_step_batch`); the Hopper kernels on
 a CUDA device, the plain versions on the CPU. Semantics and streams are
-bit-identical to the reference's ``DeviceEngine``.
+bit-identical to the reference's ``DeviceEngine``, in its narrow int32 id
+mode and in its wide mode (int64 ids here, where the reference carries
+``(hi, lo)`` int32 word planes).
 """
 
 from __future__ import annotations
@@ -426,9 +428,14 @@ class DeviceEngine:
     engine.stats``); :meth:`sync_to_engine` writes the tensor state
     back for post-run introspection and state-equality tests.
 
-    This slice serves the narrow int32 id space only: ``id_base != 0``
-    or ids past :data:`repro_torch.kernels.ops.INT32_ID_MAX` (the
-    reference's wide ``(hi, lo)`` mode) raise ``NotImplementedError``.
+    Narrow mode holds ids as int32 and serves id universes up to
+    :data:`repro_torch.kernels.ops.INT32_ID_MAX`. Whenever ``id_base``
+    is nonzero or an id passes that bound the engine takes **wide
+    mode**, as the reference does: ids are int64 on the device and every
+    launch goes through the ``_wide`` kernels, up to
+    :data:`repro_torch.kernels.ops.WIDE_ID_MAX` (about 2^61). Ids past
+    the wide bound raise ``ValueError`` at construction and per launch.
+    ``fused_step_raw(want="counts")`` serves the K-step readback cadence.
     """
 
     def __init__(
@@ -443,13 +450,17 @@ class DeviceEngine:
         self.device = resolve_device(device)
         self.id_base = int(engine.id_base if id_base is None else id_base)
         max_known = int(engine.ids.max()) if engine.ids.size else -1
+        # Any nonzero base puts the whole id universe at or above it.
+        max_known = max(max_known, self.id_base)
         if part_of is not None:
-            max_known = max(max_known, len(part_of) - 1)
-        if self.id_base or not ops.int32_id_eligible(max_known):
-            raise NotImplementedError(
-                "wide ids (id_base != 0 or ids > INT32_ID_MAX) need the wide "
-                "frontier-step kernel, which is not ported yet (ROADMAP "
-                "Queue B #6)"
+            # Every global id of the run is id_base + a local index.
+            max_known = max(max_known, self.id_base + len(part_of) - 1)
+        self.wide = bool(self.id_base) or not ops.int32_id_eligible(max_known)
+        if self.wide and not ops.wide_id_eligible(max_known):
+            raise ValueError(
+                "device engine ids exceed the wide-id bound "
+                f"(max id {max_known} > {ops.WIDE_ID_MAX}); the staged "
+                "pipeline that serves them is not ported yet"
             )
         dev = self.device
         self.engine = engine
@@ -464,7 +475,8 @@ class DeviceEngine:
         def upload(a, dtype):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
 
-        self._ids = upload(engine.ids.astype(np.int32), torch.int32)
+        self._id_dtype = torch.int64 if self.wide else torch.int32
+        self._ids = upload(engine.ids, self._id_dtype)
         self._scores = upload(engine.scores, torch.float32)
         self._valid = upload(engine.valid, torch.bool)
         self._accessed = upload(engine.accessed, torch.bool)
@@ -492,9 +504,16 @@ class DeviceEngine:
         # part_of rides on device so dedup + remoteness run in-launch;
         # node degree weights likewise when the policy scores with them.
         self._num_nodes = len(part_of) if part_of is not None else 0
-        # Id space of the kernels' direct-mapped maps: every id the state
-        # holds or a launch brings lies below it (grown as ids arrive).
-        self._id_bound = max(self._num_nodes, max_known + 1)
+        # Id range of the kernels' direct-mapped maps, [_id_lo, _id_bound):
+        # every id the state holds or a launch brings lies in it (grown as
+        # ids arrive). Narrow mode keys the maps by the id itself.
+        live = engine.ids[engine.valid]
+        self._id_lo = (
+            min(self.id_base, int(live.min()) if live.size else self.id_base)
+            if self.wide
+            else 0
+        )
+        self._id_bound = max(self.id_base + self._num_nodes, max_known + 1)
         self._part_of_dev = (
             upload(np.asarray(part_of).astype(np.int32), torch.int32)
             if part_of is not None
@@ -510,7 +529,7 @@ class DeviceEngine:
         # admission stream lags the probe stream by exactly one step).
         self.cand_cap = 2 * self.max_capacity
         empty64 = np.array([], dtype=np.int64)
-        self._cand_ready = torch.full((P, 1), -1, dtype=torch.int32, device=dev)
+        self._cand_ready = torch.full((P, 1), -1, dtype=self._id_dtype, device=dev)
         self._cand_ready_ids = [empty64 for _ in range(P)]
         self._cand_pending = None
         self._cand_pending_ids = None
@@ -546,9 +565,10 @@ class DeviceEngine:
         Ragged inputs are -1 padded to the widest PE (at least 1;
         candidate dedup happens in the step). Queries, candidates, gates
         and (for weighted policies) the candidate weights, bit-cast to
-        int32, travel as one flat upload — one h2d transfer per step
-        where the reference makes five (six when weighted); the five
-        outputs come back as one packed readback. Per-PE stats and the
+        int32 words (two per id in wide mode), travel as one flat upload
+        — one h2d transfer per step where the reference makes five (six
+        when weighted, seven and eight in wide mode); the five outputs
+        come back as one packed readback. Per-PE stats and the
         ``last_*`` bookkeeping are updated exactly as the staged engine
         does."""
         from ..kernels import ops
@@ -577,23 +597,39 @@ class DeviceEngine:
             int(allq.max()) if allq.size else -1,
             int(allc.max()) if allc.size else -1,
         )
-        if not ops.int32_id_eligible(max_in):
+        if self.wide:
+            if not ops.wide_id_eligible(max_in):
+                raise ValueError(
+                    "device engine ids exceed the wide-id bound "
+                    f"(max id {max_in} > {ops.WIDE_ID_MAX})"
+                )
+        elif not ops.int32_id_eligible(max_in):
             raise ValueError("device engine needs node ids < 2^31")
-        if self._num_nodes and max_in >= self._num_nodes:
+        if self._num_nodes and max_in - self.id_base >= self._num_nodes:
             raise ValueError(
                 f"id {max_in} outside the partition map "
-                f"(len(part_of) = {self._num_nodes})"
+                f"(id_base {self.id_base}, len(part_of) = {self._num_nodes})"
             )
         self._id_bound = max(self._id_bound, max_in + 1)
+        if self.wide:
+            live = np.concatenate([allq, allc])
+            live = live[live >= 0]
+            if live.size:
+                self._id_lo = min(self._id_lo, int(live.min()))
         M = max(int(qlen.max(initial=0)), 1)
         K = max(int(clen.max(initial=0)), 1)
         qmask = np.arange(M) < qlen[:, None]
         cmask = np.arange(K) < clen[:, None]
-        q = np.full((P, M), -1, dtype=np.int32)
-        c = np.full((P, K), -1, dtype=np.int32)
+        idt = np.int64 if self.wide else np.int32
+        q = np.full((P, M), -1, dtype=idt)
+        c = np.full((P, K), -1, dtype=idt)
         q[qmask] = allq
         c[cmask] = allc
-        parts = [q.ravel(), c.ravel(), _gate_bits(active_score, do_rep, active_probe)]
+        parts = [
+            q.view(np.int32).ravel(),
+            c.view(np.int32).ravel(),
+            _gate_bits(active_score, do_rep, active_probe),
+        ]
         if self._weights is not None:
             cw = np.ones((P, K), dtype=np.float32)
             if self._node_weights is not None and allc.size:
@@ -602,29 +638,19 @@ class DeviceEngine:
         block = np.concatenate(parts)
         blk = torch.from_numpy(block).to(self.device)
         self._count("h2d", block.nbytes)
-        q_d = blk[: P * M].view(P, M)
-        c_d = blk[P * M : P * (M + K)].view(P, K)
-        g_d = blk[P * (M + K) : P * (M + K + 1)]
+        # Int32 words per id; the id slices start at even offsets, so a
+        # wide slice views as int64 in place.
+        nq = P * M * q.itemsize // 4
+        nc = P * K * c.itemsize // 4
+        q_d = blk[:nq].view(self._id_dtype).view(P, M)
+        c_d = blk[nq : nq + nc].view(self._id_dtype).view(P, K)
+        g_d = blk[nq + nc : nq + nc + P]
         cw_d = (
-            blk[P * (M + K + 1) :].view(torch.float32).view(P, K)
+            blk[nq + nc + P :].view(torch.float32).view(P, K)
             if self._weights is not None
             else None
         )
-
-        _launch_sp = tel.begin("device.launch", plane="device")
-        (
-            self._ids,
-            self._scores,
-            self._valid,
-            self._accessed,
-            w2,
-            hit_d,
-            hit_slot_d,
-            placed_d,
-            slot_pos_d,
-            _n_placed,
-            n_valid_d,
-        ) = ops.fused_step_batch(
+        args = (
             self._ids,
             self._scores,
             self._valid,
@@ -637,9 +663,33 @@ class DeviceEngine:
             (g_d & 1) != 0,
             (g_d & 2) != 0,
             (g_d & 4) != 0,
-            num_ids=self._id_bound,
-            **self.policy.kernel_constants(),
         )
+
+        _launch_sp = tel.begin("device.launch", plane="device")
+        if self.wide:
+            out = ops.fused_step_wide_batch(
+                *args,
+                id_lo=self._id_lo,
+                num_ids=self._id_bound - self._id_lo,
+                **self.policy.kernel_constants(),
+            )
+        else:
+            out = ops.fused_step_batch(
+                *args, num_ids=self._id_bound, **self.policy.kernel_constants()
+            )
+        (
+            self._ids,
+            self._scores,
+            self._valid,
+            self._accessed,
+            w2,
+            hit_d,
+            hit_slot_d,
+            placed_d,
+            slot_pos_d,
+            _n_placed,
+            n_valid_d,
+        ) = out
         tel.end(_launch_sp)
         if w2 is not None:
             self._weights = w2
@@ -709,7 +759,7 @@ class DeviceEngine:
         do_replace: np.ndarray,
         active_probe: np.ndarray,
         want: str = "full",
-    ) -> FrontierStepOut:
+    ):
         """One single-launch device step over the *raw* sampled frontier:
         dedup → score → replace → probe → payload scatter, one launch,
         one ``(P, Mt+1)`` upload (frontier + packed gate bits) and one
@@ -717,19 +767,22 @@ class DeviceEngine:
 
         ``touched`` is the dense ``(P, Mt)`` frontier block straight from
         the sampler (unsorted, duplicated; -1 padding allowed), with ids
-        in ``[0, len(part_of))``. Replacement candidates are the misses
-        the launch two steps back compacted on device. Bookkeeping and
-        stats mirror the staged ``lookup`` / ``replace_round`` exactly.
-        The reference's ``want="counts"`` readback cadence is not ported
-        yet.
+        in ``[id_base, id_base + len(part_of))``. Replacement candidates
+        are the misses the launch two steps back compacted on device.
+        Bookkeeping and stats mirror the staged ``lookup`` /
+        ``replace_round`` exactly; returns a :class:`FrontierStepOut`.
+
+        ``want="counts"`` is the K-step readback cadence: the launch's
+        host-facing block stays on the device and only its ``(P, 4)`` int32
+        ``[n_remote, hits, n_place, n_valid]`` counters are returned, as a
+        *device* tensor (the caller stacks K of them and pulls once). The
+        candidate buffers rotate on the device; no stats or ``last_*``
+        bookkeeping happens, and nothing is read back.
         """
         from ..kernels import ops
 
-        if want != "full":
-            raise NotImplementedError(
-                "the counts-only readback cadence (readback_every > 1) is not "
-                "ported yet (ROADMAP Queue A, readback cadence)"
-            )
+        if want not in ("full", "counts"):
+            raise ValueError(f"want must be 'full' or 'counts', got {want!r}")
         P = self.num_pes
         if self._part_of_dev is None:
             raise ValueError(
@@ -742,18 +795,29 @@ class DeviceEngine:
                 f"touched must be (P, Mt) with P={P}, got {touched.shape}"
             )
         max_in = int(touched.max()) if touched.size else -1
-        if max_in >= self._num_nodes:
+        if self.wide:
+            if not ops.wide_id_eligible(max_in):
+                raise ValueError(
+                    "device engine ids exceed the wide-id bound "
+                    f"(max id {max_in} > {ops.WIDE_ID_MAX})"
+                )
+            live = touched[touched >= 0]
+            min_in = int(live.min()) if live.size else self.id_base
+        else:
+            min_in = 0
+        if max_in - self.id_base >= self._num_nodes or min_in < self.id_base:
             raise ValueError(
-                f"frontier id {max_in} outside the partition map "
-                f"(len(part_of) = {self._num_nodes})"
+                f"frontier ids [{min_in}, {max_in}] outside the partition map "
+                f"(id_base {self.id_base}, len(part_of) = {self._num_nodes})"
             )
-        touched = touched.astype(np.int32, copy=False)
+        idt = np.int64 if self.wide else np.int32
+        touched = touched.astype(idt, copy=False)
         if touched.shape[1] == 0:
             # Final drained launch: keep the (P, Mt>=1) shape the sort
             # prologue needs; an all(-1) row dedups to zero queries.
-            touched = np.full((P, 1), -1, dtype=np.int32)
+            touched = np.full((P, 1), -1, dtype=idt)
         do_rep = np.asarray(do_replace, dtype=bool)
-        gates = _gate_bits(active_score, do_rep, active_probe)
+        gates = _gate_bits(active_score, do_rep, active_probe).astype(idt)
         aug = np.concatenate([touched, gates[:, None]], axis=1)
         aug_d = torch.from_numpy(aug).to(self.device)
         self._count("h2d", aug.nbytes)
@@ -763,6 +827,11 @@ class DeviceEngine:
             table, loc = self._store.device_view(self.device)
 
         Kc = self._cand_ready.shape[1]
+        if self.wide:
+            step = ops.fused_frontier_step_wide_batch
+            extra = dict(id_base=self.id_base)
+        else:
+            step, extra = ops.fused_frontier_step_batch, {}
         _launch_sp = tel.begin("device.launch", plane="device")
         (
             self._ids,
@@ -773,8 +842,8 @@ class DeviceEngine:
             payload2,
             cand_next,
             packed_d,
-            _counters_d,
-        ) = ops.fused_frontier_step_batch(
+            counters_d,
+        ) = step(
             self._ids,
             self._scores,
             self._valid,
@@ -789,6 +858,7 @@ class DeviceEngine:
             table,
             loc,
             cand_cap=self.cand_cap,
+            **extra,
             **self.policy.kernel_constants(),
         )
         tel.end(_launch_sp)
@@ -797,15 +867,29 @@ class DeviceEngine:
         if payload2 is not None:
             self.payload = payload2
 
+        if want == "counts":
+            # Rotate the device candidate buffers and hand back only the
+            # counters, still on the device; the host mirrors are not kept
+            # (no per-step bookkeeping on the cadence path).
+            if self._cand_pending is not None:
+                self._cand_ready = self._cand_pending
+            self._cand_pending = cand_next
+            return counters_d
+
         with tel.span("device.readback", plane="device"):
             packed = packed_d.cpu().numpy()
         self._count("d2h", packed.nbytes)
         C = self.max_capacity
         Mt = aug.shape[1] - 1
-        sk = packed[:, :Mt]
-        code = packed[:, Mt : 2 * Mt]
-        placed_m = packed[:, 2 * Mt : 2 * Mt + Kc] != 0
-        slot_pos = packed[:, 2 * Mt + Kc : 2 * Mt + Kc + C]
+        # The keys lead the block: int32, or int64 as int32 pairs.
+        w = touched.itemsize // 4
+        sk = packed[:, : w * Mt]
+        if self.wide:
+            sk = np.ascontiguousarray(sk).view(np.int64)
+        code = packed[:, w * Mt : (w + 1) * Mt]
+        head = (w + 1) * Mt
+        placed_m = packed[:, head : head + Kc] != 0
+        slot_pos = packed[:, head + Kc : head + Kc + C]
         n_valid = packed[:, -1].astype(np.int64)
 
         # --- probe bookkeeping (lookup over the deduped remote sets) --- #

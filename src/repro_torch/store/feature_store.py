@@ -159,9 +159,11 @@ class FeatureStore:
     def device_view(self, device=None):
         """``(table, loc)`` on ``device`` (the store's by default) for the
         single-launch hot path: the flat ``(K * N_max, F)`` float32 table
-        and the int32 node→row map. The frontier step copies admission
-        rows from these into the payload inside the step, so feature rows
-        never cross the host boundary. Cached until :meth:`poke`. Needs
+        and the int32 node→row map, indexed by the local id ``id -
+        id_base`` (the wide step reads ``loc[id - id_base]``, the narrow
+        one, at ``id_base == 0``, ``loc[id]``). The frontier step copies
+        admission rows from these into the payload inside the step, so
+        feature rows never cross the host boundary. Cached until :meth:`poke`. Needs
         the flat row count to be int32-addressable — the bound the device
         engine already enforces on node ids."""
         from ..kernels import ops

@@ -6,8 +6,11 @@ The kernels are built from ``src/repro_torch/kernels/csrc`` at first use.
 Every kernel is held bit for bit against its plain PyTorch version on the
 same CUDA tensors (``fused_frontier_step``, ``fused_step``,
 ``gather_rows_batch`` and ``gather_rows`` over their seeded scenario
-sets), a short trainer run on the card against the same run on the CPU,
-and one committed golden trace re-recorded on the card.
+sets; ``fused_frontier_step_wide`` and ``fused_step_wide`` over the wide
+sets, in both index modes of the kernels), short trainer runs on the card
+(narrow, rebased past ``2**31``, and on the readback cadence) against the
+same runs on the CPU, and one committed golden trace re-recorded on the
+card.
 """
 
 import numpy as np
@@ -21,6 +24,8 @@ pytestmark = pytest.mark.cuda
 SCENARIOS = scenarios.frontier_scenarios()
 STEP_SCENARIOS = scenarios.fused_step_scenarios()
 GATHERS = scenarios.gather_scenarios()
+WIDE = scenarios.wide_frontier_scenarios()
+WIDE_STEPS = scenarios.wide_fused_step_scenarios()
 
 
 @pytest.fixture
@@ -107,3 +112,65 @@ def test_trainer_on_the_card_matches_cpu(card):
     for x, y in zip(a.logs, b.logs):
         assert x == y
     np.testing.assert_allclose(a.losses, b.losses, rtol=1e-4, atol=1e-5)
+
+
+def _on(card, sc):
+    return [
+        None if a is None else torch.from_numpy(np.ascontiguousarray(a)).to(card)
+        for a in sc.arrays().values()
+    ]
+
+
+@pytest.mark.parametrize("budget", [None, 0], ids=["direct", "sorted"])
+@pytest.mark.parametrize("sc", WIDE, ids=[s.name for s in WIDE])
+def test_fused_frontier_wide_kernel_matches_plain(card, sc, budget, monkeypatch):
+    from repro_torch.kernels import fused_step as fs
+
+    if budget is not None:  # no room for the maps: the sorted mode
+        monkeypatch.setattr(fs, "MAP_BUDGET_BYTES", budget)
+    args = _on(card, sc)
+    before = native.LAUNCHES["fused_frontier_step_wide"]
+    got = fs.fused_frontier_step_wide_cuda(*args, **sc.kwargs())
+    want = ref.fused_frontier_step_wide(*args, **sc.kwargs())
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["fused_frontier_step_wide"] == before + 1
+    assert all(_equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("budget", [None, 0], ids=["auto", "sorted"])
+@pytest.mark.parametrize("sc", WIDE_STEPS, ids=[s.name for s in WIDE_STEPS])
+def test_fused_step_wide_kernel_matches_plain(card, sc, budget, monkeypatch):
+    from repro_torch.kernels import fused_step as fs
+
+    if budget is not None:
+        monkeypatch.setattr(fs, "MAP_BUDGET_BYTES", budget)
+    args = _on(card, sc)
+    before = native.LAUNCHES["fused_step_wide"]
+    got = fs.fused_step_wide_cuda(
+        *args, id_lo=sc.id_lo, num_ids=sc.num_ids, **sc.constants
+    )
+    want = ref.fused_step_wide(*args, **sc.constants)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["fused_step_wide"] == before + 1
+    assert all(_equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("readback_every", [1, 4])
+def test_wide_trainer_on_the_card_matches_cpu(card, readback_every):
+    from repro_torch.gnn import DistributedTrainer
+    from repro_torch.graph import generate, partition_graph
+
+    g = generate("products", seed=0, scale=0.15).rebase(scenarios.BASE)
+    parts = partition_graph(g, 4)
+    kw = dict(variant="fixed", epochs=2, batch_size=16, readback_every=readback_every)
+    on_card = DistributedTrainer(parts, device="cuda", **kw)
+    on_cpu = DistributedTrainer(parts, device="cpu", **kw)
+    before = native.LAUNCHES["fused_frontier_step_wide"]
+    a, b = on_card.run(), on_cpu.run()
+    launches = on_card.epochs * on_card.mb_per_epoch + 1
+    assert native.LAUNCHES["fused_frontier_step_wide"] == before + launches
+    for x, y in zip(a.logs, b.logs):
+        assert x == y
+    np.testing.assert_array_equal(on_card.engine.ids, on_cpu.engine.ids)
+    np.testing.assert_allclose(a.losses, b.losses, rtol=1e-4, atol=1e-5)
+    assert on_card.last_device_engine.transfers["d2h"] == -(-launches // readback_every)

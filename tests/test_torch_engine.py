@@ -14,6 +14,7 @@ import copy
 
 import numpy as np
 import pytest
+import torch
 
 from repro.runtime import engine as jeng
 from repro_torch.core import scoring
@@ -138,18 +139,47 @@ def test_prefetch_engine_matches_reference():
 
 
 def test_wide_ids_are_not_ported():
-    eng = teng.PrefetchEngine([4, 4], id_base=2**33)
-    with pytest.raises(NotImplementedError, match="wide"):
-        teng.DeviceEngine(eng, device="cpu", part_of=np.zeros(10, np.int64))
+    """Once refused, now served: an engine at ``id_base = 2**33`` takes
+    wide mode (int64 ids on the device) and its rotated raw launches
+    equal the reference's wide ``DeviceEngine`` (``(hi, lo)`` planes)."""
+    base = 2**33
+    part_of = np.arange(10, dtype=np.int64) % 2
+    ref_dev = jeng.DeviceEngine(
+        jeng.PrefetchEngine([4, 4], id_base=base), backend="jnp", part_of=part_of
+    )
+    port_dev = teng.DeviceEngine(
+        teng.PrefetchEngine([4, 4], id_base=base), device="cpu", part_of=part_of
+    )
+    assert port_dev.wide and ref_dev.wide
+    assert port_dev._ids.dtype == torch.int64
+    rng = np.random.default_rng(3)
+    on = np.ones(2, dtype=bool)
+    for t in range(5):
+        f = rng.integers(-1, 10, size=(2, 6)).astype(np.int64)
+        f[f >= 0] += base
+        args = (f, on if t else ~on, on if t else ~on, on)
+        _assert_out_equal(
+            port_dev.fused_step_raw(*args), ref_dev.fused_step_raw(*args), f"launch {t}"
+        )
+    np.testing.assert_array_equal(
+        port_dev.sync_to_engine().ids, ref_dev.sync_to_engine().ids
+    )
 
 
 def test_counts_cadence_is_not_ported():
-    dev = teng.DeviceEngine(
-        teng.PrefetchEngine([4]), device="cpu", part_of=np.zeros(10, np.int64)
-    )
+    """Once refused, now served: ``want="counts"`` returns the launch's
+    ``(P, 4)`` counters as a device tensor, equal to the reference's, and
+    reads nothing back."""
+    part_of = np.zeros(10, np.int64)
+    dev = teng.DeviceEngine(teng.PrefetchEngine([4]), device="cpu", part_of=part_of)
+    ref_dev = jeng.DeviceEngine(jeng.PrefetchEngine([4]), backend="jnp", part_of=part_of)
     on = np.ones(1, dtype=bool)
-    with pytest.raises(NotImplementedError, match="readback_every"):
-        dev.fused_step_raw(np.zeros((1, 3), np.int64), on, on, on, want="counts")
+    touched = np.array([[1, 3, 3, -1]], np.int64)
+    got = dev.fused_step_raw(touched, on, on, on, want="counts")
+    want = ref_dev.fused_step_raw(touched, on, on, on, want="counts")
+    assert isinstance(got, torch.Tensor) and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert dev.transfers["d2h"] == 0 and dev.transfers["h2d"] == 1
 
 
 def test_frontier_outside_partition_map_raises():

@@ -119,11 +119,28 @@ def test_zero_capacity_is_impossible_by_construction():
 
 
 def test_wide_ids_raise():
+    """Once refused, now routed as the reference routes them: int64 ids
+    that fit int32 run the narrow step, and the same ids past ``2**31``
+    the wide one, with the narrow outputs and ``ids`` shifted."""
     sc = SCENARIOS[0]
     args = [_torch(a) for a in sc.arrays().values()]
+    narrow = _run(sc)
     args[6] = args[6].to(torch.int64)  # queries
-    with pytest.raises(NotImplementedError, match="Queue B #6"):
-        ops.fused_step_batch(*args, num_ids=sc.num_ids, **sc.constants)
+    same = ops.fused_step_batch(*args, num_ids=sc.num_ids, **sc.constants)
+    _assert_same(same, [t.numpy() if t is not None else None for t in narrow], "int64 queries")
+    base = 2**31 + 1000
+    for i in (0, 6, 7):  # ids, queries, cand
+        args[i] = torch.where(args[i] >= 0, args[i].to(torch.int64) + base, args[i].to(torch.int64))
+    big = ops.fused_step_batch(*args, num_ids=sc.num_ids, **sc.constants)
+    assert big[0].dtype == torch.int64
+    shifted = narrow[0].to(torch.int64)
+    shifted = torch.where(shifted >= 0, shifted + base, shifted)
+    np.testing.assert_array_equal(big[0].numpy(), shifted.numpy())
+    _assert_same(
+        (None,) + tuple(big[1:]),
+        (None,) + tuple(t.numpy() if t is not None else None for t in narrow[1:]),
+        "wide route",
+    )
 
 
 def test_pack_readback_matches_reference():

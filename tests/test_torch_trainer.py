@@ -227,12 +227,25 @@ def test_unported_options_raise(parts, kwargs, match):
     ],
 )
 def test_unported_run_paths_raise(parts, kwargs, match):
-    _, port = parts
-    kw = dict(COMMON, variant="fixed", device="cpu", train_model=False)
-    kw.update(kwargs)
-    tr = tgnn.DistributedTrainer(port, **kw)
-    with pytest.raises(NotImplementedError, match=match):
-        tr.run()
+    """Once refused, now run: ``readback_every=2`` (the K-step counter
+    cadence) reproduces the K = 1 run and the reference's cadence run,
+    with one counter readback per two launches."""
+    ref, port = parts
+    kw = dict(COMMON, variant="fixed", train_model=False)
+    k1 = tgnn.DistributedTrainer(port, device="cpu", **kw)
+    tr = tgnn.DistributedTrainer(port, device="cpu", **kw, **kwargs)
+    ref_run = jgnn.DistributedTrainer(ref, device="jnp", **kw, **kwargs).run()
+    run, run1 = tr.run(), k1.run()
+    assert tr.readback_every == kwargs[match] == 2
+    for p, (a, b, c) in enumerate(zip(run.logs, run1.logs, ref_run.logs)):
+        for f in STREAMS:
+            assert getattr(a, f) == getattr(b, f) == getattr(c, f), f"PE {p} {f}"
+    for f in STATS:
+        np.testing.assert_array_equal(
+            getattr(tr.engine.stats, f), getattr(k1.engine.stats, f), err_msg=f
+        )
+    launches = COMMON["epochs"] * tr.mb_per_epoch + 1
+    assert tr.last_device_engine.transfers["d2h"] == -(-launches // 2)
 
 
 def test_sampler_kernels_not_ported(parts):
