@@ -14,6 +14,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    and ``fused_step_wide`` on the wide sets (int64 ids at bases past 2^31
    and 2^32, ids ending at ``WIDE_ID_MAX``, a sparse set spread over 2^40),
    each in both index modes of the kernels (direct maps and sorted);
+   ``frontier_unique_batch`` and its int64 twin on the frontier-dedup set,
+   and ``score_policy_update_batch``, ``score_update_batch`` and
+   ``score_update`` on the scoring set (every policy, weights on and off);
 3. the raw main path: ``DistributedTrainer(device="cuda")`` on the products
    preset at ``scale=10`` (240k nodes), 4 trainers, batch 2000, fanouts
    (10, 25), 25% buffers, rudder variant, 3 epochs of GraphSAGE training;
@@ -27,7 +30,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 4. card vs CPU: the raw path at ``scale=1`` (batch 256), the same with the
    feature store (the in-launch payload scatter), a ragged store run
    (products ``scale=0.15``, batch 72), the raw path on the graph rebased
-   past 2^31 (wide ids) and on the readback cadence: every integer and bool
+   past 2^31 (wide ids), on the readback cadence, and the staged fall-back
+   (the graph rebased to ``WIDE_ID_MAX``): every integer and bool
    stream, the store streams, the buffer state and payload identical,
    losses allclose;
 5. the 8 committed golden traces re-recorded on the card, modeled and with
@@ -42,10 +46,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 7. the readback cadence: phase 3's graph, narrow and rebased, the ``fixed``
    controller at ``readback_every=4`` against ``readback_every=1``: equal
    logs, one counter pull per 4 launches, the readback time per step;
-8. a ``kernels`` JSON line, and as the last line the device JSON line.
+8. the staged fall-back at full width: phase 3's graph rebased to
+   ``WIDE_ID_MAX`` and phase 3's run on ``device="cuda"``: one warning,
+   one ``frontier_unique_batch`` launch (the sampler's dedup) and one
+   ``score_policy_update_batch`` launch (the engine's scoring round) per
+   step, every stream, stat and the buffer state equal to phase 3's (ids
+   shifted), each kernel bit-exact on every launch of the run, both timed;
+8b. the staged loop on the host: ``device=False`` on phase 3's graph and
+   run, equal to phase 3;
+9. a ``kernels`` JSON line, and as the last line the device JSON line.
 
 Each path's launch counts are zeroed just before it runs and read just
-after. Every phase raises on failure, so any failure exits non-zero.
+after; the device loops (phases 3, 3b, 6, 6b, 7) launch neither of the
+staged pipeline's kernels. Every phase raises on failure, so any failure exits non-zero.
 Without a CUDA card, or outside a checkout of the repository, the script
 exits non-zero before printing any result.
 """
@@ -57,6 +70,7 @@ import math
 import subprocess
 import sys
 import time
+import warnings
 from collections import defaultdict
 from pathlib import Path
 
@@ -93,6 +107,12 @@ DEVICE = "cuda"
 WIDE_BASE = 2**31 + 1000
 CADENCE = 4
 FIXED = dict(RUN, variant="fixed")
+#: The staged pipeline's kernels, which no device loop launches.
+STAGED_KERNELS = (
+    "frontier_unique_batch", "frontier_unique_batch_wide", "score_update",
+    "score_update_batch", "score_policy_update_batch",
+)
+FALLBACK_WARNING = "falling back to the staged pipeline"
 
 #: Loss tolerance of the card-vs-CPU runs: the same float32 math, summed in
 #: another order by the card's matmul and reduction kernels, over a few SGD
@@ -116,6 +136,8 @@ STEP_OUT = (
     "ids2", "scores2", "valid2", "accessed3", "weights2", "hit", "hit_slot",
     "placed", "slot_pos", "n_placed", "n_valid",
 )
+UNIQUE_OUT = ("first", "remote", "unique_count", "remote_count")
+SCORE_OUT = ("new", "stale")
 
 
 # --------------------------------------------------------------------------- #
@@ -382,6 +404,22 @@ def stage_medians(clock) -> dict:
     }
 
 
+def no_staged_launches(what, launches) -> None:
+    """Raise if a device loop launched a kernel of the staged pipeline."""
+    bad = {k: launches[k] for k in STAGED_KERNELS if launches[k]}
+    if bad:
+        raise AssertionError(f"{what}: the device loop launched {bad}")
+
+
+def run_warned(trainer):
+    """``trainer.run()``, returning the result and the texts of the
+    ``RuntimeWarning`` s it raised."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        result = trainer.run()
+    return result, [str(w.message) for w in caught if w.category is RuntimeWarning]
+
+
 def shift_ids(ids, base: int):
     """Engine ids with every valid (non-negative) id moved up by ``base``."""
     import numpy as np
@@ -433,9 +471,11 @@ def main() -> int:
     from repro_torch import telemetry
     from repro_torch.gnn import DistributedTrainer
     from repro_torch.graph import generate, partition_graph
+    from repro_torch.kernels import frontier_unique as fu
     from repro_torch.kernels import fused_step as fs
     from repro_torch.kernels import gather_rows as gr
-    from repro_torch.kernels import native, ref, scenarios
+    from repro_torch.kernels import native, ops, ref, scenarios
+    from repro_torch.kernels import score_update as su
     from repro_torch.runtime import driver
     from repro_torch.store import FeatureStore
     from repro_torch.trace import load_trace
@@ -560,6 +600,43 @@ def main() -> int:
                                 f"fused_step wide {sc.name} budget={b}"),
             )
         fs.MAP_BUDGET_BYTES = budget
+    # The staged pipeline's kernels: the frontier dedup in both
+    # instantiations (int64 keys within INT32_ID_MAX run narrow, as the
+    # dispatcher routes them), the three score entries over every mode.
+    unique_cases = scenarios.frontier_unique_scenarios()
+    wide_unique = {}
+    for sc in unique_cases:
+        keys, flags = to_device((sc.keys, sc.is_remote), dev)
+        wide = keys.dtype == torch.int64 and not ops.int32_id_eligible(sc.keys.max(initial=0))
+        if wide:
+            name, got = "frontier_unique_batch_wide", fu.frontier_unique_batch_wide_cuda(keys, flags)
+            wide_unique[sc.name] = (keys, flags)
+        else:
+            keys = keys.to(torch.int32)
+            name, got = "frontier_unique_batch", fu.frontier_unique_batch_cuda(keys, flags)
+        want = ref.frontier_unique_batch(keys, flags)
+        torch.cuda.synchronize()
+        max_err[name] = max(
+            max_err[name], compare_outputs(got, want, UNIQUE_OUT, f"{name} {sc.name}")
+        )
+    score_cases = scenarios.score_scenarios()
+    for sc in score_cases:
+        s_, a_, w_ = to_device((sc.scores, sc.accessed, sc.weights), dev)
+        checks = [
+            ("score_policy_update_batch",
+             su.score_policy_update_batch_cuda(s_, a_, w_, **sc.constants),
+             ref.score_policy_update_batch(s_, a_, w_, **sc.constants)),
+            ("score_update_batch", su.score_update_batch_cuda(s_, a_),
+             ref.score_update_batch(s_, a_)),
+        ]
+        for p_ in range(s_.shape[0]):
+            row = (s_[p_].contiguous(), a_[p_].contiguous())
+            checks.append(("score_update", su.score_update_cuda(*row), ref.score_update(*row)))
+        torch.cuda.synchronize()
+        for name, got, want in checks:
+            max_err[name] = max(
+                max_err[name], compare_outputs(got, want, SCORE_OUT, f"{name} {sc.name}")
+            )
     phase2 = dict(native.LAUNCHES)
     print(
         f"phase 2: kernel == plain, bit-exact: fused_frontier_step on "
@@ -570,7 +647,11 @@ def main() -> int:
         f"{len(wide_cases)} wide scenarios (bases {sorted({s.id_base for s in wide_cases})}; "
         f"3 per base also with a store table), fused_step_wide on {len(wide_steps)} "
         f"({', '.join(s.name for s in wide_steps)}), each in both index modes "
-        f"(direct maps and sorted); launches {phase2}"
+        f"(direct maps and sorted); frontier_unique_batch and its int64 twin on "
+        f"{len(unique_cases)} sets ({', '.join(s.name for s in unique_cases)}); "
+        f"score_policy_update_batch, score_update_batch and score_update (per row) "
+        f"on {len(score_cases)} ({', '.join(s.name for s in score_cases)}); "
+        f"launches {phase2}"
     )
 
     # -- 3. the raw main path on the card --------------------------------- #
@@ -594,6 +675,7 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches_raw = dict(native.LAUNCHES)
+    no_staged_launches("phase 3", launches_raw)
 
     if launches_raw["fused_frontier_step"] != steps + 1:
         raise AssertionError(f"launches {launches_raw} != steps + 1 = {steps + 1}")
@@ -658,7 +740,7 @@ def main() -> int:
     print("phase 3: device time per launch by kernel (torch.profiler): "
           + profile_rows(lambda: fs.fused_frontier_step_cuda(*args, **kw)))
     # Phases 6 and 7 rebase this graph and compare with this run.
-    g_main, main = g, (trainer, result)
+    g_main, main, mt_main = g, (trainer, result), Mt
     stages_main = stage_medians(clock)
     del trainer, result, clock, captured, g, parts
 
@@ -689,6 +771,7 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches_ragged = dict(native.LAUNCHES)
+    no_staged_launches("phase 3b", launches_ragged)
     if launches_ragged["fused_step"] != steps + 1:
         raise AssertionError(f"launches {launches_ragged} != steps + 1 = {steps + 1}")
     if launches_ragged["fused_frontier_step"] != 0:
@@ -825,13 +908,16 @@ def main() -> int:
     g2 = generate("products", seed=0, scale=SMALL_RAGGED_SCALE)
     p2g = partition_graph(g2, 4)
     p1w = partition_graph(g1.rebase(WIDE_BASE), 4)
+    p1s = partition_graph(g1.rebase(ops.WIDE_ID_MAX), 4)
     for what, parts_, cfg, with_store in (
         ("raw", p1g, SMALL, False),
         ("raw + store", p1g, SMALL, True),
         ("ragged + store", p2g, SMALL_RAGGED, True),
         ("raw, wide ids", p1w, SMALL, False),
         ("raw, cadence", p1g, dict(SMALL, variant="fixed", readback_every=CADENCE), False),
+        ("staged fall-back", p1s, SMALL, False),
     ):
+        staged = what.startswith("staged")
         raw_path = what.startswith("raw")
         runs = {}
         for where in ("card", "cpu"):
@@ -842,10 +928,21 @@ def main() -> int:
                     parts_, device=d, use_kernel=True
                 )
             tr = DistributedTrainer(parts_, device=d, **cfg, **extra)
-            runs[where] = (tr, tr.run())
-        (tc, rc), (th, rh) = runs["card"], runs["cpu"]
-        if driver._device_raw_supported(tc) != raw_path:
+            native.reset_launches()
+            run, warned = run_warned(tr)
+            runs[where] = (tr, run, warned, dict(native.LAUNCHES))
+        (tc, rc, wc, lc), (th, rh, wh, _) = runs["card"], runs["cpu"]
+        if staged:
+            steps = tc.epochs * tc.mb_per_epoch
+            if tc.last_device_engine is not None or len(wc) != 1 or len(wh) != 1:
+                raise AssertionError(f"phase 4 ({what}): no fall-back ({wc}, {wh})")
+            if (lc["frontier_unique_batch"] != steps
+                    or lc["score_policy_update_batch"] != steps):
+                raise AssertionError(f"phase 4 ({what}): launches {lc}")
+        elif driver._device_raw_supported(tc) != raw_path:
             raise AssertionError(f"phase 4 ({what}) took the other loop")
+        else:
+            no_staged_launches(f"phase 4 ({what})", lc)
         diff = compare_runs(f"card vs CPU ({what})", tc, rc, th, rh, with_store)
         print(
             f"phase 4 ({what}): batch {cfg['batch_size']}, {len(rc.losses)} steps: card == "
@@ -884,6 +981,7 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches_wide = dict(native.LAUNCHES)
+    no_staged_launches("phase 6", launches_wide)
     if launches_wide["fused_frontier_step_wide"] != steps + 1 or launches_wide["fused_frontier_step"]:
         raise AssertionError(f"phase 6: launches {launches_wide}")
     dev_w = trainer.last_device_engine
@@ -957,6 +1055,7 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches_wide_ragged = dict(native.LAUNCHES)
+    no_staged_launches("phase 6b", launches_wide_ragged)
     if (launches_wide_ragged["fused_step_wide"] != steps + 1
             or launches_wide_ragged["fused_step"]
             or launches_wide_ragged["gather_rows_batch"] != store.kernel_gathers
@@ -1030,6 +1129,8 @@ def main() -> int:
             torch.cuda.synchronize()
             runs[k] = (tr, run, clock, dict(native.LAUNCHES))
         (t1, r1, c1, l1), (tk, rk, ck, lk) = runs[1], runs[CADENCE]
+        no_staged_launches(f"phase 7 ({tag}, K=1)", l1)
+        no_staged_launches(f"phase 7 ({tag}, K={CADENCE})", lk)
         steps = tk.epochs * tk.mb_per_epoch
         kernel = "fused_frontier_step_wide" if tag == "wide" else "fused_frontier_step"
         if l1[kernel] != steps + 1 or lk[kernel] != steps + 1:
@@ -1054,9 +1155,191 @@ def main() -> int:
         else:
             launches_cadence_wide = lk
         del runs, t1, r1, tk, rk, parts
-    del g_main, main, g_wide
+    del g_wide
 
-    # -- 8. results ------------------------------------------------------- #
+    # -- 8. the staged fall-back at full width ------------------------------ #
+    t0 = time.perf_counter()
+    parts = partition_graph(g_main.rebase(ops.WIDE_ID_MAX), 4)
+    trainer = DistributedTrainer(parts, device=DEVICE, **RUN)
+    steps = trainer.epochs * trainer.mb_per_epoch
+    print(f"phase 8: products scale={MAIN_SCALE} rebased to id_base WIDE_ID_MAX = "
+          f"{ops.WIDE_ID_MAX} (ids past the wide-id bound), phase 3's run on "
+          f"device={DEVICE!r}; set-up {time.perf_counter() - t0:.1f} s")
+    clock = StageClock(["frontier_unique_batch", "score_policy_update_batch"])
+    native.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with telemetry.active(clock):
+        result, warned = run_warned(trainer)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_staged = dict(native.LAUNCHES)
+    if len(warned) != 1 or FALLBACK_WARNING not in warned[0]:
+        raise AssertionError(f"phase 8: warnings {warned}")
+    others = {k: v for k, v in launches_staged.items()
+              if v and k not in ("frontier_unique_batch", "score_policy_update_batch")}
+    if (launches_staged["frontier_unique_batch"] != steps
+            or launches_staged["score_policy_update_batch"] != steps or others):
+        raise AssertionError(f"phase 8: launches {launches_staged}")
+    if trainer.last_device_engine is not None:
+        raise AssertionError("phase 8: the run took a device loop")
+    unique_caps = clock.launches["frontier_unique_batch"]
+    score_caps = clock.launches["score_policy_update_batch"]
+    keys_shape = {(tuple(a[0].shape), a[0].dtype) for a, _ in unique_caps}
+    score_shape = {tuple(a[0].shape) for a, _ in score_caps}
+    C = trainer.engine.max_capacity
+    if keys_shape != {((4, mt_main), torch.int32)} or score_shape != {(4, C)}:
+        raise AssertionError(f"phase 8: shapes {keys_shape} / {score_shape}")
+    diff = compare_runs("phase 8 (staged vs phase 3)", trainer, result, *main, False,
+                        ops.WIDE_ID_MAX)
+    print(
+        f"phase 8: {steps} steps, one RuntimeWarning ({warned[0]!r}), launches "
+        f"{ {k: v for k, v in launches_staged.items() if v} } on keys {keys_shape} "
+        f"and scores {score_shape}; every stream, engine.stats and the buffer "
+        f"state equal phase 3's (ids + WIDE_ID_MAX), losses allclose (max |diff| "
+        f"{diff:.3g}); wall {wall:.2f} s"
+    )
+    staged_stages = {
+        "step": clock.ms("step"),
+        "sample": clock.ms("sample"),
+        "fetch.probe": clock.ms("fetch.probe"),
+        "fetch.commit": clock.ms("fetch.commit"),
+        "decide_host": clock.ms("decision"),
+        "frontier_unique_batch_device_cuda_events": clock.device_ms("frontier_unique_batch"),
+        "score_policy_update_batch_device_cuda_events": clock.device_ms(
+            "score_policy_update_batch"),
+        "train": clock.ms("train"),
+    }
+    print_stages("phase 8", staged_stages, steps, wall)
+    for i, (args, kw) in enumerate(unique_caps):
+        got = fu.frontier_unique_batch_cuda(*args)
+        want = ref.frontier_unique_batch(*args)
+        torch.cuda.synchronize()
+        max_err["frontier_unique_batch"] = max(
+            max_err["frontier_unique_batch"],
+            compare_outputs(got, want, UNIQUE_OUT, f"phase 8 dedup {i}"),
+        )
+    for i, (args, kw) in enumerate(score_caps):
+        got = su.score_policy_update_batch_cuda(*args, **kw)
+        want = ref.score_policy_update_batch(*args, **kw)
+        torch.cuda.synchronize()
+        max_err["score_policy_update_batch"] = max(
+            max_err["score_policy_update_batch"],
+            compare_outputs(got, want, SCORE_OUT, f"phase 8 score {i}"),
+        )
+    print(f"phase 8: kernel == plain, bit-exact, on all {len(unique_caps)} "
+          f"frontier_unique_batch and {len(score_caps)} score_policy_update_batch "
+          f"launches of the run")
+
+    # The kernels at the run's shapes, each against its plain version: the
+    # bound reads the keys and flags (the scores, marks and weights) once
+    # and writes the two masks and counts (the new scores and counts) once.
+    args, _ = unique_caps[len(unique_caps) // 2]
+    keys, flags = args
+    k_ms, p_ms, _, raw = time_pair(
+        lambda: fu.frontier_unique_batch_cuda(keys, flags),
+        lambda: ref.frontier_unique_batch(keys, flags),
+        flush,
+    )
+    outs = fu.frontier_unique_batch_cuda(keys, flags)
+    nbytes = tensor_bytes(args, outs)
+    nops = 4 * keys.numel()  # compare, and, two count adds per position
+    b_ms, b_by = bound(nbytes, nops)
+    timings["frontier_unique_batch"] = (k_ms, p_ms, None, b_ms, b_by)
+    print(
+        f"phase 8: frontier_unique_batch at P={keys.shape[0]}, M={keys.shape[1]} int32: "
+        f"kernel {raw[0]:.4f}/{raw[1]:.4f} ms, plain {raw[2]:.4f}/{raw[3]:.4f} ms; "
+        f"{nbytes} bytes, {nops} ops; bound {b_ms:.4f} ms ({b_by})"
+    )
+    print("phase 8: frontier_unique_batch device time per launch by kernel "
+          "(torch.profiler): "
+          + profile_rows(lambda: fu.frontier_unique_batch_cuda(keys, flags)))
+    args, kw = score_caps[len(score_caps) // 2]
+    k_ms, p_ms, _, raw = time_pair(
+        lambda: su.score_policy_update_batch_cuda(*args, **kw),
+        lambda: ref.score_policy_update_batch(*args, **kw),
+        flush,
+    )
+    outs = su.score_policy_update_batch_cuda(*args, **kw)
+    nbytes = tensor_bytes(args, outs)
+    nops = 3 * args[0].numel()  # gain, add or multiply, compare per slot
+    b_ms, b_by = bound(nbytes, nops)
+    timings["score_policy_update_batch"] = (k_ms, p_ms, None, b_ms, b_by)
+    print(
+        f"phase 8: score_policy_update_batch at P={args[0].shape[0]}, N={args[0].shape[1]} "
+        f"({kw['mode']}, weights {'on' if args[2] is not None else 'off'}): kernel "
+        f"{raw[0]:.4f}/{raw[1]:.4f} ms, plain {raw[2]:.4f}/{raw[3]:.4f} ms; "
+        f"{nbytes} bytes, {nops} ops; bound {b_ms:.4f} ms ({b_by})"
+    )
+    print("phase 8: score_policy_update_batch device time per launch by kernel "
+          "(torch.profiler): "
+          + profile_rows(lambda: su.score_policy_update_batch_cuda(*args, **kw)))
+    # The three entries no trainer path launches, on their largest phase-2
+    # sets: the int64 dedup, and the fixed-policy rounds on the long row.
+    keys, flags = max(wide_unique.values(), key=lambda kf: kf[0].numel())
+    k_ms, p_ms, _, raw = time_pair(
+        lambda: fu.frontier_unique_batch_wide_cuda(keys, flags),
+        lambda: ref.frontier_unique_batch(keys, flags),
+        flush,
+    )
+    outs = fu.frontier_unique_batch_wide_cuda(keys, flags)
+    b_ms, b_by = bound(tensor_bytes((keys, flags), outs), 4 * keys.numel())
+    timings["frontier_unique_batch_wide"] = (k_ms, p_ms, None, b_ms, b_by)
+    print(f"phase 8: frontier_unique_batch_wide at P={keys.shape[0]}, M={keys.shape[1]} "
+          f"int64 (phase-2 set): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; "
+          f"bound {b_ms:.6f} ms ({b_by})")
+    long_row = max(score_cases, key=lambda sc: sc.scores.size)
+    s_, a_ = to_device((long_row.scores, long_row.accessed), dev)
+    for name, kern, plain, ins in (
+        ("score_update_batch", su.score_update_batch_cuda, ref.score_update_batch,
+         (s_, a_)),
+        ("score_update", su.score_update_cuda, ref.score_update,
+         (s_[0].contiguous(), a_[0].contiguous())),
+    ):
+        k_ms, p_ms, _, raw = time_pair(lambda: kern(*ins), lambda: plain(*ins), flush)
+        outs = kern(*ins)
+        b_ms, b_by = bound(tensor_bytes(ins, outs), 3 * ins[0].numel())
+        timings[name] = (k_ms, p_ms, None, b_ms, b_by)
+        print(f"phase 8: {name} at {tuple(ins[0].shape)} (phase-2 set "
+              f"{long_row.name}): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; "
+              f"bound {b_ms:.6f} ms ({b_by})")
+    staged_medians = {k: float(np.median(v)) for k, v in staged_stages.items() if len(v)}
+    del trainer, result, clock, unique_caps, score_caps, parts
+
+    # -- 8b. the staged loop on the host ------------------------------------ #
+    t0 = time.perf_counter()
+    parts = partition_graph(g_main, 4)
+    trainer = DistributedTrainer(parts, device=False, **RUN)
+    clock = StageClock([])
+    native.reset_launches()
+    with telemetry.active(clock):
+        result, warned = run_warned(trainer)
+    wall = time.perf_counter() - t0
+    if any(native.LAUNCHES.values()) or warned:
+        raise AssertionError(f"phase 8b: launches {dict(native.LAUNCHES)}, warnings {warned}")
+    diff = compare_runs("phase 8b (device=False vs phase 3)", trainer, result, *main, False)
+    host_medians = {
+        k: float(np.median(v)) for k, v in {
+            "step": clock.ms("step"),
+            "sample": clock.ms("sample"),
+            "fetch.probe": clock.ms("fetch.probe"),
+            "fetch.commit": clock.ms("fetch.commit"),
+            "train": clock.ms("train"),
+        }.items() if len(v)
+    }
+    print(
+        f"phase 8b: device=False on phase 3's graph and run: no launch, no warning; "
+        f"every stream, engine.stats and the buffer state equal phase 3's, losses "
+        f"allclose (max |diff| {diff:.3g}); wall {wall:.2f} s (set-up included)"
+    )
+    print("phase 8 / 8b / 3, median ms per step: " + json.dumps({
+        "staged_fallback": {k: round(v, 3) for k, v in staged_medians.items()},
+        "staged_host": {k: round(v, 3) for k, v in host_medians.items()},
+        "device_raw": {k: round(v, 3) for k, v in stages_main.items()},
+    }))
+    del trainer, result, clock, parts, g_main, main
+
+    # -- 9. results ------------------------------------------------------- #
     replaces = {
         "fused_frontier_step": "src/repro/kernels/fused_step.py:698",
         "fused_step": "src/repro/kernels/fused_step.py:302",
@@ -1064,6 +1347,11 @@ def main() -> int:
         "gather_rows": "src/repro/kernels/gather_rows.py:37",
         "fused_frontier_step_wide": "src/repro/kernels/fused_step.py:873",
         "fused_step_wide": "src/repro/kernels/fused_step.py:445",
+        "frontier_unique_batch": "src/repro/kernels/frontier_unique.py:54",
+        "frontier_unique_batch_wide": "src/repro/kernels/frontier_unique.py:134",
+        "score_update": "src/repro/kernels/score_update.py:52",
+        "score_update_batch": "src/repro/kernels/score_update.py:92",
+        "score_policy_update_batch": "src/repro/kernels/score_update.py:257",
     }
     sources = {
         "fused_frontier_step": "src/repro_torch/kernels/csrc/fused_frontier_step.cu",
@@ -1072,6 +1360,11 @@ def main() -> int:
         "gather_rows": "src/repro_torch/kernels/csrc/gather_rows.cu",
         "fused_frontier_step_wide": "src/repro_torch/kernels/csrc/fused_frontier_step.cu",
         "fused_step_wide": "src/repro_torch/kernels/csrc/fused_step.cu",
+        "frontier_unique_batch": "src/repro_torch/kernels/csrc/frontier_unique.cu",
+        "frontier_unique_batch_wide": "src/repro_torch/kernels/csrc/frontier_unique.cu",
+        "score_update": "src/repro_torch/kernels/csrc/score_update.cu",
+        "score_update_batch": "src/repro_torch/kernels/csrc/score_update.cu",
+        "score_policy_update_batch": "src/repro_torch/kernels/csrc/score_update.cu",
     }
     launches = {
         "fused_frontier_step": (launches_raw["fused_frontier_step"], "phase 3 (raw path)"),
@@ -1085,6 +1378,21 @@ def main() -> int:
             f"fused_frontier_step {launches_cadence['fused_frontier_step']}",
         ),
         "fused_step_wide": (launches_wide_ragged["fused_step_wide"], "phase 6b (wide ragged path)"),
+        "frontier_unique_batch": (
+            launches_staged["frontier_unique_batch"],
+            "phase 8 (staged fall-back: the sampler's dedup)",
+        ),
+        "frontier_unique_batch_wide": (
+            phase2["frontier_unique_batch_wide"],
+            "phase 2 only: the sampler's keys are local int32 indices",
+        ),
+        "score_update": (phase2["score_update"], "phase 2 only: no trainer path calls it"),
+        "score_update_batch": (
+            phase2["score_update_batch"], "phase 2 only: no trainer path calls it"),
+        "score_policy_update_batch": (
+            launches_staged["score_policy_update_batch"],
+            "phase 8 (staged fall-back: the engine's scoring round)",
+        ),
     }
     kernels = []
     for name in native.KERNELS:

@@ -18,13 +18,18 @@ paper's §4.5.3 performance model driven by the exact byte counts (see
 :class:`TimeModel`), or the discrete-event simulator of
 :mod:`repro_torch.sim` with ``time_engine="event"``.
 
-Every run is device-resident (:func:`repro_torch.runtime.driver.
+A device run is device-resident (:func:`repro_torch.runtime.driver.
 run_device`): the buffer state, the graph features (or the feature
 store's tables) and the model live on ``device`` — the card by default
 (``device="cuda"``), or the CPU (``device="cpu"``), where the kernels run
 as their plain versions. Graphs whose global ids sit at an ``id_base``
 (``Graph.rebase``) or pass ``2**31 - 2`` run in the engine's wide mode,
 and ``readback_every=K > 1`` runs the K-step counter readback cadence.
+``device=False`` (the reference's default) runs the staged loop
+(:func:`repro_torch.runtime.driver.run_vectorized`) on the host, numpy
+over the :class:`repro_torch.runtime.engine.PrefetchEngine`, with the
+model on the CPU; a device run whose ids pass ``WIDE_ID_MAX`` falls back
+to it, with the sampler's dedup and the scoring round on the device.
 """
 
 from __future__ import annotations
@@ -227,11 +232,16 @@ class DistributedTrainer:
     moves real feature rows — ``True`` builds a store on the trainer's
     device.
 
-    Wide ids (an ``id_base``, or ids past ``2**31 - 2``, up to
-    ``WIDE_ID_MAX``) and ``readback_every > 1`` run on both devices; the
-    engine and the driver refuse what they cannot serve. Not ported yet,
-    and refused with ``NotImplementedError``: ``runtime="legacy"``, the
-    staged (non-device) path (``device=False``) and ``telemetry``.
+    ``device=False`` (or ``None``) runs the reference's staged loop on
+    the host, with no kernel, the model and a ``feature_store=True``
+    store on the CPU; ``readback_every > 1`` needs a device. Wide ids (an
+    ``id_base``, or ids past ``2**31 - 2``, up to ``WIDE_ID_MAX``) and
+    ``readback_every > 1`` run on both devices; past ``WIDE_ID_MAX`` a
+    device run falls back to the staged loop, whose sampler dedup and
+    scoring round then run as kernels on the device
+    (``SamplerPlane(use_kernels=True)``, ``PrefetchEngine(use_kernels=True)``).
+    Not ported yet, and refused with ``NotImplementedError``:
+    ``runtime="legacy"`` and ``telemetry``.
     """
 
     def __init__(
@@ -271,19 +281,25 @@ class DistributedTrainer:
             raise ValueError(
                 f"runtime must be 'vectorized' or 'legacy', got {runtime!r}"
             )
-        if device is False or device is None:
-            raise _not_ported(
-                "the staged (non-device) path", "ROADMAP Queue A item 6"
-            )
         if telemetry:
             raise _not_ported("the telemetry session", "ROADMAP Queue A item 4")
-        self.device = resolve_device(device)
+        # False/None: the staged loop on the host; else the device of the
+        # device-resident loop (and of the staged fall-back's kernels).
+        self.device = (
+            False if device is False or device is None else resolve_device(device)
+        )
+        # Where the model, the graph features and a store built here live.
+        self.torch_device = home = (
+            torch.device("cpu") if self.device is False else self.device
+        )
         if not isinstance(readback_every, (int, np.integer)) or isinstance(
             readback_every, bool
         ) or readback_every < 1:
             raise ValueError(
                 f"readback_every must be an int >= 1, got {readback_every!r}"
             )
+        if readback_every > 1 and self.device is False:
+            raise ValueError("readback_every > 1 requires device=...")
         self.readback_every = int(readback_every)
         if time_engine not in ("closed_form", "event"):
             raise ValueError(
@@ -346,8 +362,8 @@ class DistributedTrainer:
         self.trace = trace
         self.last_trace = None
         # Feature store: False/None = modeled bytes only; True = a store
-        # over this graph's partitioned features on the trainer's device;
-        # a FeatureStore instance is used as-is.
+        # over this graph's partitioned features on the trainer's device
+        # (the CPU without one); a FeatureStore instance is used as-is.
         self.feature_store = None
         if feature_store:
             from ..store import FeatureStore
@@ -355,11 +371,17 @@ class DistributedTrainer:
             self.feature_store = (
                 feature_store
                 if isinstance(feature_store, FeatureStore)
-                else FeatureStore.for_partitions(parts, device=self.device)
+                else FeatureStore.for_partitions(parts, device=home)
             )
         self.rng = np.random.default_rng(seed)
         self.sampler = NeighborSampler(self.graph, fanouts)
-        self.sampler_plane = SamplerPlane(self.graph, fanouts)
+        # A device trainer's staged fall-back runs the sampler's dedup and
+        # the engine's scoring round as kernels on its device; the device
+        # loops never call either hook.
+        staged_kernels = self.device is not False
+        self.sampler_plane = SamplerPlane(
+            self.graph, fanouts, use_kernels=staged_kernels, device=home
+        )
 
         P = parts.num_parts
         self.graph_meta = [
@@ -409,13 +431,16 @@ class DistributedTrainer:
             for p in range(P)
         ]
         # Vectorized twin of the per-PE buffers: one (P, C) array state,
-        # uploaded to the device at the start of every run.
+        # the staged loop's engine, uploaded to the device at the start of
+        # every device run.
         self.engine = PrefetchEngine(
             [b.capacity for b in self.buffers],
             policy=self.policy,
             node_weights=node_weights,
             feature_dim=payload_dim,
             id_base=self.graph.id_base,
+            use_kernels=staged_kernels,
+            device=home,
         )
 
         # Controllers (one per trainer, as in the paper: each trainer has
@@ -482,17 +507,17 @@ class DistributedTrainer:
                     self.graph.num_classes,
                     generator=torch.Generator().manual_seed(seed),
                 )
-            self.model = model.to(self.device)
+            self.model = model.to(home)
             # Graph features and labels live on the device as one tensor
             # each; minibatch rows are indexed there (or, with a store,
             # gathered through it).
             if self.feature_store is None:
                 self.features = torch.from_numpy(
                     np.ascontiguousarray(self.graph.features, dtype=np.float32)
-                ).to(self.device)
+                ).to(home)
             self.labels = torch.from_numpy(
                 np.asarray(self.graph.labels, dtype=np.int64)
-            ).to(self.device)
+            ).to(home)
 
     # ------------------------------------------------------------------ #
     def _seed_batch(self, p: int, epoch: int, mb: int) -> np.ndarray:
@@ -522,14 +547,14 @@ class DistributedTrainer:
         if self.feature_store is not None:
             # Minibatch ids are local; the store is keyed by global id.
             rows = self.feature_store.gather_tensor(
-                idx + np.int64(self.graph.id_base), self.device
+                idx + np.int64(self.graph.id_base), self.torch_device
             )
         else:
-            rows = self.features[torch.from_numpy(idx).to(self.device)]
+            rows = self.features[torch.from_numpy(idx).to(self.torch_device)]
         x_seed = rows[:b]
         x_n1 = rows[b : b + n1.size].reshape(b, f1, -1)
         x_n2 = rows[b + n1.size :].reshape(b, f1, -1, rows.shape[1])
-        labels = self.labels[torch.from_numpy(minibatch.seeds).to(self.device)]
+        labels = self.labels[torch.from_numpy(minibatch.seeds).to(self.torch_device)]
         return x_seed, x_n1, x_n2, labels
 
     # ------------------------------------------------------------------ #
@@ -573,7 +598,10 @@ class DistributedTrainer:
 
     # ------------------------------------------------------------------ #
     def run(self) -> RunResult:
-        """Execute the experiment on the trainer's device."""
-        from ..runtime.driver import run_device
+        """Execute the experiment: on the trainer's device
+        (:func:`repro_torch.runtime.driver.run_device`), or on the staged
+        loop with ``device=False`` or past ``WIDE_ID_MAX``
+        (:func:`repro_torch.runtime.driver.run_vectorized`)."""
+        from ..runtime.driver import run_vectorized
 
-        return run_device(self)
+        return run_vectorized(self)

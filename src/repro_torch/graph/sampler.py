@@ -16,6 +16,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from .generate import Graph
 
@@ -122,8 +123,9 @@ class SamplerPlane:
       ``(P, B*f1, f2)`` blocks;
     * the per-trainer ``np.unique`` + remote filter is one fused pass:
       row-sort all P frontiers, then a single first-occurrence +
-      remote-membership mask (numpy; the kernel route of the reference,
-      ``use_kernels=True``, is not ported yet).
+      remote-membership mask (numpy, or, with ``use_kernels``, the
+      fused kernel ``kernels.ops.frontier_unique_batch`` on ``device``:
+      the Hopper kernel on a card, its plain version on the CPU).
 
     Bit-identical to P sequential ``NeighborSampler.sample`` calls on
     the shared RNG: the uniform blocks are pre-drawn PE-major in the
@@ -139,16 +141,41 @@ class SamplerPlane:
         graph: Graph,
         fanouts: tuple[int, ...] = (10, 25),
         use_kernels: bool = False,
+        device="cuda",
     ):
-        if use_kernels:
-            raise NotImplementedError(
-                "SamplerPlane(use_kernels=True) needs the frontier_unique_batch "
-                "kernel, which is not ported yet (ROADMAP Queue B #5)"
-            )
         self.graph = graph
         self.fanouts = tuple(int(f) for f in fanouts)
         self.use_kernels = use_kernels
+        # The kernel route's device, resolved only when it is taken:
+        # "cuda" without a card raises RuntimeError.
+        self.device = None
+        if use_kernels:
+            from ..runtime.engine import resolve_device
+
+            self.device = resolve_device(device)
         self._scalar = NeighborSampler(graph, self.fanouts)
+
+    def _dedup(
+        self, sorted_keys: np.ndarray, is_remote: np.ndarray | None
+    ) -> tuple[np.ndarray, np.ndarray | None]:
+        if self.use_kernels:
+            from ..kernels import ops
+
+            # The sorted keys and flags go to the device, the two masks
+            # come back; ops.frontier_unique_batch owns the int32 / int64
+            # routing of the keys.
+            rem = (
+                np.zeros(sorted_keys.shape, dtype=bool)
+                if is_remote is None
+                else is_remote
+            )
+            keys = torch.from_numpy(np.ascontiguousarray(sorted_keys)).to(self.device)
+            flags = torch.from_numpy(np.ascontiguousarray(rem)).to(self.device)
+            first, remote, _, _ = ops.frontier_unique_batch(keys, flags)
+            first = first.cpu().numpy()
+            remote = remote.cpu().numpy() if is_remote is not None else None
+            return first, remote
+        return frontier_dedup(sorted_keys, is_remote)
 
     # ------------------------------------------------------------------ #
     def _layer_sizes(self, batch: int) -> list[tuple[int, int]]:
@@ -267,7 +294,14 @@ class SamplerPlane:
         if g.num_nodes <= np.iinfo(np.int32).max:
             touched = touched.astype(np.int32)
         sorted_keys = np.sort(touched, axis=1)
-        first, _ = frontier_dedup(sorted_keys, None)
+        if self.use_kernels and part_of is not None:
+            is_remote = (
+                part_of[sorted_keys] != np.arange(P, dtype=part_of.dtype)[:, None]
+            )
+            first, remote_mask = self._dedup(sorted_keys, is_remote)
+        else:
+            first, _ = self._dedup(sorted_keys, None)
+            remote_mask = None
         counts = first.sum(axis=1)
         bounds = np.cumsum(counts)[:-1]
         flat_uniq = sorted_keys.ravel()[first.ravel()].astype(np.int64)
@@ -277,11 +311,19 @@ class SamplerPlane:
         uniq = np.split(flat_uniq + base if g.id_base else flat_uniq, bounds)
         remote = None
         if part_of is not None:
-            # Filter remoteness post-dedup — the gather touches only the
-            # unique ids, not the full (P, M) block.
-            rows = np.repeat(np.arange(P, dtype=part_of.dtype), counts)
-            rem_flat = part_of[flat_uniq] != rows
-            remote = [u[m] for u, m in zip(uniq, np.split(rem_flat, bounds))]
+            if remote_mask is not None:  # kernel route: the masks came fused
+                rcounts = remote_mask.sum(axis=1)
+                rem_ids = sorted_keys.ravel()[remote_mask.ravel()].astype(np.int64)
+                remote = np.split(
+                    rem_ids + base if g.id_base else rem_ids,
+                    np.cumsum(rcounts)[:-1],
+                )
+            else:
+                # Numpy route: filter remoteness post-dedup — the gather
+                # touches only the unique ids, not the full (P, M) block.
+                rows = np.repeat(np.arange(P, dtype=part_of.dtype), counts)
+                rem_flat = part_of[flat_uniq] != rows
+                remote = [u[m] for u, m in zip(uniq, np.split(rem_flat, bounds))]
 
         minibatches = [
             MiniBatch(

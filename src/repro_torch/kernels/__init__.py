@@ -1,4 +1,5 @@
 """Kernels of the port: plain PyTorch versions (:mod:`.ref`), the
 hand-written Hopper kernels behind them (``csrc/``, bound by
-:mod:`.native` and :mod:`.fused_step`), and the device-routed
+:mod:`.native` and the wrappers :mod:`.fused_step`, :mod:`.gather_rows`,
+:mod:`.frontier_unique` and :mod:`.score_update`), and the device-routed
 dispatchers (:mod:`.ops`, the only public import surface)."""

@@ -30,14 +30,19 @@ SOURCES = {
     "fused_frontier_step": "fused_frontier_step.cu",
     "fused_step": "fused_step.cu",
     "gather_rows": "gather_rows.cu",
+    "frontier_unique": "frontier_unique.cu",
+    "score_update": "score_update.cu",
 }
 
 #: The wrappers that launch a kernel. A ``_wide`` kernel (int64 ids) is
 #: the second entry of its narrow twin's library; ``gather_rows`` and
-#: ``gather_rows_batch`` share the ``gather_rows`` library.
+#: ``gather_rows_batch`` share the ``gather_rows`` library, and the three
+#: score entries the ``score_update`` library.
 KERNELS = (
     "fused_frontier_step", "fused_step", "gather_rows_batch", "gather_rows",
     "fused_frontier_step_wide", "fused_step_wide",
+    "frontier_unique_batch", "frontier_unique_batch_wide",
+    "score_update", "score_update_batch", "score_policy_update_batch",
 )
 
 #: kernel name -> launches on the card (each wrapper adds one per launch).

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .. import telemetry
+from ..core import scoring
 from . import ref
 from .native import LAUNCHES, reset_launches
 
@@ -28,6 +29,10 @@ __all__ = [
     "pack_readback",
     "gather_rows",
     "gather_rows_batch",
+    "frontier_unique_batch",
+    "score_update",
+    "score_update_batch",
+    "score_policy_update_batch",
     "LAUNCHES",
     "reset_launches",
     "INT32_SENTINEL",
@@ -389,3 +394,133 @@ def gather_rows_batch(tables, indices):
     from .gather_rows import gather_rows_batch_cuda
 
     return gather_rows_batch_cuda(tables, indices)
+
+
+@telemetry.profiled("frontier_unique_batch")
+def frontier_unique_batch(sorted_keys, is_remote):
+    """Fused frontier dedup of the sampler plane: row-sorted keys ``(P,
+    M)`` (int32 or int64, keys >= 0) and remote flags ``(P, M)`` (bool or
+    int) → ``(first (P, M) bool, remote (P, M) bool, unique_count (P,)
+    int32, remote_count (P,) int32)``.
+
+    The reference's contract on ids: int64 keys up to
+    :data:`INT32_ID_MAX` run the narrow kernel as int32, larger ones the
+    int64 kernel (``frontier_unique_batch_wide``; the reference's
+    ``(hi, lo)`` word-plane twin), and keys past :data:`WIDE_ID_MAX`
+    raise ``ValueError``; the outputs' types are the same on every route.
+    CPU tensors: :func:`repro_torch.kernels.ref.frontier_unique_batch`;
+    CUDA: the Hopper kernel
+    (:mod:`repro_torch.kernels.frontier_unique`)."""
+    wide = False
+    if sorted_keys.dtype != torch.int32:
+        top = _max_id(sorted_keys)
+        if not int32_id_eligible(top):
+            if not wide_id_eligible(top):
+                raise ValueError(
+                    "frontier keys exceed the wide-id device bound "
+                    f"(max {top} > {WIDE_ID_MAX})"
+                )
+            wide = True
+        sorted_keys = sorted_keys.to(torch.int64 if wide else torch.int32)
+    if is_remote.dtype != torch.bool:
+        is_remote = is_remote != 0
+    if _route("frontier_unique_batch", sorted_keys) == "cpu":
+        return ref.frontier_unique_batch(sorted_keys, is_remote)
+    from .frontier_unique import (
+        frontier_unique_batch_cuda,
+        frontier_unique_batch_wide_cuda,
+    )
+
+    launch = frontier_unique_batch_wide_cuda if wide else frontier_unique_batch_cuda
+    return launch(sorted_keys.contiguous(), is_remote.contiguous())
+
+
+def _score_inputs(scores, accessed, weights=None):
+    scores = scores.to(torch.float32).contiguous()
+    accessed = (accessed if accessed.dtype == torch.bool else accessed != 0).contiguous()
+    if weights is not None:
+        weights = weights.to(torch.float32).contiguous()
+    return scores, accessed, weights
+
+
+@telemetry.profiled("score_update")
+def score_update(scores, accessed):
+    """The paper's scoring round on one buffer: scores ``(N,)`` float32,
+    accessed ``(N,)`` bool → ``(new (N,), stale_count)`` (a 0-dim int32
+    tensor). CPU tensors: :func:`repro_torch.kernels.ref.score_update`;
+    CUDA: the Hopper kernel's ``P = 1`` view
+    (:func:`repro_torch.kernels.score_update.score_update_cuda`)."""
+    scores, accessed, _ = _score_inputs(scores, accessed)
+    if _route("score_update", scores) == "cpu":
+        return ref.score_update(scores, accessed)
+    from .score_update import score_update_cuda
+
+    return score_update_cuda(scores, accessed)
+
+
+@telemetry.profiled("score_update_batch")
+def score_update_batch(scores, accessed):
+    """The paper's scoring round per PE: ``(P, N)`` in → ``(new (P, N),
+    stale_count (P,))`` out. CPU tensors:
+    :func:`repro_torch.kernels.ref.score_update_batch`; CUDA: the Hopper
+    kernel (:func:`repro_torch.kernels.score_update.score_update_batch_cuda`)."""
+    scores, accessed, _ = _score_inputs(scores, accessed)
+    if _route("score_update_batch", scores) == "cpu":
+        return ref.score_update_batch(scores, accessed)
+    from .score_update import score_update_batch_cuda
+
+    return score_update_batch_cuda(scores, accessed)
+
+
+@telemetry.profiled("score_policy_update_batch")
+def score_policy_update_batch(
+    scores,
+    accessed,
+    weights=None,
+    *,
+    increment: float = 1.0,
+    decay: float = 0.95,
+    threshold: float = 0.95,
+    mode: str = "accumulate",
+    score_cap: float = 4.0,
+):
+    """The policy zoo's scoring round: scores ``(P, N)`` float32, accessed
+    ``(P, N)`` bool [, weights ``(P, N)`` float32] → ``(new (P, N),
+    stale_count (P,) int32)``; ``mode`` and the constants follow
+    :class:`repro_torch.core.scoring.ScoringPolicy`.
+
+    Refuses, as the reference does, a policy whose post-update value of a
+    padding lane (score 1, accessed, weight 1) would fall below
+    ``threshold``: the reference's Pallas kernel pads rows with such
+    lanes and would count them stale. The Hopper kernel pads nothing, but
+    the contract is the reference's on every device. CPU tensors:
+    :func:`repro_torch.kernels.ref.score_policy_update_batch`; CUDA: the
+    Hopper kernel
+    (:func:`repro_torch.kernels.score_update.score_policy_update_batch_cuda`)."""
+    if mode not in scoring.MODES:
+        raise ValueError(f"mode must be one of {scoring.MODES}, got {mode!r}")
+    if mode == "accumulate":
+        pad_value = 1.0 + increment
+    elif mode == "reset":
+        pad_value = increment
+    else:
+        pad_value = min(1.0 + increment, score_cap)
+    if pad_value < threshold:
+        raise ValueError(
+            f"policy (mode={mode!r}, increment={increment}, "
+            f"score_cap={score_cap}) would mark padding lanes stale "
+            f"(post-update {pad_value} < threshold {threshold})"
+        )
+    scores, accessed, weights = _score_inputs(scores, accessed, weights)
+    constants = dict(
+        increment=float(increment),
+        decay=float(decay),
+        threshold=float(threshold),
+        mode=mode,
+        score_cap=float(score_cap),
+    )
+    if _route("score_policy_update_batch", scores) == "cpu":
+        return ref.score_policy_update_batch(scores, accessed, weights, **constants)
+    from .score_update import score_policy_update_batch_cuda
+
+    return score_policy_update_batch_cuda(scores, accessed, weights, **constants)

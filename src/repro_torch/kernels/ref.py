@@ -21,6 +21,12 @@ math is int32; here they are int64 tensors, and the per-node arrays
 local id ``id - id_base`` (:func:`wide_local_index`). On int32 ids every
 function computes exactly what it did before.
 
+The staged pipeline's two kernels have their specs here too:
+:func:`frontier_unique_batch` (the sampler plane's dedup, int32 or int64
+keys) and :func:`score_policy_update_batch` with its fixed-policy forms
+:func:`score_update_batch` and :func:`score_update` (the engine's
+scoring round).
+
 Also home of the numpy :func:`frontier_dedup` the sampler imports.
 """
 
@@ -700,3 +706,81 @@ def fused_frontier_step_wide(
         cand_cap=cand_cap, id_base=id_base,
     )
     return ids2, s2, valid2, acc3, w2, payload2, cand_next, packed, counters
+
+
+# --------------------------------------------------------------------------- #
+# The staged pipeline's two kernels: the frontier dedup of the sampler
+# plane and the scoring round of the numpy engine.
+def frontier_unique_batch(sorted_keys: torch.Tensor, is_remote: torch.Tensor):
+    """Fused frontier dedup: row-sorted keys ``(P, M)`` (int32, or int64
+    for the wide twin; keys >= 0) and remote flags ``(P, M)`` →
+    ``(first (P, M) bool, remote (P, M) bool, unique_count (P,) int32,
+    remote_count (P,) int32)``. ``first`` marks each row's sorted-unique
+    elements (the first column's predecessor is -1); ``remote = first &
+    is_remote``. The spec of ``csrc/frontier_unique.cu`` in both its
+    instantiations; mirrors the reference's jnp oracle, which the wide
+    twin runs over ``(hi, lo)`` word planes."""
+    P, M = sorted_keys.shape
+    if M == 0:
+        empty = torch.zeros((P, 0), dtype=torch.bool, device=sorted_keys.device)
+        zeros = torch.zeros((P,), dtype=torch.int32, device=sorted_keys.device)
+        return empty, empty, zeros, zeros
+    idt = torch.int64 if sorted_keys.dtype == torch.int64 else torch.int32
+    k = sorted_keys.to(idt)
+    prev = torch.cat(
+        [torch.full((P, 1), -1, dtype=idt, device=k.device), k[:, :-1]], dim=1
+    )
+    first = k != prev
+    remote = first & (is_remote.to(torch.int32) != 0)
+    return (
+        first,
+        remote,
+        first.sum(dim=1, dtype=torch.int32),
+        remote.sum(dim=1, dtype=torch.int32),
+    )
+
+
+def score_policy_update_batch(
+    scores: torch.Tensor,
+    accessed: torch.Tensor,
+    weights: torch.Tensor | None = None,
+    *,
+    increment: float = float(scoring.ACCESS_INCREMENT),
+    decay: float = float(scoring.DECAY_FACTOR),
+    threshold: float = float(scoring.STALE_THRESHOLD),
+    mode: str = "accumulate",
+    score_cap: float = 4.0,
+):
+    """Policy-zoo scoring round: scores ``(P, N)`` float32, accessed
+    ``(P, N)`` bool [, weights ``(P, N)`` float32] → ``(new (P, N)
+    float32, stale_count (P,) int32)``, ``stale = new < threshold``. The
+    spec of ``csrc/score_update.cu``; every constant is rounded to
+    float32 first, as in the reference's jnp oracle."""
+    s = scores.to(torch.float32)
+    gain = _f32(increment, s)
+    if weights is not None:
+        gain = gain * weights.to(torch.float32)
+    if mode == "accumulate":
+        touched = s + gain
+    elif mode == "reset":
+        touched = gain + torch.zeros_like(s)
+    elif mode == "capped":
+        touched = torch.minimum(s + gain, _f32(score_cap, s))
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    new = torch.where(accessed, touched, s * _f32(decay, s))
+    stale = (new < _f32(threshold, new)).sum(dim=1, dtype=torch.int32)
+    return new, stale
+
+
+def score_update_batch(scores: torch.Tensor, accessed: torch.Tensor):
+    """The paper's scoring round per PE: ``(P, N)`` in → ``((P, N),
+    (P,))`` out (+1 on access, x0.95 idle, stale below 0.95)."""
+    return score_policy_update_batch(scores, accessed)
+
+
+def score_update(scores: torch.Tensor, accessed: torch.Tensor):
+    """The paper's scoring round on one buffer: ``(N,)`` in → ``(new
+    (N,), stale_count)``, the count a 0-dim int32 tensor."""
+    new, stale = score_update_batch(scores[None], accessed[None])
+    return new[0], stale[0]

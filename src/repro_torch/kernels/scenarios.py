@@ -26,6 +26,14 @@ from a seed; the constants are those of the scoring policy.
   ids spread over ``[BASE, BASE + 2**40]``, far past any direct map (the
   kernel's sorted mode). Each wide scenario keeps its narrow source, so
   the tests can hold wide against narrow under the id map.
+* :func:`frontier_unique_scenarios` (``frontier_unique_batch`` and its
+  int64 twin): ``M == 0``, all-duplicate and all-unique rows, remote
+  shares of 0, 0.5 and 1, ragged lengths, int64 keys up to
+  ``WIDE_ID_MAX``.
+* :func:`score_scenarios` (``score_policy_update_batch``,
+  ``score_update_batch``, ``score_update``): every policy, weighted and
+  unweighted, scores on the stale threshold after the round, ``N`` off
+  the kernel's block.
 """
 
 from __future__ import annotations
@@ -398,4 +406,104 @@ def wide_fused_step_scenarios() -> list[FusedStepScenario]:
         spread = np.sort(rng.choice(spread, size=sc.num_ids, replace=False))
         spread[0], spread[-1] = 0, 2**40  # the span is the whole 2**40
         out.append(widen_step(sc, np.int64(BASE) + spread, f"{name}@sparse", known=False))
+    return out
+
+
+# --------------------------------------------------------------------------- #
+@dataclass
+class FrontierUniqueScenario:
+    name: str
+    keys: np.ndarray       # (P, M) int32 or int64, each row ascending, >= 0
+    is_remote: np.ndarray  # (P, M) bool
+
+
+def frontier_unique_scenarios() -> list[FrontierUniqueScenario]:
+    """The seeded set of ``frontier_unique_batch``: ``M == 0``, rows all
+    duplicates, rows all unique, random sorted rows with duplicates at a
+    remote share of 0, 0.5 and 1, lengths that are not a multiple of the
+    kernel's block (1, 257, 1000), and int64 keys within ``INT32_ID_MAX``
+    (which the dispatcher narrows), past it, across a ``2**32`` word
+    boundary of the reference's ``(hi, lo)`` split, and up to
+    ``WIDE_ID_MAX`` (which take the int64 kernel)."""
+    out = []
+    rng = np.random.default_rng(600)
+
+    def add(name, keys, p_remote=0.5):
+        keys = np.sort(keys, axis=1)
+        out.append(FrontierUniqueScenario(
+            name, keys, rng.random(keys.shape) < p_remote,
+        ))
+
+    add("M0", np.zeros((3, 0), dtype=np.int32))
+    add("all-dup", np.full((3, 300), 7, dtype=np.int32))
+    add("all-unique", np.stack(
+        [rng.permutation(5000)[:700] for _ in range(3)]).astype(np.int32))
+    for p_remote in (0.0, 0.5, 1.0):
+        add(f"random-remote{p_remote}",
+            rng.integers(0, 400, size=(4, 1000)).astype(np.int32), p_remote)
+    add("M1", rng.integers(0, 9, size=(2, 1)).astype(np.int32))
+    add("M257", rng.integers(0, 100, size=(3, 257)).astype(np.int32))
+    add("one-pe", rng.integers(0, 60, size=(1, 513)).astype(np.int32))
+    add("int64-narrow", rng.integers(0, 2**31 - 1, size=(3, 400)).astype(np.int64))
+    for name, base in (
+        ("int64-base", BASE),
+        ("int64-2^32", 2**32 + 2**30 - 150),
+        ("int64-top", WIDE_ID_MAX - 299),
+    ):
+        add(name, np.int64(base) + rng.integers(0, 300, size=(3, 600)))
+    return out
+
+
+@dataclass
+class ScoreScenario:
+    name: str
+    scores: np.ndarray           # (P, N) float32
+    accessed: np.ndarray         # (P, N) bool
+    weights: np.ndarray | None   # (P, N) float32
+    constants: dict              # increment, decay, threshold, mode, score_cap
+
+
+def make_score_scenario(
+    name: str, seed: int, policy: str = "rudder", weighted: bool = False,
+    P: int = 3, N: int = 1000,
+) -> ScoreScenario:
+    rng = np.random.default_rng(seed)
+    pol = scoring.make_policy(policy)
+    kc = pol.kernel_constants()
+    kc.pop("initial_score")
+    # Scores on or next to the values where a round decides staleness:
+    # the threshold itself, 1.0 (decays to 0.95 exactly in float32: not
+    # stale), threshold / decay, one ulp below 1.0, the initial score and
+    # the cap.
+    special = np.array(
+        [pol.stale_threshold, 1.0, pol.stale_threshold / pol.decay,
+         np.nextafter(np.float32(1.0), np.float32(0.0)), pol.initial_score,
+         pol.score_cap, pol.score_cap - pol.access_increment, 0.0],
+        dtype=np.float32,
+    )
+    scores = np.where(
+        rng.random((P, N)) < 0.5,
+        special[rng.integers(0, len(special), (P, N))],
+        (rng.random((P, N)) * 5.0).astype(np.float32),
+    ).astype(np.float32)
+    accessed = rng.random((P, N)) < 0.4
+    weights = (1.0 + 2.0 * rng.random((P, N))).astype(np.float32) if weighted else None
+    return ScoreScenario(name, scores, accessed, weights, kc)
+
+
+def score_scenarios() -> list[ScoreScenario]:
+    """The seeded set of the scoring round: every policy of
+    ``core.scoring.POLICIES`` (so every mode), weighted and unweighted,
+    at ``N`` that is not a multiple of the kernel's block, plus one slot,
+    one PE and a row longer than the kernel's grid-stride span."""
+    out = []
+    seed = 700
+    for policy in POLICIES:
+        for weighted in (False, True):
+            out.append(make_score_scenario(
+                f"{policy}-{'w' if weighted else 'u'}", seed, policy, weighted))
+            seed += 1
+    out.append(make_score_scenario("N1", seed, "hybrid", True, P=2, N=1))
+    out.append(make_score_scenario("one-pe", seed + 1, "recency", False, P=1, N=257))
+    out.append(make_score_scenario("long-row", seed + 2, "rudder", False, P=2, N=300_001))
     return out

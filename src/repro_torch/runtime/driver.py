@@ -1,7 +1,7 @@
-"""The device-resident minibatch loop of
-:meth:`repro_torch.gnn.train.DistributedTrainer.run`.
+"""The minibatch loops of :meth:`repro_torch.gnn.train.DistributedTrainer.run`.
 
-Port of the reference's ``run_device``. Per step the whole cluster goes
+Port of the reference's ``run_device`` and ``run_vectorized``. On the
+device-resident loop (:func:`run_device`) the whole cluster goes, per step,
 through the stages of :mod:`repro_torch.runtime.stage`,
 pipeline-rotated so the host decision plane runs between probes::
 
@@ -28,12 +28,23 @@ both loops in the engine's wide mode (int64 ids, the ``_wide`` kernels).
 With ``readback_every=K > 1`` the raw loop reads back only each launch's
 ``(P, 4)`` counters, K launches at a time
 (:func:`_run_device_cadence`), for runs that consume no per-step id
-stream (:func:`_check_cadence_eligible`). Ids past ``WIDE_ID_MAX`` need
-the reference's staged pipeline, which is not ported yet: they raise
-``NotImplementedError``.
+stream (:func:`_check_cadence_eligible`).
+
+:func:`run_vectorized` is the entry of ``DistributedTrainer.run`` and the
+port of the reference's staged loop: sample → probe → decide → commit
+over the numpy :class:`repro_torch.runtime.engine.PrefetchEngine`
+(:class:`repro_torch.runtime.stage.FetchStage`). A trainer built with
+``device=False`` runs it on the host; a device trainer goes to
+:func:`run_device` unless its graph's ids pass ``WIDE_ID_MAX``, where
+it falls back to the staged loop (counted as ``device.fallback_int64``,
+warned once per trainer) with the sampler's dedup and the engine's
+scoring round on the trainer's device (``frontier_unique_batch`` and
+``score_policy_update_batch``). Its streams equal the device loops'.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
@@ -45,8 +56,167 @@ from ..core.controller import (
     PeriodicController,
 )
 from ..core.metrics import Metrics
+from ..graph.sampler import SamplerPlane
 from ..sim import StepComm
-from .stage import DecisionStage, FusedFetchStage, SampleStage
+from .stage import DecisionStage, FetchStage, FusedFetchStage, SampleStage
+
+
+def run_vectorized(trainer) -> "RunResult":  # noqa: F821 — see lazy import
+    """Execute ``trainer``'s experiment on the staged loop (see the module
+    note); a device trainer whose ids fit the wide-id bound goes to
+    :func:`run_device` instead. The run's state stays in
+    ``trainer.engine``; a recorded trace lands on ``trainer.last_trace``."""
+    if trainer.device is not False:
+        from ..kernels import ops
+
+        # Past WIDE_ID_MAX (about 2^61) no device loop can carry the ids:
+        # the run takes the staged loop (identical streams, no device
+        # residency). Counted, so a sweep can report how many cells took
+        # it; warned once per trainer.
+        max_id = trainer.graph.id_base + trainer.graph.num_nodes - 1
+        if ops.wide_id_eligible(max_id):
+            return run_device(trainer)
+        tel.count("device.fallback_int64")
+        if not getattr(trainer, "_warned_int64_fallback", False):
+            trainer._warned_int64_fallback = True
+            warnings.warn(
+                "device=... requested but graph node ids exceed int32 "
+                "and the wide-id bound; falling back to the staged "
+                "pipeline",
+                RuntimeWarning,
+                stacklevel=2,
+            )
+    from ..gnn.train import RunResult, TrainerLog
+
+    P = trainer.parts.num_parts
+    sample = SampleStage(
+        trainer.sampler_plane, P, trainer._seed_batch, trainer.parts.part_of
+    )
+    decide = DecisionStage(trainer.controllers)
+    time_engine = trainer.make_time_engine()
+    fetch = FetchStage(
+        trainer.engine,
+        decide.uses_buffer,
+        decide.inference_cost,
+        time_engine,
+        trainer.graph.features.shape[1],
+        trainer.mode,
+        part_of=trainer.parts.part_of,
+        store=trainer.feature_store,
+        feature_bytes=trainer.tm.feature_bytes,
+    )
+
+    logs = [TrainerLog() for _ in range(P)]
+    epoch_times: list[float] = []
+    losses: list[float] = []
+    recorder = trainer.make_trace_recorder()
+
+    for epoch in range(trainer.epochs):
+        epoch_time = 0.0
+        for mb in range(trainer.mb_per_epoch):
+            _step_sp = tel.begin("step", plane="runtime")
+            # -- stage 1: batched sampling ----------------------------- #
+            minibatches, remote, n_remote = sample.run(epoch, mb, trainer.rng)
+
+            # -- stage 2: batched probe + controller decisions --------- #
+            probe = fetch.probe(remote, n_remote)
+            decide.submit(
+                [
+                    Metrics(
+                        minibatch=mb,
+                        total_minibatches=trainer.mb_per_epoch,
+                        epoch=epoch,
+                        total_epochs=trainer.epochs,
+                        pct_hits=float(probe.pct_hits[p]),
+                        comm_volume=int(probe.comm[p]),
+                        replaced_pct=float(probe.replaced_pct[p]),
+                        buffer_occupancy=float(probe.occupancy[p]),
+                        buffer_capacity=int(trainer.engine.capacity[p]),
+                    )
+                    for p in range(P)
+                ]
+            )
+            decisions, stalls = decide.collect()
+
+            # -- stage 3: scoring + replacement + accounting ----------- #
+            commit = fetch.commit(decisions, stalls)
+
+            for p in range(P):
+                logs[p].pct_hits.append(float(probe.pct_hits[p]))
+                logs[p].comm_volume.append(int(commit.total_comm[p]))
+                logs[p].comm_missed.append(int(probe.comm[p]))
+                logs[p].occupancy.append(float(commit.occupancy[p]))
+                logs[p].unique_remote.append(int(n_remote[p]))
+                logs[p].replaced.append(int(commit.replaced[p]))
+                logs[p].decisions.append(bool(decisions[p]))
+                logs[p].step_time.append(float(commit.step_time[p]))
+                if trainer.feature_store is not None:
+                    logs[p].bytes_measured.append(int(commit.bytes_measured[p]))
+                    logs[p].bytes_modeled.append(int(commit.bytes_modeled[p]))
+                    logs[p].fetch_seconds.append(float(commit.fetch_seconds))
+                    logs[p].feat_sums.append(float(commit.feat_sums[p]))
+            epoch_time += float(commit.step_time.max())
+
+            if recorder is not None:
+                store_kwargs: dict = {}
+                if trainer.feature_store is not None:
+                    store_kwargs = dict(
+                        feat_sums=commit.feat_sums,
+                        bytes_measured=commit.bytes_measured,
+                        bytes_modeled=commit.bytes_modeled,
+                        fetch_time_measured=np.full(
+                            P, commit.fetch_seconds, dtype=np.float64
+                        ),
+                    )
+                recorder.record_step(
+                    seeds=[m.seeds for m in minibatches],
+                    remote=remote,
+                    missed=commit.missed,
+                    placed=commit.placed,
+                    decisions=decisions,
+                    stalls=stalls,
+                    pct_hits=probe.pct_hits,
+                    hits=probe.hits,
+                    n_remote=n_remote,
+                    replaced=commit.replaced,
+                    total_comm=commit.total_comm,
+                    occupancy_pre=probe.occupancy,
+                    occupancy_post=commit.occupancy,
+                    step_times=commit.step_time,
+                    controllers=trainer.controllers,
+                    **store_kwargs,
+                )
+
+            if trainer.train_model:
+                _train_sp = tel.begin("train", plane="train")
+                losses.append(train_step(trainer, minibatches))
+                tel.end(_train_sp)
+            tel.end(_step_sp)
+        epoch_times.append(epoch_time)
+
+    accuracy = 0.0
+    if trainer.train_model:
+        batch = trainer.graph.train_nodes[
+            : min(512, len(trainer.graph.train_nodes))
+        ]
+        minibatch = trainer.sampler.sample(batch, trainer.rng)
+        accuracy = trainer.model.accuracy(*trainer._features_of(minibatch))
+
+    trace = None
+    if recorder is not None:
+        trace = recorder.finalize(epoch_times, time_engine.events)
+        trainer.last_trace = trace
+    return RunResult(
+        variant=trainer.variant,
+        epoch_times=epoch_times,
+        losses=losses,
+        accuracy=accuracy,
+        logs=logs,
+        controllers=trainer.controllers,
+        graph_meta=trainer.graph_meta,
+        sim_events=time_engine.events,
+        trace=trace,
+    )
 
 
 def _device_raw_supported(trainer) -> bool:
@@ -292,15 +462,17 @@ def run_device(trainer) -> "RunResult":  # noqa: F821 — see lazy import
 
     max_id = trainer.graph.id_base + trainer.graph.num_nodes - 1
     if not ops.wide_id_eligible(max_id):
-        raise NotImplementedError(
-            f"node ids up to {max_id} pass the wide-id device bound "
-            f"({ops.WIDE_ID_MAX}); the reference serves them on its staged "
-            "pipeline, which is not ported yet (ROADMAP, the staged-path slice)"
-        )
+        # Past the wide-id bound only the staged pipeline serves the run.
+        return run_vectorized(trainer)
     P = trainer.parts.num_parts
-    sample = SampleStage(
-        trainer.sampler_plane, P, trainer._seed_batch, trainer.parts.part_of
-    )
+    # The device loops dedup inside their launch (raw) or on the host
+    # (ragged), never through the staged fall-back's kernel hook: a ragged
+    # run's step whose seed blocks happen to be of one length would reach
+    # it in the plane's fused pass.
+    plane = trainer.sampler_plane
+    if plane.use_kernels:
+        plane = SamplerPlane(plane.graph, plane.fanouts)
+    sample = SampleStage(plane, P, trainer._seed_batch, trainer.parts.part_of)
     decide = DecisionStage(trainer.controllers)
     time_engine = trainer.make_time_engine()
     dev = DeviceEngine(

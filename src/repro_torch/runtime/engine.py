@@ -5,8 +5,10 @@ One :class:`PrefetchEngine` replaces the list of per-trainer
 scores, validity and per-round access marks for *all* P trainer PEs live
 in dense ``(P, C)`` numpy arrays (C = max buffer capacity across PEs;
 slots past a PE's own capacity are permanent padding). It is the numpy
-twin the trainer builds and warm-starts; its semantics are those of the
-reference package's ``PrefetchEngine``.
+twin the trainer builds and warm-starts, and the engine of the staged
+pipeline (:class:`repro_torch.runtime.stage.FetchStage`), whose scoring
+round runs as a kernel with ``use_kernels``; its semantics are those of
+the reference package's ``PrefetchEngine``.
 
 :class:`DeviceEngine` is the device-resident twin the port's runtime
 drives: the same ``(P, C)`` state (and, with a feature store, the
@@ -94,6 +96,15 @@ class PrefetchEngine:
         rides alongside membership (the feature-store data plane:
         admissions place real rows via :meth:`place_rows`, hits are
         served from the payload). 0 keeps the engine id-only.
+    use_kernels:
+        Route :meth:`end_round`'s scoring pass through the multi-PE
+        kernel (``kernels.ops.score_policy_update_batch``) on ``device``:
+        the Hopper kernel on a card, its plain version on the CPU. Both
+        give the numpy path's float32 scores bit for bit.
+    device:
+        Where the kernel route runs (``"cuda"`` by default, or
+        ``"cpu"``); resolved only when ``use_kernels`` is set, and
+        ``"cuda"`` without a card raises ``RuntimeError``.
     """
 
     def __init__(
@@ -103,6 +114,8 @@ class PrefetchEngine:
         node_weights: np.ndarray | None = None,
         feature_dim: int = 0,
         id_base: int = 0,
+        use_kernels: bool = False,
+        device="cuda",
     ):
         self.capacity = np.asarray(capacities, dtype=np.int64)
         if (self.capacity < 0).any():
@@ -112,6 +125,8 @@ class PrefetchEngine:
         self.policy = scoring.make_policy(policy)
         self._node_weights = node_weights
         self.id_base = int(id_base)
+        self.use_kernels = use_kernels
+        self.device = resolve_device(device) if use_kernels else None
         self.ids = np.full((P, C), -1, dtype=np.int64)
         self.scores = np.zeros((P, C), dtype=np.float32)
         self.weights = np.ones((P, C), dtype=np.float32)
@@ -249,7 +264,24 @@ class PrefetchEngine:
         if not active.any():
             return
         weights = self.weights if self.policy.use_weights else None
-        new = self.policy.update(self.scores, self.accessed, weights)
+        if self.use_kernels:
+            from ..kernels import ops
+
+            kc = self.policy.kernel_constants()
+            kc.pop("initial_score")  # the scoring pass never places slots
+
+            def upload(a):
+                return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+            new, _ = ops.score_policy_update_batch(
+                upload(self.scores),
+                upload(self.accessed),
+                None if weights is None else upload(weights),
+                **kc,
+            )
+            new = new.cpu().numpy()
+        else:
+            new = self.policy.update(self.scores, self.accessed, weights)
         mask = active[:, None] & self.valid
         self.scores = np.where(mask, new, self.scores).astype(np.float32)
         self.accessed[active] = False
@@ -459,8 +491,8 @@ class DeviceEngine:
         if self.wide and not ops.wide_id_eligible(max_known):
             raise ValueError(
                 "device engine ids exceed the wide-id bound "
-                f"(max id {max_known} > {ops.WIDE_ID_MAX}); the staged "
-                "pipeline that serves them is not ported yet"
+                f"(max id {max_known} > {ops.WIDE_ID_MAX}); use the staged "
+                "pipeline"
             )
         dev = self.device
         self.engine = engine

@@ -6,11 +6,15 @@ each advancing all P trainer PEs in one batched pass:
 * :class:`SampleStage` — per-PE seed blocks through the batched
   :class:`repro_torch.graph.sampler.SamplerPlane`: dense ``(P, B)``
   fanout expansion on the shared CSR, handing the raw ``(P, Mt)``
-  frontier to the device (uniform seed blocks), or the host-deduped
-  remote sets (ragged seed blocks);
+  frontier to the device (uniform seed blocks on the device loop), or
+  the deduped remote sets (the staged loop, and ragged seed blocks);
 * :class:`DecisionStage` — the paper's request/response queue hand-off
   (§4.5, Fig. 11) as a double-buffered two-slot stage over the batched
   :class:`repro_torch.core.controller.DecisionPlane`;
+* :class:`FetchStage` — the staged fetch plane over the numpy
+  :class:`repro_torch.runtime.engine.PrefetchEngine`: one batched buffer
+  probe, then the scoring and replacement round (the scoring pass and
+  the sampler's dedup optionally on kernels) and the accounting;
 * :class:`FusedFetchStage` — the device-resident fetch plane: one
   launch per training step
   (:meth:`repro_torch.runtime.engine.DeviceEngine.fused_step_raw` or
@@ -81,8 +85,9 @@ class SampleStage:
     def run(
         self, epoch: int, mb: int, rng: np.random.Generator
     ) -> tuple[list[MiniBatch], list[np.ndarray], np.ndarray]:
-        """``(minibatches, remote, n_remote)`` for all P PEs: the
-        host-deduped remote fetch sets of the ragged-seed-block loop."""
+        """``(minibatches, remote, n_remote)`` for all P PEs: the deduped
+        remote fetch sets of the staged loop and of the ragged-seed-block
+        loop."""
         seed_blocks = [self.seed_fn(p, epoch, mb) for p in range(self.num_pes)]
         minibatches, remote = self.plane.sample_all(
             seed_blocks, rng, part_of=self.part_of
@@ -113,10 +118,11 @@ class ProbeResult:
     comm: np.ndarray          # (P,) int64 — miss fetches only
     occupancy: np.ndarray     # (P,) float64, pre-replacement
     replaced_pct: np.ndarray  # (P,) float64, previous round's churn
-    #: The probed remote query sets (on the raw path derived on device
-    #: from the frontier and handed back in the packed readback).
-    remote: list[np.ndarray]
-    n_remote: np.ndarray
+    #: The probed remote query sets, on the device loops (on the raw
+    #: path derived on device from the frontier and handed back in the
+    #: packed readback); None on the staged loop, whose driver holds them.
+    remote: list[np.ndarray] | None = None
+    n_remote: np.ndarray | None = None
 
 
 @dataclass
@@ -168,6 +174,193 @@ def _count_fetch(
                     part_of[ids - id_base], minlength=num_pes
                 )
         tel.count("fetch.bytes_by_home", by_home * row_bytes)
+
+
+class FetchStage:
+    """Two-phase batched fetch plane: probe → (decisions) → commit.
+
+    ``probe(remote, n_remote)`` answers every PE's buffer membership
+    query in one batched pass and buffers the miss sets; after the
+    decision stage, ``commit(decisions, stalls)`` closes the round —
+    batched scoring, batched replacement (admitting the *previous*
+    minibatch's misses; Algorithm 1 queues the next minibatch before the
+    decision lands), and the communication/step-time accounting.
+
+    Wall-clock pricing is delegated to the run's ``time_engine``
+    (:mod:`repro_torch.sim`): the closed-form §4.5.3 model (flat constants or
+    per-pair :class:`Topology` costs) or the discrete-event cluster
+    simulator. The stage hands it the exact miss/replacement node sets
+    (``engine.last_placed``) split by home partition when the engine
+    asks (``needs_pairs``).
+
+    With a :class:`repro_torch.store.FeatureStore` attached (``store=``), the
+    stage additionally *moves* the bytes the accounting counts: hit rows
+    come out of the engine payload (captured at probe time), miss and
+    admission rows come out of the store in one batched timed gather,
+    admissions fill the payload (``engine.place_rows``), and the commit
+    reports per-PE remote feature blocks plus measured-vs-modeled byte
+    and wall-clock streams. The store never alters the exact streams —
+    hit/miss/byte/decision payloads stay bit-identical to the modeled
+    path (the golden-trace conformance contract).
+    """
+
+    def __init__(
+        self,
+        engine,
+        uses_buffer: np.ndarray,
+        inference_cost: np.ndarray,
+        time_engine,
+        feature_dim: int,
+        mode: str,
+        part_of: np.ndarray | None = None,
+        store=None,
+        feature_bytes: int = 4,
+    ):
+        if time_engine.needs_pairs and part_of is None:
+            raise ValueError("per-home comm pricing needs part_of")
+        if store is not None and engine.payload is None:
+            raise ValueError(
+                "feature store needs an engine payload "
+                "(PrefetchEngine(feature_dim=...))"
+            )
+        P = engine.num_pes
+        self.engine = engine
+        self.uses_buffer = uses_buffer
+        self.inference_cost = inference_cost
+        self.time_engine = time_engine
+        self.feature_dim = feature_dim
+        self.feature_bytes = int(feature_bytes)
+        self.mode = mode
+        self.part_of = part_of
+        self.store = store
+        self.active = uses_buffer & (engine.capacity > 0)
+        self._capacity = engine.capacity.astype(np.float64)
+        self._prev_missed: list[np.ndarray] = [
+            np.array([], dtype=np.int64) for _ in range(P)
+        ]
+        self._missed: list[np.ndarray] | None = None
+        self._hit_masks: list[np.ndarray] | None = None
+        self._hit_rows: list[np.ndarray] | None = None
+        self._last_replaced = np.zeros(P, dtype=np.int64)
+        self._have_replaced = False
+
+    @tel.spanned("fetch.probe", plane="engine")
+    def probe(self, remote: list[np.ndarray], n_remote: np.ndarray) -> ProbeResult:
+        """Batched buffer lookup; buffers the miss sets for commit()."""
+        if self._missed is not None:
+            raise RuntimeError("probe already pending: commit() the round first")
+        hit_masks, missed = self.engine.lookup(remote, self.active)
+        hits = np.array([int(h.sum()) for h in hit_masks], dtype=np.int64)
+        pct_hits = np.where(
+            self.active,
+            np.where(n_remote > 0, 100.0 * hits / np.maximum(n_remote, 1), 100.0),
+            0.0,
+        )
+        comm = np.array([len(m) for m in missed], dtype=np.int64)
+        replaced_pct = np.where(
+            self._have_replaced & (self._capacity > 0),
+            100.0 * self._last_replaced / np.maximum(self._capacity, 1.0),
+            0.0,
+        )
+        self._missed = missed
+        if self.store is not None:
+            # Hit rows must be captured now: the payload slots of this
+            # round's hits may be overwritten by commit()'s admissions.
+            self._hit_masks = hit_masks
+            self._hit_rows = [
+                self.engine.hit_rows(p) for p in range(self.engine.num_pes)
+            ]
+        return ProbeResult(
+            hit_masks=hit_masks,
+            missed=missed,
+            hits=hits,
+            pct_hits=pct_hits,
+            comm=comm,
+            occupancy=self.engine.occupancy(),
+            replaced_pct=replaced_pct,
+        )
+
+    @tel.spanned("fetch.commit", plane="engine")
+    def commit(self, decisions: np.ndarray, stalls: np.ndarray) -> CommitResult:
+        """Scoring + replacement round + wall-clock accounting."""
+        if self._missed is None:
+            raise RuntimeError("nothing probed: probe() the round first")
+        engine = self.engine
+        engine.end_round(self.uses_buffer)
+        replaced = engine.replace_round(
+            self._prev_missed, decisions & self.uses_buffer
+        )
+        missed, self._missed = self._missed, None
+        self._prev_missed = missed
+        self._last_replaced = replaced
+        self._have_replaced = True
+        comm = np.array([len(m) for m in missed], dtype=np.int64)
+        # Replacement traffic is communication (Alg. 1 line 14).
+        total_comm = comm + replaced
+        if tel.enabled():
+            _count_fetch(
+                missed, engine.last_placed, self.part_of, engine.num_pes,
+                comm, replaced, self.feature_dim, self.feature_bytes,
+                id_base=engine.id_base,
+            )
+        t = self.time_engine.step(
+            build_step_comm(
+                missed,
+                engine.last_placed,
+                self.part_of,
+                engine.num_pes,
+                self.time_engine.needs_pairs,
+                id_base=engine.id_base,
+            ),
+            stalls,
+        )
+        result = CommitResult(
+            replaced=replaced,
+            total_comm=total_comm,
+            step_time=t,
+            occupancy=engine.occupancy(),
+            missed=missed,
+            placed=list(engine.last_placed),
+        )
+        if self.store is not None:
+            self._serve_features(result)
+        return result
+
+    @tel.spanned("fetch.serve", plane="store")
+    def _serve_features(self, result: CommitResult) -> None:
+        """Move the bytes the accounting counted: one batched store
+        gather for every PE's misses, one for every PE's admissions
+        (which then fill the engine payload), and the per-PE remote
+        block assembly — hits from the probe-time payload capture,
+        misses from the store, in sampled-remote order."""
+        engine = self.engine
+        P = engine.num_pes
+        F = engine.feature_dim
+        miss_gather = self.store.gather_batch(result.missed)
+        placed_gather = self.store.gather_batch(engine.last_placed)
+        hit_masks, self._hit_masks = self._hit_masks, None
+        hit_rows, self._hit_rows = self._hit_rows, None
+        features: list[np.ndarray] = []
+        feat_sums = np.zeros(P, dtype=np.float64)
+        bytes_measured = np.zeros(P, dtype=np.int64)
+        for p in range(P):
+            if len(engine.last_placed[p]):
+                engine.place_rows(p, engine.last_slots[p], placed_gather.blocks[p])
+            block = np.empty((len(hit_masks[p]), F), dtype=np.float32)
+            block[hit_masks[p]] = hit_rows[p]
+            block[~hit_masks[p]] = miss_gather.blocks[p]
+            features.append(block)
+            feat_sums[p] = block.sum(dtype=np.float64)
+            bytes_measured[p] = (
+                miss_gather.blocks[p].nbytes + placed_gather.blocks[p].nbytes
+            )
+        result.features = features
+        result.feat_sums = feat_sums
+        result.bytes_measured = bytes_measured
+        result.bytes_modeled = (
+            result.total_comm * self.feature_dim * self.feature_bytes
+        )
+        result.fetch_seconds = miss_gather.seconds + placed_gather.seconds
 
 
 class FusedFetchStage:

@@ -3,9 +3,11 @@
 The reference's trace CLI on the port's trainer. Every subcommand that
 runs a trainer takes ``--device`` (``cuda`` by default, or ``cpu``): a
 trace config's ``"device"`` and ``"runtime"`` keys name the reference's
-paths (``False`` / ``"vectorized"`` is its staged loop), and the port
-runs every config on its device-resident loop, whose streams the
-reference holds bit-identical to the staged ones. So
+paths (``False`` / ``"vectorized"`` is its staged loop), and the CLI
+runs every config on the port's device-resident loop, whose streams the
+reference holds bit-identical to the staged ones; from Python,
+:func:`record_trace` and :func:`build_trainer` also take
+``device=False``, the port's staged loop. So
 ``python -m repro_torch.trace verify tests/golden --device cuda``
 re-records the committed goldens on the card.
 
@@ -88,8 +90,9 @@ def build_trainer(
     generated from ``(dataset, scale, seed)`` and partitioned
     ``num_parts``-way. Experiment cells never train the model
     (``train_model=False``). The config's ``"device"`` key is the
-    reference's and is not read; ``runtime="legacy"`` raises, as the
-    port's trainer does.
+    reference's and is not read: ``device`` is the port's (``"cuda"``,
+    ``"cpu"``, or ``False`` for the staged loop); ``runtime="legacy"``
+    raises, as the port's trainer does.
     """
     from ..core import LLMAgent, make_backend
     from ..gnn import DistributedTrainer

@@ -7,10 +7,12 @@ Every kernel is held bit for bit against its plain PyTorch version on the
 same CUDA tensors (``fused_frontier_step``, ``fused_step``,
 ``gather_rows_batch`` and ``gather_rows`` over their seeded scenario
 sets; ``fused_frontier_step_wide`` and ``fused_step_wide`` over the wide
-sets, in both index modes of the kernels), short trainer runs on the card
-(narrow, rebased past ``2**31``, and on the readback cadence) against the
-same runs on the CPU, and one committed golden trace re-recorded on the
-card.
+sets, in both index modes of the kernels; ``frontier_unique_batch`` in
+both instantiations and the three score entries over theirs), short
+trainer runs on the card (narrow, rebased past ``2**31``, on the
+readback cadence, and the staged fall-back past ``WIDE_ID_MAX``) against
+the same runs on the CPU, and one committed golden trace re-recorded on
+the card.
 """
 
 import numpy as np
@@ -174,3 +176,62 @@ def test_wide_trainer_on_the_card_matches_cpu(card, readback_every):
     np.testing.assert_array_equal(on_card.engine.ids, on_cpu.engine.ids)
     np.testing.assert_allclose(a.losses, b.losses, rtol=1e-4, atol=1e-5)
     assert on_card.last_device_engine.transfers["d2h"] == -(-launches // readback_every)
+
+
+FRONTIER_UNIQUE = scenarios.frontier_unique_scenarios()
+SCORES = scenarios.score_scenarios()
+
+
+@pytest.mark.parametrize("sc", FRONTIER_UNIQUE, ids=[s.name for s in FRONTIER_UNIQUE])
+def test_frontier_unique_kernel_matches_plain(card, sc):
+    keys = torch.from_numpy(sc.keys).to(card)
+    flags = torch.from_numpy(sc.is_remote).to(card)
+    before = dict(native.LAUNCHES)
+    got = ops.frontier_unique_batch(keys, flags)
+    torch.cuda.synchronize()
+    wide = sc.keys.dtype == np.int64 and not ops.int32_id_eligible(sc.keys.max(initial=0))
+    name = "frontier_unique_batch_wide" if wide else "frontier_unique_batch"
+    ran = int(sc.keys.size > 0)
+    assert native.LAUNCHES[name] == before[name] + ran
+    want = ref.frontier_unique_batch(keys if wide else keys.to(torch.int32), flags)
+    assert all(a.dtype == b.dtype and _equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("sc", SCORES, ids=[s.name for s in SCORES])
+def test_score_kernels_match_plain(card, sc):
+    s, a = torch.from_numpy(sc.scores).to(card), torch.from_numpy(sc.accessed).to(card)
+    w = None if sc.weights is None else torch.from_numpy(sc.weights).to(card)
+    before = dict(native.LAUNCHES)
+    got = ops.score_policy_update_batch(s, a, w, **sc.constants)
+    got_b = ops.score_update_batch(s, a)
+    got_1 = ops.score_update(s[0].contiguous(), a[0].contiguous())
+    torch.cuda.synchronize()
+    for name in ("score_policy_update_batch", "score_update_batch", "score_update"):
+        assert native.LAUNCHES[name] == before[name] + 1
+    assert all(_equal(x, y) for x, y in zip(
+        got, ref.score_policy_update_batch(s, a, w, **sc.constants)))
+    assert all(_equal(x, y) for x, y in zip(got_b, ref.score_update_batch(s, a)))
+    assert all(_equal(x, y) for x, y in zip(got_1, ref.score_update(s[0], a[0])))
+
+
+def test_staged_fallback_on_the_card_matches_cpu(card):
+    from repro_torch.gnn import DistributedTrainer
+    from repro_torch.graph import generate, partition_graph
+
+    g = generate("products", seed=0, scale=0.15).rebase(ops.WIDE_ID_MAX)
+    parts = partition_graph(g, 4)
+    kw = dict(variant="rudder", deciders=["gemma3-4b"], epochs=2, batch_size=16)
+    on_card = DistributedTrainer(parts, device="cuda", **kw)
+    on_cpu = DistributedTrainer(parts, device="cpu", **kw)
+    before = dict(native.LAUNCHES)
+    with pytest.warns(RuntimeWarning, match="staged pipeline"):
+        a = on_card.run()
+    steps = on_card.epochs * on_card.mb_per_epoch
+    for name in ("frontier_unique_batch", "score_policy_update_batch"):
+        assert native.LAUNCHES[name] == before[name] + steps
+    with pytest.warns(RuntimeWarning, match="staged pipeline"):
+        b = on_cpu.run()
+    for x, y in zip(a.logs, b.logs):
+        assert x == y
+    np.testing.assert_array_equal(on_card.engine.scores, on_cpu.engine.scores)
+    np.testing.assert_allclose(a.losses, b.losses, rtol=1e-4, atol=1e-5)

@@ -1,10 +1,11 @@
 """Trace capture through the port, held to the committed goldens.
 
 * All 8 goldens under ``tests/golden/`` (4 controller variants x async /
-  sync) re-recorded by the port's trainer on ``device="cpu"``, modeled and
-  with ``feature_store=True``: each ``exact_digest()`` equals the
-  committed golden's, and the store runs measure exactly the modeled
-  bytes (``bytes_measured == bytes_modeled``).
+  sync) re-recorded by the port's trainer on ``device="cpu"`` and on the
+  staged loop (``device=False``), modeled and with
+  ``feature_store=True``: each ``exact_digest()`` equals the committed
+  golden's, and the store runs measure exactly the modeled bytes
+  (``bytes_measured == bytes_modeled``).
 * A ragged-seed-block trace recorded by the port equals the reference's
   (``device="jnp"``) under ``diff_traces`` on the exact fields.
 * Each package's ``load_trace`` reads the other's saved file, and
@@ -38,6 +39,23 @@ def test_goldens_re_record_through_the_port(path, store):
     assert fresh.exact_digest() == golden.exact_digest()
     assert fresh.num_steps == golden.num_steps == 14
     assert fresh.manifest["feature_store"] is store
+    if store:
+        np.testing.assert_array_equal(
+            fresh.arrays["bytes_measured"], fresh.arrays["bytes_modeled"]
+        )
+    else:
+        assert ttrace.diff_traces(golden, fresh).identical
+
+
+@pytest.mark.parametrize("store", [False, True], ids=["modeled", "store"])
+@pytest.mark.parametrize("path", GOLDENS, ids=[Path(p).stem for p in GOLDENS])
+def test_goldens_re_record_on_the_staged_loop(path, store):
+    """``device=False``: the reference's default path, the staged loop on
+    the host, records each golden's exact streams too."""
+    golden = ttrace.load_trace(path)
+    fresh = tcli.record_trace(dict(golden.config, feature_store=store), device=False)
+    assert fresh.exact_digest() == golden.exact_digest()
+    assert fresh.num_steps == golden.num_steps == 14
     if store:
         np.testing.assert_array_equal(
             fresh.arrays["bytes_measured"], fresh.arrays["bytes_modeled"]

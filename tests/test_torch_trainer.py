@@ -209,7 +209,6 @@ def test_feature_store_true_builds_a_store_on_the_trainer_device(parts):
     [
         (dict(telemetry=True), "telemetry"),
         (dict(runtime="legacy"), "legacy"),
-        (dict(device=False), "staged"),
     ],
 )
 def test_unported_options_raise(parts, kwargs, match):
@@ -246,9 +245,3 @@ def test_unported_run_paths_raise(parts, kwargs, match):
         )
     launches = COMMON["epochs"] * tr.mb_per_epoch + 1
     assert tr.last_device_engine.transfers["d2h"] == -(-launches // 2)
-
-
-def test_sampler_kernels_not_ported(parts):
-    _, port = parts
-    with pytest.raises(NotImplementedError, match="frontier_unique_batch"):
-        tgraph.SamplerPlane(port.graph, (10, 25), use_kernels=True)

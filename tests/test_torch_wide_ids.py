@@ -298,19 +298,6 @@ def test_launches_beyond_wide_bound_raise():
         dev.fused_step_raw(np.full((2, 3), BASE - 1, np.int64), on, on, on)
 
 
-def test_trainer_past_the_wide_bound_is_not_ported():
-    """The reference falls back to its staged pipeline past ``WIDE_ID_MAX``
-    (``device.fallback_int64``); the port has no staged path yet and
-    refuses, rather than carrying on."""
-    g = generate("products", seed=0, scale=0.02).rebase(ops.WIDE_ID_MAX)
-    tr = DistributedTrainer(
-        partition_graph(g, 2), variant="fixed", device="cpu", epochs=1,
-        batch_size=16, fanouts=(3, 5), train_model=False,
-    )
-    with pytest.raises(NotImplementedError, match="staged"):
-        tr.run()
-
-
 # --------------------------------------------------------------------------- #
 # DeviceEngine in wide mode against the reference's.
 def test_engine_auto_upgrades_to_wide_mode():
