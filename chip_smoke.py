@@ -6,7 +6,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 0. the card (``nvidia-smi`` name and power limit) and the torch / CUDA
    versions;
 1. build every hand-written kernel from ``src/repro_torch/kernels/csrc``
-   (one ``nvcc`` per source, all started together);
+   (seven libraries, one ``nvcc`` per source, all started together);
 2. every kernel against its plain PyTorch version on the card, bit for bit,
    on the seeded scenario sets of the CPU tests: ``fused_frontier_step``
    (with and without a feature-store table), ``fused_step``,
@@ -17,16 +17,24 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    ``frontier_unique_batch`` and its int64 twin on the frontier-dedup set,
    and ``score_policy_update_batch``, ``score_update_batch`` and
    ``score_update`` on the scoring set (every policy, weights on and off);
+   ``gather_mean`` and ``segment_sum_equal`` on theirs (float32 and
+   bfloat16, K in {1, 3, 10, 25}, F in {1, 3, 64, 100, 128, 600}, int32
+   and int64 indices, B = 0 and S = 0);
 3. the raw main path: ``DistributedTrainer(device="cuda")`` on the products
    preset at ``scale=10`` (240k nodes), 4 trainers, batch 2000, fanouts
-   (10, 25), 25% buffers, rudder variant, 3 epochs of GraphSAGE training;
-   then ``fused_frontier_step`` against its plain version on the captured
-   inputs of the run's own launches (full shape), and both timed;
+   (10, 25), 25% buffers, rudder variant, 3 epochs of GraphSAGE training,
+   whose neighbour means run on ``gather_mean`` (the layer-2 mean, read
+   from the feature table) and ``segment_sum_equal`` (the layer-1 mean);
+   then ``fused_frontier_step`` and both aggregation kernels against their
+   plain versions on the captured inputs of the run's own launches (full
+   shape), and all timed;
 3b. the ragged path: the papers preset at ``scale=10`` (550k nodes, 1%
    train nodes, so every PE's seed block is shorter than the batch of
    2000), the same trainer with a ``FeatureStore(use_kernel=True)`` on the
-   card, 8 epochs of one step each; ``fused_step`` and ``gather_rows_batch``
-   against their plain versions on the run's captured launches, all timed;
+   card, 8 epochs of one step each, both neighbour means on
+   ``segment_sum_equal`` over the store's rows; ``fused_step``,
+   ``gather_rows_batch`` and ``segment_sum_equal`` against their plain
+   versions on the run's captured launches, all timed;
 4. card vs CPU: the raw path at ``scale=1`` (batch 256), the same with the
    feature store (the in-launch payload scatter), a ragged store run
    (products ``scale=0.15``, batch 72), the raw path on the graph rebased
@@ -34,6 +42,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    (the graph rebased to ``WIDE_ID_MAX``): every integer and bool
    stream, the store streams, the buffer state and payload identical,
    losses allclose;
+4b. the telemetry session: phase 4's raw run on the card with
+   ``telemetry=True`` against the same run without: equal ``exact_digest``
+   and logs, ``kernel.<name>.calls`` equal to each launched kernel's
+   launches, a ``train``-plane span, the JSONL and Chrome trace written and
+   loaded back; the aggregation dispatchers' seconds (count, p50);
 5. the 8 committed golden traces re-recorded on the card, modeled and with
    the feature store: each ``exact_digest`` equals the golden's;
 6. the wide raw loop: phase 3's graph rebased to id_base ``2**31 + 1000``,
@@ -58,7 +71,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 
 Each path's launch counts are zeroed just before it runs and read just
 after; the device loops (phases 3, 3b, 6, 6b, 7) launch neither of the
-staged pipeline's kernels. Every phase raises on failure, so any failure exits non-zero.
+staged pipeline's kernels, and every training run launches the two
+aggregation kernels exactly once per PE, step and mean, plus the
+accuracy pass. Every phase raises on failure, so any failure exits non-zero.
 Without a CUDA card, or outside a checkout of the repository, the script
 exits non-zero before printing any result.
 """
@@ -69,6 +84,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from collections import defaultdict
@@ -113,6 +129,15 @@ STAGED_KERNELS = (
     "score_update_batch", "score_policy_update_batch",
 )
 FALLBACK_WARNING = "falling back to the staged pipeline"
+#: The GraphSAGE step's kernels, and the dispatcher whose telemetry
+#: counter counts each kernel's launches (the others have its name).
+AGGREGATION_KERNELS = ("gather_mean", "segment_sum_equal")
+DISPATCHER_OF = {
+    "fused_frontier_step": "fused_frontier_step_batch",
+    "fused_frontier_step_wide": "fused_frontier_step_wide_batch",
+    "fused_step": "fused_step_batch",
+    "fused_step_wide": "fused_step_wide_batch",
+}
 
 #: Loss tolerance of the card-vs-CPU runs: the same float32 math, summed in
 #: another order by the card's matmul and reduction kernels, over a few SGD
@@ -151,7 +176,7 @@ def card_line() -> str:
 
 def compare_outputs(got, want, names, what: str) -> float:
     """Raise unless two output tuples are bit-identical (floats compared as
-    their int32 bit patterns); returns the max abs difference (0.0)."""
+    their bit patterns); returns the max abs difference (0.0)."""
     import torch
 
     if not isinstance(got, (tuple, list)):
@@ -167,10 +192,11 @@ def compare_outputs(got, want, names, what: str) -> float:
                 f"{what}: {name} {tuple(a.shape)} {a.dtype} vs "
                 f"{tuple(b.shape)} {b.dtype}"
             )
-        if a.dtype == torch.float32:
-            diff = (a - b).abs().max().item() if a.numel() else 0.0
+        if a.dtype in (torch.float32, torch.bfloat16):
+            diff = (a.float() - b.float()).abs().max().item() if a.numel() else 0.0
             err = max(err, diff)
-            a, b = a.view(torch.int32), b.view(torch.int32)
+            bits = torch.int32 if a.dtype == torch.float32 else torch.int16
+            a, b = a.view(bits), b.view(bits)
         if not torch.equal(a, b):
             bad = (a != b).nonzero()[:5].tolist()
             raise AssertionError(f"{what}: {name} differs at {bad}")
@@ -192,14 +218,17 @@ class StageClock:
     the dispatchers' device time by CUDA events, and the inputs of every
     launch of the ``capture`` dispatchers (kept on the card for the
     full-shape checks; tensors above 32M elements — the store's tables,
-    which no launch writes — are kept by reference)."""
+    which no launch writes — and the read-only tensors in ``by_ref`` — the
+    trainer's feature table — are kept by reference, so that capturing
+    allocates and copies no table inside the timed spans)."""
 
     profile_kernels = True
 
-    def __init__(self, capture):
+    def __init__(self, capture, by_ref=()):
         self.tracer = self
         self.registry = self
         self.capture = set(capture)
+        self.by_ref = {id(t) for t in by_ref}
         self.host_s = defaultdict(list)  # span name -> seconds of each call
         self.starts = defaultdict(list)  # span name -> start of each call
         self.events = defaultdict(list)  # dispatcher -> [(start, end)]
@@ -227,7 +256,10 @@ class StageClock:
         self.launches[name].append(
             (
                 [
-                    a.clone() if a is not None and a.numel() <= 2**25 else a
+                    a.clone()
+                    if isinstance(a, torch.Tensor) and a.numel() <= 2**25
+                    and id(a) not in self.by_ref
+                    else a
                     for a in args
                 ],
                 dict(kwargs),
@@ -411,6 +443,45 @@ def no_staged_launches(what, launches) -> None:
         raise AssertionError(f"{what}: the device loop launched {bad}")
 
 
+def check_aggregation(what, launches, trainer) -> dict:
+    """Raise unless a run launched the GraphSAGE step's kernels exactly
+    once per PE, step and mean, plus the accuracy pass: the layer-2 mean
+    on ``gather_mean`` and the layer-1 mean on ``segment_sum_equal``
+    without a store, both on ``segment_sum_equal`` with one; none without
+    training. Returns the expected counts."""
+    calls = trainer.parts.num_parts * trainer.epochs * trainer.mb_per_epoch + 1
+    if not trainer.train_model:
+        calls = 0
+    store = trainer.feature_store is not None
+    want = {"gather_mean": 0 if store else calls,
+            "segment_sum_equal": (2 if store else 1) * calls}
+    got = {k: launches[k] for k in AGGREGATION_KERNELS}
+    if got != want:
+        raise AssertionError(f"{what}: aggregation launches {got} != {want}")
+    return want
+
+
+def check_captured(what, clock, max_err) -> int:
+    """Hold both aggregation kernels bit-exact against their plain versions
+    on every launch a run's ``clock`` captured; returns the count."""
+    from repro_torch.kernels import gather_mean as gm
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import segment_sum as ss
+
+    n = 0
+    for name, kernel, plain in (
+        ("gather_mean", gm.gather_mean_cuda, ref.gather_mean),
+        ("segment_sum_equal", ss.segment_sum_equal_cuda, ref.segment_sum_equal),
+    ):
+        for i, (args, _kw) in enumerate(clock.launches[name]):
+            got, want = kernel(*args), plain(*args)
+            max_err[name] = max(
+                max_err[name], compare_outputs(got, want, ["out"], f"{what} {name} {i}")
+            )
+            n += 1
+    return n
+
+
 def run_warned(trainer):
     """``trainer.run()``, returning the result and the texts of the
     ``RuntimeWarning`` s it raised."""
@@ -473,9 +544,12 @@ def main() -> int:
     from repro_torch.graph import generate, partition_graph
     from repro_torch.kernels import frontier_unique as fu
     from repro_torch.kernels import fused_step as fs
+    from repro_torch.kernels import gather_mean as gm
     from repro_torch.kernels import gather_rows as gr
     from repro_torch.kernels import native, ops, ref, scenarios
     from repro_torch.kernels import score_update as su
+    from repro_torch.kernels import segment_sum as ss
+    from repro_torch.telemetry.export import load_jsonl, write_jsonl
     from repro_torch.runtime import driver
     from repro_torch.store import FeatureStore
     from repro_torch.trace import load_trace
@@ -637,6 +711,31 @@ def main() -> int:
             max_err[name] = max(
                 max_err[name], compare_outputs(got, want, SCORE_OUT, f"{name} {sc.name}")
             )
+    # The GraphSAGE step's kernels, float32 and bfloat16.
+    def typed(a, dtype):
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        return t.to(torch.bfloat16) if dtype == "bfloat16" else t
+
+    mean_cases = scenarios.gather_mean_scenarios()
+    for sc in mean_cases:
+        table, idx = typed(sc.table, sc.dtype), torch.from_numpy(sc.idx).to(dev)
+        got = gm.gather_mean_cuda(table, idx)
+        want = ref.gather_mean(table, idx)
+        torch.cuda.synchronize()
+        max_err["gather_mean"] = max(
+            max_err["gather_mean"],
+            compare_outputs(got, want, ["out"], f"gather_mean {sc.name}"),
+        )
+    sum_cases = scenarios.segment_sum_scenarios()
+    for sc in sum_cases:
+        data = typed(sc.data, sc.dtype)
+        got = ss.segment_sum_equal_cuda(data, sc.k)
+        want = ref.segment_sum_equal(data, sc.k)
+        torch.cuda.synchronize()
+        max_err["segment_sum_equal"] = max(
+            max_err["segment_sum_equal"],
+            compare_outputs(got, want, ["out"], f"segment_sum_equal {sc.name}"),
+        )
     phase2 = dict(native.LAUNCHES)
     print(
         f"phase 2: kernel == plain, bit-exact: fused_frontier_step on "
@@ -651,6 +750,8 @@ def main() -> int:
         f"{len(unique_cases)} sets ({', '.join(s.name for s in unique_cases)}); "
         f"score_policy_update_batch, score_update_batch and score_update (per row) "
         f"on {len(score_cases)} ({', '.join(s.name for s in score_cases)}); "
+        f"gather_mean on {len(mean_cases)} ({', '.join(s.name for s in mean_cases)}); "
+        f"segment_sum_equal on {len(sum_cases)} ({', '.join(s.name for s in sum_cases)}); "
         f"launches {phase2}"
     )
 
@@ -666,7 +767,8 @@ def main() -> int:
         f"{trainer.engine.capacity.tolist()}, {steps} steps; set-up "
         f"{time.perf_counter() - t0:.1f} s"
     )
-    clock = StageClock(["fused_frontier_step_batch"])
+    clock = StageClock(["fused_frontier_step_batch", *AGGREGATION_KERNELS],
+                       by_ref=[trainer.features])
     native.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -676,6 +778,7 @@ def main() -> int:
     wall = time.perf_counter() - t0
     launches_raw = dict(native.LAUNCHES)
     no_staged_launches("phase 3", launches_raw)
+    agg_raw = check_aggregation("phase 3", launches_raw, trainer)
 
     if launches_raw["fused_frontier_step"] != steps + 1:
         raise AssertionError(f"launches {launches_raw} != steps + 1 = {steps + 1}")
@@ -694,7 +797,9 @@ def main() -> int:
     Mt = captured[1][0][6].shape[1] - 1
     print(
         f"phase 3: {steps} steps, launches {launches_raw} (fused_frontier_step = "
-        f"steps + 1), transfers {transfers}, Mt = {Mt} per PE, "
+        f"steps + 1; gather_mean and segment_sum_equal = P * steps + 1 = "
+        f"{agg_raw['gather_mean']}, the accuracy pass included), transfers "
+        f"{transfers}, Mt = {Mt} per PE, "
         f"losses {losses[0]:.4f} -> {losses[-1]:.4f} (finite), buffer hits {hits}, "
         f"accuracy {result.accuracy:.4f}, wall {wall:.2f} s"
     )
@@ -717,8 +822,14 @@ def main() -> int:
             max_err["fused_frontier_step"],
             compare_outputs(got, want, FRONTIER_OUT, f"launch {i}"),
         )
+    n_agg = check_captured("phase 3", clock, max_err)
     print(f"phase 3: kernel == plain, bit-exact, on all {len(captured)} "
-          f"launches of the run (Mt = {Mt})")
+          f"launches of the run (Mt = {Mt}) and all {n_agg} gather_mean and "
+          f"segment_sum_equal launches")
+    print("phase 3: aggregation device ms per launch (CUDA events), median: " + json.dumps({
+        name: round(float(np.median(clock.device_ms(name))), 4)
+        for name in AGGREGATION_KERNELS
+    }))
 
     args, kw = captured[len(captured) // 2]
     k_ms, p_ms, _, raw = time_pair(
@@ -739,10 +850,57 @@ def main() -> int:
     )
     print("phase 3: device time per launch by kernel (torch.profiler): "
           + profile_rows(lambda: fs.fused_frontier_step_cuda(*args, **kw)))
+
+    # The aggregation kernels at the training step's shape (the accuracy
+    # pass's launch is the last, at its own smaller batch).
+    (table, idx), _ = clock.launches["gather_mean"][0]
+    B, K = idx.shape
+    F = table.shape[1]
+    k_ms, p_ms, l_ms, raw = time_pair(
+        lambda: gm.gather_mean_cuda(table, idx),
+        lambda: ref.gather_mean(table, idx),
+        flush,
+        library=lambda: torch.nn.functional.embedding_bag(idx, table, mode="mean"),
+    )
+    # Distinct rows read once, every output row written once, the index.
+    uniq = torch.unique(idx).numel()
+    nbytes = uniq * F * 4 + B * F * 4 + idx.numel() * idx.element_size()
+    nops = B * K * F + B * F  # an add per gathered element, a multiply per output
+    b_ms, b_by = bound(nbytes, nops)
+    timings["gather_mean"] = (k_ms, p_ms, l_ms, b_ms, b_by)
+    print(
+        f"phase 3: gather_mean at table ({table.shape[0]}, {F}) {table.dtype}, indices "
+        f"({B}, {K}) {idx.dtype}: kernel {raw[0]:.4f}/{raw[1]:.4f} ms, plain "
+        f"{raw[2]:.4f}/{raw[3]:.4f} ms, embedding_bag(mean) {l_ms:.4f} ms; {nbytes} "
+        f"bytes ({uniq} distinct rows read, {B} written), {nops} ops; bound "
+        f"{b_ms:.4f} ms ({b_by})"
+    )
+    print("phase 3: gather_mean device time per launch by kernel (torch.profiler): "
+          + profile_rows(lambda: gm.gather_mean_cuda(table, idx)))
+    (data, k), _ = clock.launches["segment_sum_equal"][0]
+    seg_shape = (data.shape[0] // k, k, data.shape[1])
+    k_ms, p_ms, l_ms, raw = time_pair(
+        lambda: ss.segment_sum_equal_cuda(data, k),
+        lambda: ref.segment_sum_equal(data, k),
+        flush,
+        library=lambda: data.view(seg_shape).sum(1),
+    )
+    outs = ss.segment_sum_equal_cuda(data, k)
+    nbytes = tensor_bytes((data,), (outs,))
+    b_ms, b_by = bound(nbytes, data.numel())
+    timings["segment_sum_equal"] = (k_ms, p_ms, l_ms, b_ms, b_by)
+    print(
+        f"phase 3: segment_sum_equal at data {tuple(data.shape)}, k={k} (x_n1): kernel "
+        f"{raw[0]:.4f}/{raw[1]:.4f} ms, plain {raw[2]:.4f}/{raw[3]:.4f} ms, "
+        f"view(S, k, F).sum(1) {l_ms:.4f} ms; {nbytes} bytes, {data.numel()} ops; "
+        f"bound {b_ms:.4f} ms ({b_by})"
+    )
+    print("phase 3: segment_sum_equal device time per launch by kernel (torch.profiler): "
+          + profile_rows(lambda: ss.segment_sum_equal_cuda(data, k)))
     # Phases 6 and 7 rebase this graph and compare with this run.
     g_main, main, mt_main = g, (trainer, result), Mt
     stages_main = stage_medians(clock)
-    del trainer, result, clock, captured, g, parts
+    del trainer, result, clock, captured, g, parts, table, idx, data, outs
 
     # -- 3b. the ragged path, with the feature store ----------------------- #
     t0 = time.perf_counter()
@@ -761,7 +919,7 @@ def main() -> int:
     )
     if steps != RAGGED["epochs"] or min(train_sizes) >= RAGGED["batch_size"]:
         raise AssertionError("phase 3b: expected ragged blocks and one step per epoch")
-    clock = StageClock(["fused_step_batch", "gather_rows_batch"])
+    clock = StageClock(["fused_step_batch", "gather_rows_batch", *AGGREGATION_KERNELS])
     native.reset_launches()
     store.kernel_gathers = 0
     torch.cuda.synchronize()
@@ -772,6 +930,7 @@ def main() -> int:
     wall = time.perf_counter() - t0
     launches_ragged = dict(native.LAUNCHES)
     no_staged_launches("phase 3b", launches_ragged)
+    agg_ragged = check_aggregation("phase 3b", launches_ragged, trainer)
     if launches_ragged["fused_step"] != steps + 1:
         raise AssertionError(f"launches {launches_ragged} != steps + 1 = {steps + 1}")
     if launches_ragged["fused_frontier_step"] != 0:
@@ -793,7 +952,9 @@ def main() -> int:
     step_caps = clock.launches["fused_step_batch"]
     print(
         f"phase 3b: {steps} steps, launches {launches_ragged} (fused_step = steps + 1, "
-        f"gather_rows_batch = the store's {store.kernel_gathers} kernel gathers), "
+        f"gather_rows_batch = the store's {store.kernel_gathers} kernel gathers, "
+        f"segment_sum_equal = 2 * (P * steps + 1) = {agg_ragged['segment_sum_equal']}, "
+        f"gather_mean = 0: the store serves the rows), "
         f"transfers {transfers}, losses "
         f"{losses[0]:.4f} -> {losses[-1]:.4f} (finite), buffer hits {hits}, "
         f"bytes measured == modeled == {result.total_bytes_measured}, "
@@ -829,8 +990,30 @@ def main() -> int:
             max_err["gather_rows_batch"],
             compare_outputs(got, ref.gather_rows_batch(*args), ["out"], f"gather {i}"),
         )
-    print(f"phase 3b: kernel == plain, bit-exact, on all {len(step_caps)} fused_step "
-          f"and {len(gather_caps)} gather_rows_batch launches of the run")
+    n_agg = check_captured("phase 3b", clock, max_err)
+    print(f"phase 3b: kernel == plain, bit-exact, on all {len(step_caps)} fused_step, "
+          f"{len(gather_caps)} gather_rows_batch and {n_agg} segment_sum_equal "
+          f"launches of the run")
+    # The layer-2 mean over the store's rows: the run's largest reduction.
+    data, k = max(clock.launches["segment_sum_equal"], key=lambda c: c[0][0].numel())[0]
+    seg_shape = (data.shape[0] // k, k, data.shape[1])
+    k_ms, p_ms, l_ms, raw = time_pair(
+        lambda: ss.segment_sum_equal_cuda(data, k),
+        lambda: ref.segment_sum_equal(data, k),
+        flush,
+        library=lambda: data.view(seg_shape).sum(1),
+    )
+    outs = ss.segment_sum_equal_cuda(data, k)
+    nbytes = tensor_bytes((data,), (outs,))
+    b_ms, b_by = bound(nbytes, data.numel())
+    print(
+        f"phase 3b: segment_sum_equal at data {tuple(data.shape)}, k={k} (x_n2 from the "
+        f"store): kernel {raw[0]:.4f}/{raw[1]:.4f} ms, plain {raw[2]:.4f}/{raw[3]:.4f} ms, "
+        f"view(S, k, F).sum(1) {l_ms:.4f} ms; {nbytes} bytes, {data.numel()} ops; "
+        f"bound {b_ms:.4f} ms ({b_by}); device ms per launch over the run (CUDA "
+        f"events), median {float(np.median(clock.device_ms('segment_sum_equal'))):.4f}"
+    )
+    del data, outs
 
     # The launch with the most work (the decision plane gates replacement
     # off on some steps, and those launches carry no candidates).
@@ -932,6 +1115,7 @@ def main() -> int:
             run, warned = run_warned(tr)
             runs[where] = (tr, run, warned, dict(native.LAUNCHES))
         (tc, rc, wc, lc), (th, rh, wh, _) = runs["card"], runs["cpu"]
+        check_aggregation(f"phase 4 ({what})", lc, tc)
         if staged:
             steps = tc.epochs * tc.mb_per_epoch
             if tc.last_device_engine is not None or len(wc) != 1 or len(wh) != 1:
@@ -948,8 +1132,63 @@ def main() -> int:
             f"phase 4 ({what}): batch {cfg['batch_size']}, {len(rc.losses)} steps: card == "
             f"CPU on every stream ({', '.join(STREAMS + (STORE_STREAMS if with_store else ()))}), "
             f"engine.stats and buffer state{' and payload' if with_store else ''}; losses "
-            f"allclose (rtol={LOSS_RTOL}, atol={LOSS_ATOL}), max |diff| {diff:.3g}"
+            f"allclose (rtol={LOSS_RTOL}, atol={LOSS_ATOL}), max |diff| {diff:.3g}; "
+            f"aggregation launches {({k: lc[k] for k in AGGREGATION_KERNELS})}"
         )
+
+    # -- 4b. the telemetry session on the card ----------------------------- #
+    runs = {}
+    for on in (False, True):
+        tr = DistributedTrainer(p1g, device=DEVICE, trace=True, telemetry=on, **SMALL)
+        native.reset_launches()
+        run = tr.run()
+        torch.cuda.synchronize()
+        runs[on] = (tr, run, dict(native.LAUNCHES))
+    (t_off, r_off, _), (t_on, r_on, l_on) = runs[False], runs[True]
+    if t_on.last_trace.exact_digest() != t_off.last_trace.exact_digest():
+        raise AssertionError("phase 4b: telemetry on moved the exact digest")
+    diff = compare_runs("phase 4b (telemetry on vs off)", t_on, r_on, t_off, r_off, False)
+    check_aggregation("phase 4b", l_on, t_on)
+    session = t_on.last_telemetry
+    if session is None or r_on.telemetry is None or r_off.telemetry is not None:
+        raise AssertionError("phase 4b: the session did not land on the trainer and result")
+    reg = session.registry
+    for name, n in l_on.items():
+        if not n:
+            continue
+        key = f"kernel.{DISPATCHER_OF.get(name, name)}.calls"
+        if key not in reg or reg[key].total != n:
+            raise AssertionError(f"phase 4b: {key} != {n} launches of {name}")
+    train_spans = [sp for sp in session.tracer.spans if sp.plane == "train"]
+    if len(train_spans) != t_on.epochs * t_on.mb_per_epoch:
+        raise AssertionError(f"phase 4b: {len(train_spans)} train-plane spans")
+    with tempfile.TemporaryDirectory() as tmp:
+        jsonl = write_jsonl(session, Path(tmp) / "run.jsonl")
+        chrome = Path(tmp) / "trace.json"
+        session.write_chrome_trace(chrome)
+        artifact = load_jsonl(jsonl)
+        events = json.loads(chrome.read_text())["traceEvents"]
+    n_complete = sum(1 for e in events if e.get("ph") == "X")
+    if (not len(artifact["spans"]) == len(session.tracer.spans) == n_complete
+            or artifact["meta"]["provenance"]["cuda"] != torch.version.cuda):
+        raise AssertionError("phase 4b: the artifacts did not load back")
+    seconds = {
+        name: {
+            "count": reg[f"kernel.{name}.seconds"].count,
+            "p50_ms": round(1e3 * reg[f"kernel.{name}.seconds"].percentile(50), 4),
+        }
+        for name in AGGREGATION_KERNELS
+    }
+    print(
+        f"phase 4b: telemetry on, batch {SMALL['batch_size']}, {len(r_on.losses)} steps: "
+        f"exact_digest and every stream equal the telemetry-off run's (losses max "
+        f"|diff| {diff:.3g}); kernel.<name>.calls == launches for "
+        f"{ {k: v for k, v in l_on.items() if v} }; {len(train_spans)} train-plane spans; "
+        f"JSONL ({len(artifact['spans'])} spans) and Chrome trace ({n_complete} events) "
+        f"loaded back; kernel.<name>.seconds (host clock to the kernels' end): "
+        + json.dumps(seconds)
+    )
+    del runs, t_off, r_off, t_on, r_on, session, reg
 
     # -- 5. the goldens on the card --------------------------------------- #
     goldens = sorted((ROOT / "tests" / "golden").glob("*.json"))
@@ -982,6 +1221,7 @@ def main() -> int:
     wall = time.perf_counter() - t0
     launches_wide = dict(native.LAUNCHES)
     no_staged_launches("phase 6", launches_wide)
+    check_aggregation("phase 6", launches_wide, trainer)
     if launches_wide["fused_frontier_step_wide"] != steps + 1 or launches_wide["fused_frontier_step"]:
         raise AssertionError(f"phase 6: launches {launches_wide}")
     dev_w = trainer.last_device_engine
@@ -1056,6 +1296,7 @@ def main() -> int:
     wall = time.perf_counter() - t0
     launches_wide_ragged = dict(native.LAUNCHES)
     no_staged_launches("phase 6b", launches_wide_ragged)
+    check_aggregation("phase 6b", launches_wide_ragged, trainer)
     if (launches_wide_ragged["fused_step_wide"] != steps + 1
             or launches_wide_ragged["fused_step"]
             or launches_wide_ragged["gather_rows_batch"] != store.kernel_gathers
@@ -1131,6 +1372,8 @@ def main() -> int:
         (t1, r1, c1, l1), (tk, rk, ck, lk) = runs[1], runs[CADENCE]
         no_staged_launches(f"phase 7 ({tag}, K=1)", l1)
         no_staged_launches(f"phase 7 ({tag}, K={CADENCE})", lk)
+        check_aggregation(f"phase 7 ({tag}, K=1)", l1, t1)
+        check_aggregation(f"phase 7 ({tag}, K={CADENCE})", lk, tk)
         steps = tk.epochs * tk.mb_per_epoch
         kernel = "fused_frontier_step_wide" if tag == "wide" else "fused_frontier_step"
         if l1[kernel] != steps + 1 or lk[kernel] != steps + 1:
@@ -1176,8 +1419,10 @@ def main() -> int:
     launches_staged = dict(native.LAUNCHES)
     if len(warned) != 1 or FALLBACK_WARNING not in warned[0]:
         raise AssertionError(f"phase 8: warnings {warned}")
+    check_aggregation("phase 8", launches_staged, trainer)
     others = {k: v for k, v in launches_staged.items()
-              if v and k not in ("frontier_unique_batch", "score_policy_update_batch")}
+              if v and k not in ("frontier_unique_batch", "score_policy_update_batch",
+                                 *AGGREGATION_KERNELS)}
     if (launches_staged["frontier_unique_batch"] != steps
             or launches_staged["score_policy_update_batch"] != steps or others):
         raise AssertionError(f"phase 8: launches {launches_staged}")
@@ -1352,6 +1597,8 @@ def main() -> int:
         "score_update": "src/repro/kernels/score_update.py:52",
         "score_update_batch": "src/repro/kernels/score_update.py:92",
         "score_policy_update_batch": "src/repro/kernels/score_update.py:257",
+        "gather_mean": "src/repro/kernels/gather_mean.py:41",
+        "segment_sum_equal": "src/repro/kernels/segment_sum.py:41",
     }
     sources = {
         "fused_frontier_step": "src/repro_torch/kernels/csrc/fused_frontier_step.cu",
@@ -1365,6 +1612,8 @@ def main() -> int:
         "score_update": "src/repro_torch/kernels/csrc/score_update.cu",
         "score_update_batch": "src/repro_torch/kernels/csrc/score_update.cu",
         "score_policy_update_batch": "src/repro_torch/kernels/csrc/score_update.cu",
+        "gather_mean": "src/repro_torch/kernels/csrc/gather_mean.cu",
+        "segment_sum_equal": "src/repro_torch/kernels/csrc/segment_sum.cu",
     }
     launches = {
         "fused_frontier_step": (launches_raw["fused_frontier_step"], "phase 3 (raw path)"),
@@ -1392,6 +1641,16 @@ def main() -> int:
         "score_policy_update_batch": (
             launches_staged["score_policy_update_batch"],
             "phase 8 (staged fall-back: the engine's scoring round)",
+        ),
+        "gather_mean": (
+            launches_raw["gather_mean"],
+            "phase 3 (raw path: the layer-2 mean of every PE's training step, "
+            "plus the accuracy pass); 0 on phase 3b (the store serves the rows)",
+        ),
+        "segment_sum_equal": (
+            launches_raw["segment_sum_equal"],
+            "phase 3 (raw path: the layer-1 mean); phase 3b (ragged + store, both "
+            f"means): {launches_ragged['segment_sum_equal']}",
         ),
     }
     kernels = []

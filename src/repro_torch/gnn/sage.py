@@ -11,8 +11,14 @@ consumes the dense padded blocks of the sampler:
     x_n1   : (B, f1, F)      sampled neighbors of seeds
     x_n2   : (B, f1, f2, F)  sampled neighbors of those neighbors
 
-Aggregation is a mean over the fanout axis; gradients come from
-autograd.
+The two feature means over the fanout axes go through the hand-written
+``segment_sum_equal`` kernel (``kernels/ops.py``; the plain version on
+the CPU) times ``1 / k``, as the plain ``gather_mean`` rounds;
+:meth:`GraphSAGE.forward_aggregated` takes the layer-2-neighbour mean
+ready-made, which the trainer computes straight from its feature table
+with ``gather_mean`` and never builds ``x_n2``. The hidden mean
+``h_n1.mean`` needs a gradient and stays a ``Tensor.mean``; gradients
+come from autograd.
 """
 
 from __future__ import annotations
@@ -21,6 +27,8 @@ import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from ..kernels import ops
 
 #: Parameter names in the reference's ``SageParams`` leaf order.
 PARAM_NAMES = (
@@ -53,26 +61,49 @@ class GraphSAGE(nn.Module):
         self.layer2 = SageLayer(hidden_dim, num_classes)
 
     def forward(self, x_seed, x_n1, x_n2) -> torch.Tensor:
-        # Layer 1 applied to every node that layer 2 will read.
-        h_n1 = F.relu(self.layer1(x_n1, x_n2.mean(dim=2)))      # (B, f1, H)
-        h_seed = F.relu(self.layer1(x_seed, x_n1.mean(dim=1)))  # (B, H)
-        return self.layer2(h_seed, h_n1.mean(dim=1))            # (B, classes)
+        return self.forward_aggregated(x_seed, x_n1, fanout_mean(x_n2))
 
-    def loss(self, x_seed, x_n1, x_n2, labels) -> torch.Tensor:
-        logp = F.log_softmax(self(x_seed, x_n1, x_n2), dim=-1)
+    def forward_aggregated(self, x_seed, x_n1, n2_mean) -> torch.Tensor:
+        """Logits from the layer-2 neighbours' mean ``n2_mean (B, f1, F)``
+        instead of their rows ``x_n2 (B, f1, f2, F)``."""
+        # Layer 1 applied to every node that layer 2 will read.
+        h_n1 = F.relu(self.layer1(x_n1, n2_mean))                # (B, f1, H)
+        h_seed = F.relu(self.layer1(x_seed, fanout_mean(x_n1)))  # (B, H)
+        return self.layer2(h_seed, h_n1.mean(dim=1))             # (B, classes)
+
+    def _logits(self, x_seed, x_n1, x_n2, aggregated: bool):
+        forward = self.forward_aggregated if aggregated else self.forward
+        return forward(x_seed, x_n1, x_n2)
+
+    # With ``aggregated=True`` the third argument of the three methods
+    # below is ``n2_mean`` (see :meth:`forward_aggregated`), not ``x_n2``.
+    def loss(self, x_seed, x_n1, x_n2, labels, aggregated: bool = False) -> torch.Tensor:
+        logp = F.log_softmax(self._logits(x_seed, x_n1, x_n2, aggregated), dim=-1)
         return -logp.gather(1, labels[:, None]).mean()
 
-    def loss_and_grads(self, x_seed, x_n1, x_n2, labels):
+    def loss_and_grads(self, x_seed, x_n1, x_n2, labels, aggregated: bool = False):
         """``(loss, grads)`` with grads in :meth:`parameters` order; the
         module's own ``.grad`` fields are left untouched."""
-        loss = self.loss(x_seed, x_n1, x_n2, labels)
+        loss = self.loss(x_seed, x_n1, x_n2, labels, aggregated)
         grads = torch.autograd.grad(loss, list(self.parameters()))
         return loss.detach(), list(grads)
 
     @torch.no_grad()
-    def accuracy(self, x_seed, x_n1, x_n2, labels) -> float:
-        logits = self(x_seed, x_n1, x_n2)
+    def accuracy(self, x_seed, x_n1, x_n2, labels, aggregated: bool = False) -> float:
+        logits = self._logits(x_seed, x_n1, x_n2, aggregated)
         return float((logits.argmax(-1) == labels).to(torch.float32).mean())
+
+
+def fanout_mean(x: torch.Tensor) -> torch.Tensor:
+    """Mean of ``x (..., k, F)`` over its fanout axis ``k``:
+    ``segment_sum_equal`` of the rows times the float32 ``1 / k``, which
+    rounds as the plain ``gather_mean`` does (so, for float32 features,
+    a mean taken from the rows equals one gathered from the table bit for
+    bit)."""
+    *lead, k, feat = x.shape
+    sums = ops.segment_sum_equal(x.reshape(-1, feat), k)
+    inv = torch.tensor(1.0 / k, dtype=torch.float32, device=sums.device)
+    return (sums * inv).reshape(*lead, feat)
 
 
 def init_sage(

@@ -55,7 +55,8 @@ from ..graph.generate import (
 from ..graph.partition import Partitioned
 from ..graph.sampler import MiniBatch, NeighborSampler, SamplerPlane
 from ..runtime.engine import PrefetchEngine, resolve_device
-from .sage import GraphSAGE, init_sage, params_from_jax
+from ..kernels import ops
+from .sage import GraphSAGE, fanout_mean, init_sage, params_from_jax
 
 
 @dataclass
@@ -164,6 +165,9 @@ class RunResult:
     #: Recorded run trace (``repro_torch.trace.Trace``) when the trainer
     #: was built with ``trace=...``; None otherwise.
     trace: object | None = None
+    #: Flat telemetry summary (``TelemetrySession.summary()``) when the
+    #: trainer was built with ``telemetry=...``; None otherwise.
+    telemetry: dict | None = None
 
     # ---- aggregates used across the benchmark suite ------------------- #
     # Aggregates over an *empty* run (zero epochs / zero logged
@@ -240,8 +244,10 @@ class DistributedTrainer:
     device run falls back to the staged loop, whose sampler dedup and
     scoring round then run as kernels on the device
     (``SamplerPlane(use_kernels=True)``, ``PrefetchEngine(use_kernels=True)``).
-    Not ported yet, and refused with ``NotImplementedError``:
-    ``runtime="legacy"`` and ``telemetry``.
+    ``telemetry`` (``True`` or a :class:`repro_torch.telemetry.TelemetrySession`)
+    runs the experiment under a session that times every kernel
+    dispatcher and span; it lands on ``last_telemetry``. Not ported yet,
+    and refused with ``NotImplementedError``: ``runtime="legacy"``.
     """
 
     def __init__(
@@ -276,13 +282,11 @@ class DistributedTrainer:
         init_params: object = None,
     ):
         if runtime == "legacy":
-            raise _not_ported("runtime='legacy'", "ROADMAP Queue A item 6")
+            raise _not_ported("runtime='legacy'", "ROADMAP Queue A item 8")
         if runtime != "vectorized":
             raise ValueError(
                 f"runtime must be 'vectorized' or 'legacy', got {runtime!r}"
             )
-        if telemetry:
-            raise _not_ported("the telemetry session", "ROADMAP Queue A item 4")
         # False/None: the staged loop on the host; else the device of the
         # device-resident loop (and of the staged fall-back's kernels).
         self.device = (
@@ -361,6 +365,12 @@ class DistributedTrainer:
         # TraceRecorder instance used as-is. The trace lands on last_trace.
         self.trace = trace
         self.last_trace = None
+        # Telemetry (repro_torch.telemetry): False/None = off (zero cost),
+        # True = a fresh TelemetrySession per run, or a session instance
+        # used as-is. The session lands on self.last_telemetry and its
+        # summary on RunResult.telemetry. Never perturbs exact streams.
+        self.telemetry = telemetry
+        self.last_telemetry = None
         # Feature store: False/None = modeled bytes only; True = a store
         # over this graph's partitioned features on the trainer's device
         # (the CPU without one); a FeatureStore instance is used as-is.
@@ -534,28 +544,39 @@ class DistributedTrainer:
         return t[idx]
 
     def _features_of(self, minibatch: MiniBatch):
-        """``(x_seed, x_n1, x_n2, labels)`` of a minibatch, gathered from
-        the device-resident feature tensor (one index upload) or, with a
-        store attached, through the store in one gather — the store's
-        rows are bit-identical to ``graph.features`` rows (it only
-        re-homes them), and stay on the device when it gathers there."""
+        """``(x_seed, x_n1, n2_mean, labels)`` of a minibatch, the inputs of
+        :meth:`GraphSAGE.forward_aggregated`: ``n2_mean (B, f1, F)`` is
+        the layer-2 neighbours' mean.
+
+        Without a store the rows come from the device-resident feature
+        tensor (one index upload): ``x_seed`` and ``x_n1`` are gathered as
+        rows, and ``gather_mean`` reads the layer-2 neighbours straight
+        from the table, so their ``(B, f1, f2, F)`` block is never built.
+        With a store attached, its one gather serves every row (its rows
+        are bit-identical to ``graph.features`` rows: it only re-homes
+        them, and they stay on the device when it gathers there), and
+        ``segment_sum_equal`` reduces the layer-2 rows; both means round
+        alike, so the two paths give the same ``n2_mean``."""
         n1, n2 = minibatch.layer_nbrs[0], minibatch.layer_nbrs[1]
         b, f1 = n1.shape
         idx = np.concatenate(
             [minibatch.seeds, n1.ravel(), n2.ravel()]
         ).astype(np.int64)
+        head = b + n1.size
         if self.feature_store is not None:
             # Minibatch ids are local; the store is keyed by global id.
             rows = self.feature_store.gather_tensor(
                 idx + np.int64(self.graph.id_base), self.torch_device
             )
+            n2_mean = fanout_mean(rows[head:].reshape(n2.shape + (rows.shape[1],)))
         else:
-            rows = self.features[torch.from_numpy(idx).to(self.torch_device)]
+            idx_dev = torch.from_numpy(idx).to(self.torch_device)
+            rows = self.features[idx_dev[:head]]
+            n2_mean = ops.gather_mean(self.features, idx_dev[head:].view(n2.shape))
         x_seed = rows[:b]
-        x_n1 = rows[b : b + n1.size].reshape(b, f1, -1)
-        x_n2 = rows[b + n1.size :].reshape(b, f1, -1, rows.shape[1])
+        x_n1 = rows[b:head].reshape(b, f1, -1)
         labels = self.labels[torch.from_numpy(minibatch.seeds).to(self.torch_device)]
-        return x_seed, x_n1, x_n2, labels
+        return x_seed, x_n1, n2_mean.reshape(b, f1, -1), labels
 
     # ------------------------------------------------------------------ #
     def make_time_engine(self):
@@ -597,11 +618,41 @@ class DistributedTrainer:
         return TraceRecorder.for_trainer(self)
 
     # ------------------------------------------------------------------ #
+    def make_telemetry(self):
+        """Resolve the ``telemetry`` flag to a session (or None when off):
+        a pre-built :class:`repro_torch.telemetry.TelemetrySession` is
+        used as-is, ``telemetry=True`` builds a fresh default session."""
+        if not self.telemetry:
+            return None
+        from ..telemetry import TelemetrySession
+
+        if isinstance(self.telemetry, TelemetrySession):
+            return self.telemetry
+        return TelemetrySession(label=self.variant)
+
+    # ------------------------------------------------------------------ #
     def run(self) -> RunResult:
         """Execute the experiment: on the trainer's device
         (:func:`repro_torch.runtime.driver.run_device`), or on the staged
         loop with ``device=False`` or past ``WIDE_ID_MAX``
-        (:func:`repro_torch.runtime.driver.run_vectorized`)."""
+        (:func:`repro_torch.runtime.driver.run_vectorized`).
+
+        With ``telemetry=...`` set, the run executes under an active
+        :class:`repro_torch.telemetry.TelemetrySession`; the session lands
+        on ``self.last_telemetry`` and its summary on the result."""
         from ..runtime.driver import run_vectorized
 
-        return run_vectorized(self)
+        session = self.make_telemetry()
+        if session is None:
+            return run_vectorized(self)
+        from .. import telemetry as tel
+
+        with tel.active(session):
+            with session.tracer.span("run", plane="runtime"):
+                result = run_vectorized(self)
+        session.meta.setdefault("variant", self.variant)
+        session.meta.setdefault("mode", self.mode)
+        session.meta.setdefault("num_pes", self.parts.num_parts)
+        self.last_telemetry = session
+        result.telemetry = session.summary()
+        return result

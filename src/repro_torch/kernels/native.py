@@ -32,17 +32,21 @@ SOURCES = {
     "gather_rows": "gather_rows.cu",
     "frontier_unique": "frontier_unique.cu",
     "score_update": "score_update.cu",
+    "gather_mean": "gather_mean.cu",
+    "segment_sum": "segment_sum.cu",
 }
 
 #: The wrappers that launch a kernel. A ``_wide`` kernel (int64 ids) is
 #: the second entry of its narrow twin's library; ``gather_rows`` and
 #: ``gather_rows_batch`` share the ``gather_rows`` library, and the three
-#: score entries the ``score_update`` library.
+#: score entries the ``score_update`` library; ``segment_sum_equal`` is the
+#: ``segment_sum`` library's one entry.
 KERNELS = (
     "fused_frontier_step", "fused_step", "gather_rows_batch", "gather_rows",
     "fused_frontier_step_wide", "fused_step_wide",
     "frontier_unique_batch", "frontier_unique_batch_wide",
     "score_update", "score_update_batch", "score_policy_update_batch",
+    "gather_mean", "segment_sum_equal",
 )
 
 #: kernel name -> launches on the card (each wrapper adds one per launch).
@@ -51,8 +55,9 @@ LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3",
-    # No FMA contraction: the score update must round like the plain
-    # version (see the note at the top of prefetch_state.cuh).
+    # No FMA contraction: the score update and the neighbour means must
+    # round like the plain versions (see the note at the top of
+    # prefetch_state.cuh).
     "-fmad=false",
     "-shared", "-Xcompiler", "-fPIC",
 )

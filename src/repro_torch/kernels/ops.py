@@ -33,6 +33,8 @@ __all__ = [
     "score_update",
     "score_update_batch",
     "score_policy_update_batch",
+    "gather_mean",
+    "segment_sum_equal",
     "LAUNCHES",
     "reset_launches",
     "INT32_SENTINEL",
@@ -524,3 +526,44 @@ def score_policy_update_batch(
     from .score_update import score_policy_update_batch_cuda
 
     return score_policy_update_batch_cuda(scores, accessed, weights, **constants)
+
+
+def _no_grad_input(name: str, tensor) -> None:
+    """The neighbour-mean kernels are forward-only, as the reference's
+    (no VJP): refuse an input that would need a gradient rather than cut
+    the graph silently."""
+    if tensor.requires_grad:
+        raise ValueError(
+            f"{name} is forward-only: its input must not require a gradient"
+        )
+
+
+@telemetry.profiled("gather_mean")
+def gather_mean(table, indices):
+    """GraphSAGE neighbour mean: ``table (N, F)`` float32 or bfloat16,
+    ``indices (B, K)`` int32 or int64 → ``(B, F)``, the mean of each
+    destination's K gathered rows, in the table's dtype. Forward-only
+    (``ValueError`` on a table that requires a gradient). CPU tensors:
+    :func:`repro_torch.kernels.ref.gather_mean`; CUDA: the Hopper kernel
+    (:func:`repro_torch.kernels.gather_mean.gather_mean_cuda`)."""
+    _no_grad_input("gather_mean", table)
+    if _route("gather_mean", table) == "cpu":
+        return ref.gather_mean(table, indices)
+    from .gather_mean import gather_mean_cuda
+
+    return gather_mean_cuda(table.contiguous(), indices.contiguous())
+
+
+@telemetry.profiled("segment_sum_equal")
+def segment_sum_equal(data, k: int):
+    """Sum of every ``k`` consecutive rows: ``data (S*k, F)`` float32 or
+    bfloat16 → ``(S, F)`` in the data's dtype. Forward-only
+    (``ValueError`` on data that requires a gradient). CPU tensors:
+    :func:`repro_torch.kernels.ref.segment_sum_equal`; CUDA: the Hopper
+    kernel (:func:`repro_torch.kernels.segment_sum.segment_sum_equal_cuda`)."""
+    _no_grad_input("segment_sum_equal", data)
+    if _route("segment_sum_equal", data) == "cpu":
+        return ref.segment_sum_equal(data, int(k))
+    from .segment_sum import segment_sum_equal_cuda
+
+    return segment_sum_equal_cuda(data.contiguous(), int(k))

@@ -27,6 +27,12 @@ keys) and :func:`score_policy_update_batch` with its fixed-policy forms
 :func:`score_update_batch` and :func:`score_update` (the engine's
 scoring round).
 
+The GraphSAGE step's two neighbour means have theirs too:
+:func:`gather_mean` (gather K table rows per destination and average
+them) and :func:`segment_sum_equal` (sum every k consecutive rows), each
+added in a fixed order into a float32 accumulator, so that the kernels
+match them bit for bit.
+
 Also home of the numpy :func:`frontier_dedup` the sampler imports.
 """
 
@@ -784,3 +790,36 @@ def score_update(scores: torch.Tensor, accessed: torch.Tensor):
     (N,), stale_count)``, the count a 0-dim int32 tensor."""
     new, stale = score_update_batch(scores[None], accessed[None])
     return new[0], stale[0]
+
+
+def gather_mean(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """``table (N, F)`` float32 or bfloat16, ``indices (B, K)`` → ``(B,
+    F)`` in the table's dtype: each destination's K gathered rows
+    averaged, the GraphSAGE neighbour mean. The spec of
+    ``csrc/gather_mean.cu``, in the reference Pallas body's order: the
+    rows added one by one into a float32 accumulator (``acc = r0; acc =
+    acc + rj``), then multiplied by the float32 value of ``1 / K`` and
+    rounded to the table's dtype."""
+    B, K = indices.shape
+    if K == 0:
+        raise ValueError("gather_mean needs K >= 1 neighbours per row")
+    idx = indices.long()
+    acc = table[idx[:, 0]].to(torch.float32)
+    for j in range(1, K):
+        acc = acc + table[idx[:, j]].to(torch.float32)
+    return (acc * _f32(1.0 / K, acc)).to(table.dtype)
+
+
+def segment_sum_equal(data: torch.Tensor, k: int) -> torch.Tensor:
+    """``data (S*k, F)`` float32 or bfloat16, ``k`` rows per segment →
+    ``(S, F)`` in the data's dtype: every k consecutive rows summed, in
+    row order, into a float32 accumulator. The spec of
+    ``csrc/segment_sum.cu``."""
+    E, F = data.shape
+    if k < 1 or E % k:
+        raise ValueError(f"segment_sum_equal needs k >= 1 dividing {E} rows, got {k}")
+    seg = data.reshape(E // k, k, F)
+    acc = seg[:, 0].to(torch.float32)
+    for j in range(1, k):
+        acc = acc + seg[:, j].to(torch.float32)
+    return acc.to(data.dtype)

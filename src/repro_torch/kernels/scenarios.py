@@ -34,6 +34,11 @@ from a seed; the constants are those of the scoring policy.
   ``score_update_batch``, ``score_update``): every policy, weighted and
   unweighted, scores on the stale threshold after the round, ``N`` off
   the kernel's block.
+* :func:`gather_mean_scenarios` (``gather_mean``) and
+  :func:`segment_sum_scenarios` (``segment_sum_equal``): float32 and
+  bfloat16 data, ``K`` in {1, 3, 10, 25}, ``F`` in {1, 3, 64, 100, 128,
+  600}, int32 and int64 indices, repeated indices and an index on the
+  table's last row, ``B == 0`` and ``S == 0``.
 """
 
 from __future__ import annotations
@@ -506,4 +511,81 @@ def score_scenarios() -> list[ScoreScenario]:
     out.append(make_score_scenario("N1", seed, "hybrid", True, P=2, N=1))
     out.append(make_score_scenario("one-pe", seed + 1, "recency", False, P=1, N=257))
     out.append(make_score_scenario("long-row", seed + 2, "rudder", False, P=2, N=300_001))
+    return out
+
+
+# --------------------------------------------------------------------------- #
+@dataclass
+class GatherMeanScenario:
+    name: str
+    table: np.ndarray  # (N, F) float32; cast to ``dtype`` at use
+    idx: np.ndarray    # (B, K) int32 or int64 in [0, N)
+    dtype: str         # "float32" or "bfloat16"
+
+
+def gather_mean_scenarios() -> list[GatherMeanScenario]:
+    """The seeded set of ``gather_mean``: every ``K`` of {1, 3, 10, 25} and
+    ``F`` of {1, 3, 64, 100, 128, 600} (odd widths take the kernel's 4-byte
+    path, float32 ``F % 4 == 0`` its 16-byte one), float32 and bfloat16
+    tables, int32 and int64 indices, repeated indices, the table's last
+    row in every set, and ``B == 0``."""
+    out = []
+    N = 90
+    for i, (F, K, B, idx64, bf16, repeat) in enumerate([
+        (1, 3, 37, False, False, False),
+        (3, 10, 20, True, False, True),
+        (64, 25, 16, False, True, False),
+        (100, 10, 50, True, False, False),
+        (128, 25, 9, False, False, True),
+        (600, 1, 7, True, True, False),
+        (128, 1, 5, False, True, True),
+        (3, 25, 11, True, True, False),
+        (600, 3, 4, False, False, False),
+        (100, 25, 0, False, False, False),
+    ]):
+        rng = np.random.default_rng(800 + i)
+        table = rng.standard_normal((N, F)).astype(np.float32)
+        idx = rng.integers(0, N, size=(B, K)).astype(np.int64 if idx64 else np.int32)
+        if B:
+            idx[0, 0] = N - 1
+            if repeat:
+                idx[:, K // 2 :] = idx[:, :1]
+        dtype = "bfloat16" if bf16 else "float32"
+        name = (f"F{F}-K{K}-B{B}-{'i64' if idx64 else 'i32'}-{dtype}"
+                f"{'-rep' if repeat else ''}")
+        out.append(GatherMeanScenario(name, table, idx, dtype))
+    return out
+
+
+@dataclass
+class SegmentSumScenario:
+    name: str
+    data: np.ndarray  # (S * k, F) float32; cast to ``dtype`` at use
+    k: int
+    dtype: str        # "float32" or "bfloat16"
+
+
+def segment_sum_scenarios() -> list[SegmentSumScenario]:
+    """The seeded set of ``segment_sum_equal``: every ``k`` of {1, 3, 10,
+    25} and ``F`` of {1, 3, 64, 100, 128, 600}, float32 and bfloat16 data,
+    repeated rows, and ``S == 0``."""
+    out = []
+    for i, (F, k, S, bf16) in enumerate([
+        (1, 3, 37, False),
+        (3, 10, 20, False),
+        (64, 25, 16, True),
+        (100, 10, 50, False),
+        (128, 25, 9, False),
+        (600, 1, 7, True),
+        (100, 1, 5, False),
+        (3, 3, 11, True),
+        (600, 25, 4, False),
+        (128, 25, 0, False),
+    ]):
+        rng = np.random.default_rng(900 + i)
+        data = rng.standard_normal((S * k, F)).astype(np.float32)
+        if S > 1:
+            data[k : 2 * k] = data[:k]  # a repeated segment
+        dtype = "bfloat16" if bf16 else "float32"
+        out.append(SegmentSumScenario(f"F{F}-k{k}-S{S}-{dtype}", data, k, dtype))
     return out

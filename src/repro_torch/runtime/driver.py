@@ -200,7 +200,9 @@ def run_vectorized(trainer) -> "RunResult":  # noqa: F821 — see lazy import
             : min(512, len(trainer.graph.train_nodes))
         ]
         minibatch = trainer.sampler.sample(batch, trainer.rng)
-        accuracy = trainer.model.accuracy(*trainer._features_of(minibatch))
+        accuracy = trainer.model.accuracy(
+            *trainer._features_of(minibatch), aggregated=True
+        )
 
     trace = None
     if recorder is not None:
@@ -239,15 +241,17 @@ def _device_raw_supported(trainer) -> bool:
 
 def train_step(trainer, minibatches) -> float:
     """One data-parallel GraphSAGE step over the P trainers' minibatches:
-    per-PE loss and gradients, gradients summed in PE order and averaged,
-    one SGD update of ``trainer.model``. Returns the mean loss."""
+    per-PE loss and gradients (the neighbour means through the
+    ``gather_mean`` / ``segment_sum_equal`` kernels, see
+    ``DistributedTrainer._features_of``), gradients summed in PE order
+    and averaged, one SGD update of ``trainer.model``. Returns the mean
+    loss."""
     model = trainer.model
     P = len(minibatches)
     grads_acc = None
     loss_acc = 0.0
     for mb in minibatches:
-        x_seed, x_n1, x_n2, labels = trainer._features_of(mb)
-        loss, grads = model.loss_and_grads(x_seed, x_n1, x_n2, labels)
+        loss, grads = model.loss_and_grads(*trainer._features_of(mb), aggregated=True)
         loss_acc += float(loss) / P
         grads_acc = (
             grads if grads_acc is None else [a + b for a, b in zip(grads_acc, grads)]
@@ -434,7 +438,9 @@ def _run_device_cadence(
             : min(512, len(trainer.graph.train_nodes))
         ]
         minibatch = trainer.sampler.sample(batch, trainer.rng)
-        accuracy = trainer.model.accuracy(*trainer._features_of(minibatch))
+        accuracy = trainer.model.accuracy(
+            *trainer._features_of(minibatch), aggregated=True
+        )
 
     dev.sync_to_engine()
     return RunResult(
@@ -617,7 +623,9 @@ def run_device(trainer) -> "RunResult":  # noqa: F821 — see lazy import
             : min(512, len(trainer.graph.train_nodes))
         ]
         minibatch = trainer.sampler.sample(batch, trainer.rng)
-        accuracy = trainer.model.accuracy(*trainer._features_of(minibatch))
+        accuracy = trainer.model.accuracy(
+            *trainer._features_of(minibatch), aggregated=True
+        )
 
     dev.sync_to_engine()
     trace = None

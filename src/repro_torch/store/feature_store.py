@@ -281,6 +281,9 @@ class FeatureStore:
         if device and dev_block is None:
             dev_block = self._upload(block)
         seconds = time.perf_counter() - t0
+        if sp is not None:
+            # The bytes the gather moved: what calibrate_from_session fits.
+            sp.nbytes = int(block.nbytes)
         tel.end(sp)
         if tel.enabled():
             tel.count("store.bytes", block.nbytes)

@@ -1,11 +1,35 @@
-"""Telemetry hooks of the port: the off-path API only.
+"""Telemetry plane of the port: metrics registry, span tracing, kernel
+profiling.
 
-Instrumentation sites across the other planes call the module-level
-helpers below. They are no-ops while no session is active, and in this
-package no session ever is: the session object (metrics registry, span
-tracer, kernel profiling) is not ported yet, so ``DistributedTrainer``
-refuses ``telemetry=...``. The helpers keep the reference's names and
-signatures so that the copied planes keep their call sites unchanged.
+The reference's telemetry plane on the port's trainer. One
+:class:`TelemetrySession` (registry + tracer) is installed process-wide
+for the duration of a run; instrumentation sites across the other planes
+call the module-level helpers below, which are no-ops while no session
+is active.
+
+The load-bearing contract (mirrors the trace plane's):
+
+* **Off is free.** Telemetry defaults to off; every hook is then one
+  global load + ``None`` check and *no* telemetry object is ever
+  constructed — runs reproduce the committed golden traces
+  bit-identically.
+* **On never perturbs exact streams.** Spans and counters observe;
+  they never feed back into sampling, scoring, decisions, or byte
+  accounting — telemetry-on runs keep the same
+  ``Trace.exact_digest()``. Only wall-clock (already excluded from
+  exact digests) can move: every ``@profiled`` dispatcher call then waits
+  for its kernels (``torch.cuda.synchronize()``) to time them.
+
+Usage::
+
+    trainer = DistributedTrainer(parts, telemetry=True)
+    result = trainer.run()
+    result.telemetry["spans"]["by_plane"]      # seconds per plane
+    trainer.last_telemetry.write_jsonl("run.jsonl")
+    # python -m repro_torch.telemetry summary run.jsonl
+
+Artifacts are the reference's format: each package's ``load_jsonl`` and
+CLI read the other's JSONL.
 """
 
 from __future__ import annotations
@@ -13,7 +37,30 @@ from __future__ import annotations
 import functools
 from contextlib import contextmanager
 
+from .calibrate import (
+    Calibration,
+    calibrate_from_session,
+    calibrate_from_trace,
+    fit_alpha_bw,
+)
+from .provenance import provenance
+from .registry import Counter, Gauge, Histogram, MetricsRegistry
+from .session import TelemetrySession
+from .spans import Span, SpanTracer
+
 __all__ = [
+    "Counter",
+    "Gauge",
+    "Histogram",
+    "MetricsRegistry",
+    "Span",
+    "SpanTracer",
+    "TelemetrySession",
+    "Calibration",
+    "fit_alpha_bw",
+    "calibrate_from_trace",
+    "calibrate_from_session",
+    "provenance",
     "current",
     "enabled",
     "activate",
@@ -23,15 +70,22 @@ __all__ = [
     "begin",
     "end",
     "count",
+    "gauge",
+    "observe",
     "spanned",
     "profiled",
 ]
 
-_SESSION = None
+_SESSION: TelemetrySession | None = None
 
 
 class _NullSpan:
-    """Shared do-nothing span for telemetry-off code paths."""
+    """Shared do-nothing span for telemetry-off code paths.
+
+    Deliberately *not* ``__slots__``-restricted: instrumented code sets
+    attributes on the span it holds (``sp.nbytes = ...``) and must not
+    care whether telemetry is live.
+    """
 
     def __enter__(self):
         return self
@@ -43,7 +97,7 @@ class _NullSpan:
 _NULL_SPAN = _NullSpan()
 
 
-def current():
+def current() -> TelemetrySession | None:
     return _SESSION
 
 
@@ -51,7 +105,7 @@ def enabled() -> bool:
     return _SESSION is not None
 
 
-def activate(session):
+def activate(session: TelemetrySession) -> TelemetrySession:
     global _SESSION
     if _SESSION is not None:
         raise RuntimeError("a telemetry session is already active")
@@ -65,7 +119,7 @@ def deactivate() -> None:
 
 
 @contextmanager
-def active(session):
+def active(session: TelemetrySession):
     """Install ``session`` as the process-wide session for the block."""
     activate(session)
     try:
@@ -74,6 +128,7 @@ def active(session):
         deactivate()
 
 
+# -- cheap instrumentation helpers (the only API call sites use) ------- #
 def span(name: str, pe: int = -1, plane: str = "", nbytes: int = 0):
     s = _SESSION
     if s is None:
@@ -83,7 +138,10 @@ def span(name: str, pe: int = -1, plane: str = "", nbytes: int = 0):
 
 def begin(name: str, pe: int = -1, plane: str = ""):
     """Open a span without a ``with`` block; pair with :func:`end`.
-    Returns ``None`` when telemetry is off."""
+
+    Returns ``None`` when telemetry is off — ``end(None)`` is a no-op,
+    so loop bodies stay un-indented at zero cost.
+    """
     s = _SESSION
     if s is None:
         return None
@@ -102,8 +160,26 @@ def count(name: str, value=1, shape=None) -> None:
     s.registry.counter(name, shape=shape).add(value)
 
 
+def gauge(name: str, value) -> None:
+    s = _SESSION
+    if s is None:
+        return
+    s.registry.gauge(name).set(value)
+
+
+def observe(name: str, value) -> None:
+    s = _SESSION
+    if s is None:
+        return
+    s.registry.histogram(name).observe(value)
+
+
 def spanned(name: str, plane: str = ""):
-    """Method/function decorator: run the call under a span when on."""
+    """Method/function decorator: run the call under a span when on.
+
+    Off-path cost is one global load + ``None`` check per call — no
+    span object, no context manager, no tracer touch.
+    """
 
     def deco(fn):
         @functools.wraps(fn)
@@ -120,8 +196,12 @@ def spanned(name: str, plane: str = ""):
 
 
 def profiled(name: str):
-    """Kernel-dispatcher decorator: timed through the session when on,
-    a direct call otherwise."""
+    """Kernel-dispatcher decorator: block-until-ready timing when on.
+
+    With no active session (or ``profile_kernels=False``) the wrapper
+    is a direct call — no timing, no blocking, no extra sync points, so
+    the device pipeline's async launch overlap is untouched by default.
+    """
 
     def deco(fn):
         @functools.wraps(fn)

@@ -8,11 +8,13 @@ same CUDA tensors (``fused_frontier_step``, ``fused_step``,
 ``gather_rows_batch`` and ``gather_rows`` over their seeded scenario
 sets; ``fused_frontier_step_wide`` and ``fused_step_wide`` over the wide
 sets, in both index modes of the kernels; ``frontier_unique_batch`` in
-both instantiations and the three score entries over theirs), short
+both instantiations and the three score entries over theirs;
+``gather_mean`` and ``segment_sum_equal`` over theirs, float32 and
+bfloat16), short
 trainer runs on the card (narrow, rebased past ``2**31``, on the
-readback cadence, and the staged fall-back past ``WIDE_ID_MAX``) against
-the same runs on the CPU, and one committed golden trace re-recorded on
-the card.
+readback cadence, the staged fall-back past ``WIDE_ID_MAX``, and one
+under a telemetry session) against the same runs on the CPU, and one
+committed golden trace re-recorded on the card.
 """
 
 import numpy as np
@@ -235,3 +237,67 @@ def test_staged_fallback_on_the_card_matches_cpu(card):
         assert x == y
     np.testing.assert_array_equal(on_card.engine.scores, on_cpu.engine.scores)
     np.testing.assert_allclose(a.losses, b.losses, rtol=1e-4, atol=1e-5)
+
+
+GATHER_MEANS = scenarios.gather_mean_scenarios()
+SEGMENT_SUMS = scenarios.segment_sum_scenarios()
+
+
+def _typed(a, dtype, card):
+    t = torch.from_numpy(np.ascontiguousarray(a)).to(card)
+    return t.to(torch.bfloat16) if dtype == "bfloat16" else t
+
+
+def _same_bits(a, b):
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return _equal(a, b)
+
+
+@pytest.mark.parametrize("sc", GATHER_MEANS, ids=[s.name for s in GATHER_MEANS])
+def test_gather_mean_kernel_matches_plain(card, sc):
+    table = _typed(sc.table, sc.dtype, card)
+    idx = torch.from_numpy(sc.idx).to(card)
+    before = native.LAUNCHES["gather_mean"]
+    got = ops.gather_mean(table, idx)
+    want = ref.gather_mean(table, idx)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["gather_mean"] == before + (1 if sc.idx.shape[0] else 0)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert _same_bits(got, want)
+
+
+@pytest.mark.parametrize("sc", SEGMENT_SUMS, ids=[s.name for s in SEGMENT_SUMS])
+def test_segment_sum_kernel_matches_plain(card, sc):
+    data = _typed(sc.data, sc.dtype, card)
+    before = native.LAUNCHES["segment_sum_equal"]
+    got = ops.segment_sum_equal(data, sc.k)
+    want = ref.segment_sum_equal(data, sc.k)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["segment_sum_equal"] == before + (1 if sc.data.shape[0] else 0)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert _same_bits(got, want)
+
+
+def test_telemetry_session_on_the_card(card):
+    """The GraphSAGE step runs both aggregation kernels on the card under a
+    telemetry session: every dispatcher call is counted as the kernel
+    counts its launches, and the digest equals the CPU run's."""
+    from repro_torch.gnn import DistributedTrainer
+    from repro_torch.graph import generate, partition_graph
+
+    parts = partition_graph(generate("products", seed=0, scale=0.15), 4)
+    kw = dict(variant="fixed", epochs=2, batch_size=16, trace=True)
+    on_card = DistributedTrainer(parts, device="cuda", telemetry=True, **kw)
+    on_cpu = DistributedTrainer(parts, device="cpu", **kw)
+    native.reset_launches()
+    a = on_card.run()
+    launches = dict(native.LAUNCHES)
+    b = on_cpu.run()
+    assert on_card.last_trace.exact_digest() == on_cpu.last_trace.exact_digest()
+    np.testing.assert_allclose(a.losses, b.losses, rtol=1e-4, atol=1e-5)
+    counters = a.telemetry["metrics"]["counters"]
+    calls = 4 * on_card.epochs * on_card.mb_per_epoch + 1
+    for name in ("gather_mean", "segment_sum_equal"):
+        assert launches[name] == calls
+        assert counters[f"kernel.{name}.calls"]["total"] == calls

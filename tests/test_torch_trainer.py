@@ -207,7 +207,6 @@ def test_feature_store_true_builds_a_store_on_the_trainer_device(parts):
 @pytest.mark.parametrize(
     "kwargs,match",
     [
-        (dict(telemetry=True), "telemetry"),
         (dict(runtime="legacy"), "legacy"),
     ],
 )
