@@ -6,7 +6,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 0. the card (``nvidia-smi`` name and power limit) and the torch / CUDA
    versions;
 1. build every hand-written kernel from ``src/repro_torch/kernels/csrc``
-   (seven libraries, one ``nvcc`` per source, all started together);
+   (eight libraries, one ``nvcc`` per source, all started together);
 2. every kernel against its plain PyTorch version on the card, bit for bit,
    on the seeded scenario sets of the CPU tests: ``fused_frontier_step``
    (with and without a feature-store table), ``fused_step``,
@@ -19,7 +19,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    ``score_update`` on the scoring set (every policy, weights on and off);
    ``gather_mean`` and ``segment_sum_equal`` on theirs (float32 and
    bfloat16, K in {1, 3, 10, 25}, F in {1, 3, 64, 100, 128, 600}, int32
-   and int64 indices, B = 0 and S = 0);
+   and int64 indices, B = 0 and S = 0); and ``mla_flash_decode`` to
+   allclose (1e-4 float32, 3e-2 bfloat16) on the reference test's three
+   shapes and phase 9's, inputs from a numpy seed, pos at 0, the tile
+   and split edges and S - 1;
 3. the raw main path: ``DistributedTrainer(device="cuda")`` on the products
    preset at ``scale=10`` (240k nodes), 4 trainers, batch 2000, fanouts
    (10, 25), 25% buffers, rudder variant, 3 epochs of GraphSAGE training,
@@ -67,10 +70,22 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    shifted), each kernel bit-exact on every launch of the run, both timed;
 8b. the staged loop on the host: ``device=False`` on phase 3's graph and
    run, equal to phase 3;
-9. a ``kernels`` JSON line, and as the last line the device JSON line.
+9. DeepSeek-V3's serving path at full width: ``serve_batch`` on
+   ``CONFIG.with_overrides(num_layers=3)`` (the checkpoint's three dense
+   layers, 128 heads, vocabulary 129,280, bf16, random weights from a
+   seed), 4 requests, prompt 256, 32 generated tokens: exactly
+   3 x 288 ``mla_flash_decode`` launches and no other kernel, the kernel
+   against its plain version on the captured inputs of a prefill step and
+   the last step, decode time per step, tokens/s and peak memory;
+9b. ``mla_flash_decode`` at the reference's ``decode_32k`` shape (batch
+   128, cache 32768, bf16): against its plain version, timed beside the
+   plain version, ``scaled_dot_product_attention`` and its bound;
+9c. card vs CPU: the dense smoke config in float32 served on both devices
+   from the same weights: greedy tokens identical, logits allclose 1e-4;
+10. a ``kernels`` JSON line, and as the last line the device JSON line.
 
 Each path's launch counts are zeroed just before it runs and read just
-after; the device loops (phases 3, 3b, 6, 6b, 7) launch neither of the
+after (the serving path launches ``mla_flash_decode`` only); the device loops (phases 3, 3b, 6, 6b, 7) launch neither of the
 staged pipeline's kernels, and every training run launches the two
 aggregation kernels exactly once per PE, step and mean, plus the
 accuracy pass. Every phase raises on failure, so any failure exits non-zero.
@@ -97,6 +112,9 @@ ROOT = Path(__file__).resolve().parent
 #: compare work too.
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+#: The bf16 rate of the tensor cores (dense), the roof of the MLA decode's
+#: products on bfloat16 inputs.
+BF16_TENSOR_OPS_PER_S = 989e12
 
 #: The raw main path (phase 3), the ragged path (3b) and the card-vs-CPU
 #: runs (phase 4).
@@ -116,6 +134,18 @@ SMALL = dict(RUN, batch_size=256, epochs=2)
 SMALL_RAGGED = dict(RUN, batch_size=72, epochs=2)
 MAIN_SCALE, RAGGED_SCALE, SMALL_SCALE, SMALL_RAGGED_SCALE = 10, 10, 1, 0.15
 DEVICE = "cuda"
+#: Phase 9: DeepSeek-V3's serving path at full width, cut to the
+#: checkpoint's three dense layers; 4 requests, prompt 256, 32 tokens.
+ARCH = "deepseek-v3-671b"
+SERVE_LAYERS = 3
+SERVE = dict(requests=4, prompt_len=256, gen_len=32, seed=0)
+#: Phase 9c: the dense smoke config on the card and the CPU.
+SERVE_SMALL = dict(requests=3, prompt_len=12, gen_len=12, seed=1)
+#: Phase 2's MLA sweep, B, H, r, rr, S: the reference test's shapes, and
+#: phase 9's (whose splits hold two tiles at S - 1).
+MLA_SHAPES = ((1, 4, 32, 8, 64), (2, 8, 64, 16, 700), (1, 16, 128, 64, 512),
+              (4, 128, 512, 64, 289))
+MLA_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 #: Phases 6, 6b and 7: the wide runs rebase phase 3's and 3b's graphs to
 #: this id base (just past int32); the cadence reads counters back every
 #: CADENCE launches, with the ``fixed`` controller (the adaptive ones read
@@ -362,9 +392,9 @@ def tensor_bytes(*groups) -> int:
     )
 
 
-def bound(nbytes: int, nops: int) -> tuple[float, str]:
+def bound(nbytes: int, nops: int, ops_per_s: float = SCALAR_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / SCALAR_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -482,6 +512,89 @@ def check_captured(what, clock, max_err) -> int:
     return n
 
 
+class LaunchCapture:
+    """A telemetry session that keeps the inputs of chosen calls of one
+    dispatcher (by call index, cloned contiguous) and counts its calls.
+    Unlike :class:`StageClock` it times nothing and clones nothing else,
+    so the serving loop under it runs at its own speed."""
+
+    profile_kernels = True
+
+    def __init__(self, name, keep):
+        self.name, self.keep = name, set(keep)
+        self.calls = 0
+        self.kept = {}
+
+    def profile_call(self, name, fn, *args, **kwargs):
+        import torch
+
+        if name == self.name:
+            if self.calls in self.keep:
+                self.kept[self.calls] = (
+                    [a.clone(memory_format=torch.contiguous_format)
+                     if isinstance(a, torch.Tensor) else a for a in args],
+                    dict(kwargs),
+                )
+            self.calls += 1
+        return fn(*args, **kwargs)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _numpy_tree(tree):
+    """A parameter tree with numpy leaves (the shape ``params_from_jax``
+    takes)."""
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_numpy_tree(v) for v in tree]
+    return tree.numpy()
+
+
+def mla_check(md, ref, args, pos, scale, tol, what) -> float:
+    """The MLA kernel against its plain version, allclose at ``tol``;
+    returns the max abs difference."""
+    import torch
+
+    got = md.mla_flash_decode_cuda(*args, pos, scale)
+    want = ref.mla_latent_attention(*args, pos, scale)
+    torch.cuda.synchronize()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} vs {want.dtype} "
+                             f"{tuple(want.shape)}")
+    if not torch.allclose(got.float(), want.float(), rtol=tol, atol=tol):
+        raise AssertionError(f"{what}: kernel != plain at rtol=atol={tol}")
+    return (got.float() - want.float()).abs().max().item()
+
+
+def mla_ops(args, pos) -> int:
+    """Operations of the MLA decode on rows ``0..pos``: 2 (r + rr) per
+    head and row for the scores, 2 r for the context."""
+    q_lat, q_rope, cache_c = args[0], args[1], args[2]
+    B, H, R = q_lat.shape
+    rows = min(int(pos), cache_c.shape[1] - 1) + 1
+    return 2 * B * H * rows * (2 * R + q_rope.shape[-1])
+
+
+def mla_bytes(args, pos) -> int:
+    """Bytes the MLA decode must move: the queries, the rows ``0..pos`` of
+    both caches, and the output (the queries' size, in the cache dtype)."""
+    q_lat, q_rope, cache_c, cache_kr = args
+    rows = min(int(pos), cache_c.shape[1] - 1) + 1
+    B = cache_c.shape[0]
+    per_row = (cache_c.shape[2] + cache_kr.shape[2]) * cache_c.element_size()
+    return tensor_bytes((q_lat, q_rope)) + B * rows * per_row + tensor_bytes((q_lat,))
+
+
 def run_warned(trainer):
     """``trainer.run()``, returning the result and the texts of the
     ``RuntimeWarning`` s it raised."""
@@ -546,6 +659,7 @@ def main() -> int:
     from repro_torch.kernels import fused_step as fs
     from repro_torch.kernels import gather_mean as gm
     from repro_torch.kernels import gather_rows as gr
+    from repro_torch.kernels import mla_decode as md
     from repro_torch.kernels import native, ops, ref, scenarios
     from repro_torch.kernels import score_update as su
     from repro_torch.kernels import segment_sum as ss
@@ -736,6 +850,29 @@ def main() -> int:
             max_err["segment_sum_equal"],
             compare_outputs(got, want, ["out"], f"segment_sum_equal {sc.name}"),
         )
+    # The MLA decode on the reference test's shapes, float32 and bfloat16,
+    # inputs from a numpy seed; pos at 0, at the edges of the first tiles
+    # and of the splits the wrapper picks for the whole cache, and at S - 1.
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mla_cases = 0
+    for b, h, r, rr, s_len in MLA_SHAPES:
+        rng = np.random.default_rng(0)
+        arrays = [
+            (rng.standard_normal(sh) * 0.3).astype(np.float32)
+            for sh in ((b, h, r), (b, h, rr), (b, s_len, r), (b, s_len, rr))
+        ]
+        _, chunk = md.split_plan(b, h, s_len, sms)
+        edges = {0, md.TILE_ROWS - 1, md.TILE_ROWS, chunk - 1, chunk, 2 * chunk - 1,
+                 s_len - 2, s_len - 1}
+        for dtype, tol in MLA_TOL.items():
+            args = [typed(a, dtype) for a in arrays]
+            for pos in sorted(p for p in edges if 0 <= p < s_len):
+                max_err["mla_flash_decode"] = max(
+                    max_err["mla_flash_decode"],
+                    mla_check(md, ref, args, pos, 1.0 / (r + rr) ** 0.5, tol,
+                              f"mla_flash_decode {(b, h, r, rr, s_len)} {dtype} pos={pos}"),
+                )
+                mla_cases += 1
     phase2 = dict(native.LAUNCHES)
     print(
         f"phase 2: kernel == plain, bit-exact: fused_frontier_step on "
@@ -752,6 +889,9 @@ def main() -> int:
         f"on {len(score_cases)} ({', '.join(s.name for s in score_cases)}); "
         f"gather_mean on {len(mean_cases)} ({', '.join(s.name for s in mean_cases)}); "
         f"segment_sum_equal on {len(sum_cases)} ({', '.join(s.name for s in sum_cases)}); "
+        f"and to allclose (1e-4 float32, 3e-2 bfloat16): mla_flash_decode on "
+        f"{mla_cases} cases ({len(MLA_SHAPES)} shapes x 2 dtypes x pos at 0, the tile "
+        f"and split edges and S - 1; max |diff| {max_err['mla_flash_decode']:.3g}); "
         f"launches {phase2}"
     )
 
@@ -1584,7 +1724,183 @@ def main() -> int:
     }))
     del trainer, result, clock, parts, g_main, main
 
-    # -- 9. results ------------------------------------------------------- #
+    # -- 9. DeepSeek-V3's serving path at full width ------------------------ #
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch.steps import SHAPES, make_decode_step
+    from repro_torch.models import model as M
+
+    cfg = get_config(ARCH).with_overrides(num_layers=SERVE_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, SERVE["seed"], device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    steps = SERVE["prompt_len"] + SERVE["gen_len"]
+    n_mla = SERVE_LAYERS * steps
+    prefill_step = SERVE["prompt_len"] // 2
+    keep = [SERVE_LAYERS * prefill_step + i for i in range(SERVE_LAYERS)]
+    keep += [n_mla - SERVE_LAYERS + i for i in range(SERVE_LAYERS)]
+    print(f"phase 9: {ARCH} at full width (d_model {cfg.d_model}, {cfg.num_heads} heads, "
+          f"kv_lora {cfg.mla.kv_lora_rank}, d_ff {cfg.moe.d_ff_dense}, vocab {cfg.vocab_size}, "
+          f"{cfg.dtype}), {SERVE_LAYERS} dense layers: {n_params} parameters (MTP head "
+          f"included) from seed {SERVE['seed']} in {time.perf_counter() - t0:.3f} s")
+    capture = LaunchCapture("mla_flash_decode", keep)
+    native.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with telemetry.active(capture):
+        served = serve_mod.serve_batch(ARCH, cfg=cfg, params=params, device=DEVICE, **SERVE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_serve = dict(native.LAUNCHES)
+    captured = capture.kept
+    others = {k: v for k, v in launches_serve.items() if v and k != "mla_flash_decode"}
+    if launches_serve["mla_flash_decode"] != n_mla or others or capture.calls != n_mla:
+        raise AssertionError(f"phase 9: launches {launches_serve}, dispatcher calls "
+                             f"{capture.calls}, want mla_flash_decode = {n_mla}")
+    tokens = served["tokens"]
+    if tokens.shape != (SERVE["requests"], SERVE["gen_len"]) or not (
+            (tokens >= 0) & (tokens < cfg.vocab_size)).all():
+        raise AssertionError(f"phase 9: tokens {tokens.shape}, range "
+                             f"{tokens.min()}..{tokens.max()}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"phase 9: serve_batch on the card: {SERVE['requests']} requests, prompt "
+          f"{SERVE['prompt_len']}, {SERVE['gen_len']} generated: tokens {tokens.shape} in "
+          f"[0, {cfg.vocab_size}); launches {launches_serve['mla_flash_decode']} = "
+          f"{SERVE_LAYERS} x {steps} (mla_flash_decode only); prefill "
+          f"{served['prefill_s']:.3f} s, decode {served['decode_s']:.3f} s "
+          f"({1e3 * served['decode_s'] / SERVE['gen_len']:.3f} ms per step), "
+          f"{served['tokens_per_s']:.1f} tokens/s; peak memory {peak_gb:.2f} GB; wall "
+          f"{wall:.2f} s")
+    for i in keep:
+        args, kw = captured[i]
+        pos = args[4]
+        max_err["mla_flash_decode"] = max(
+            max_err["mla_flash_decode"],
+            mla_check(md, ref, args[:4], pos, kw["scale"], MLA_TOL["bfloat16"],
+                      f"phase 9 launch {i} (pos {pos})"),
+        )
+    print(f"phase 9: kernel == plain (allclose 3e-2) on the captured launches {keep} "
+          f"(prefill step {prefill_step} and the last step, every layer); max |diff| "
+          f"{max_err['mla_flash_decode']:.3g}")
+    # The decode step alone, each step ending in a sync (host clock), on a
+    # fresh cache filled up to the prompt.
+    step = make_decode_step(cfg)
+    cache = M.init_cache(cfg, SERVE["requests"], steps + 1, device=dev)
+    tok = torch.ones((SERVE["requests"], 1), dtype=torch.int32, device=dev)
+    step_ms = []
+    with torch.no_grad():
+        logits, _ = M.decode_step(cfg, params, cache, tok, 0)
+        if logits.shape != (SERVE["requests"], 1, cfg.vocab_size) or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError(f"phase 9: logits {tuple(logits.shape)} not all finite")
+        for t in range(1, steps):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            tok, cache = step(params, cache, tok, t)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t1))
+    print(f"phase 9: decode step alone (synced, host clock): median "
+          f"{np.median(step_ms):.3f} ms, min {np.min(step_ms):.3f} ms over {len(step_ms)} "
+          f"steps; logits finite, float32 (B, 1, {cfg.vocab_size})")
+    print("phase 9: decode step device time by kernel (torch.profiler): "
+          + profile_rows(lambda: step(params, cache, tok, steps - 1), reps=2))
+    args, kw = captured[keep[-1]]
+    serve_args, serve_pos = args[:4], args[4]
+    k_ms, p_ms, _, raw = time_pair(
+        lambda: md.mla_flash_decode_cuda(*serve_args, serve_pos, kw["scale"]),
+        lambda: ref.mla_latent_attention(*serve_args, serve_pos, kw["scale"]),
+        flush,
+    )
+    b_ms, b_by = bound(mla_bytes(serve_args, serve_pos), mla_ops(serve_args, serve_pos),
+                       BF16_TENSOR_OPS_PER_S)
+    print(f"phase 9: mla_flash_decode at the serve shape (B={serve_args[0].shape[0]}, "
+          f"H={serve_args[0].shape[1]}, S={serve_args[2].shape[1]}, pos={serve_pos}, bf16; "
+          f"splits {md.split_plan(serve_args[0].shape[0], serve_args[0].shape[1], serve_pos + 1, sms)}): "
+          f"kernel {raw[0]:.4f}/{raw[1]:.4f} ms, plain {raw[2]:.4f}/{raw[3]:.4f} ms; "
+          f"bound {b_ms:.5f} ms ({b_by})")
+    del params, cache, capture, captured, served, step, logits, args, serve_args
+    torch.cuda.empty_cache()
+
+    # -- 9b. the kernel at decode_32k --------------------------------------- #
+    shape = SHAPES["decode_32k"]
+    B, S = shape["batch"], shape["seq"]
+    H, R, RR = cfg.num_heads, cfg.mla.kv_lora_rank, cfg.mla.qk_rope_head_dim
+    scale = 1.0 / math.sqrt(cfg.mla.qk_nope_head_dim + RR)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    args = [
+        (torch.randn(sh, generator=gen, device=dev) * 0.3).to(torch.bfloat16)
+        for sh in ((B, H, R), (B, H, RR), (B, S, R), (B, S, RR))
+    ]
+    pos = S - 1
+    err = mla_check(md, ref, args, pos, scale, MLA_TOL["bfloat16"], "phase 9b decode_32k")
+    max_err["mla_flash_decode"] = max(max_err["mla_flash_decode"], err)
+    q_cat = torch.cat(args[:2], dim=-1).view(B, 1, H, R + RR)
+    k_cat = torch.cat(args[2:], dim=-1).view(B, 1, S, R + RR)
+    v = args[2].view(B, 1, S, R)
+
+    def sdpa():
+        # One KV head, the H heads as H query rows of it (enable_gqa would
+        # expand the cache H times in the math backend); no mask at S - 1.
+        return torch.nn.functional.scaled_dot_product_attention(q_cat, k_cat, v, scale=scale)
+
+    lib = sdpa().view(B, H, R)
+    lib_err = (lib.float() - ref.mla_latent_attention(*args, pos, scale).float()).abs().max().item()
+    del lib
+    k_ms32, p_ms32, l_ms32, raw = time_pair(
+        lambda: md.mla_flash_decode_cuda(*args, pos, scale),
+        lambda: ref.mla_latent_attention(*args, pos, scale),
+        flush, reps=5, library=sdpa,
+    )
+    nbytes, nops = mla_bytes(args, pos), mla_ops(args, pos)
+    b_ms32, b_by32 = bound(nbytes, nops, BF16_TENSOR_OPS_PER_S)
+    timings["mla_flash_decode"] = (k_ms32, p_ms32, l_ms32, b_ms32, b_by32)
+    print(f"phase 9b: mla_flash_decode at decode_32k (B={B}, S={S}, H={H}, r={R}, rr={RR}, "
+          f"bf16, pos={pos}; splits {md.split_plan(B, H, pos + 1, sms)}): kernel == plain "
+          f"(allclose 3e-2, max |diff| {err:.3g}); kernel {raw[0]:.3f}/{raw[1]:.3f} ms, plain "
+          f"{raw[2]:.3f}/{raw[3]:.3f} ms, scaled_dot_product_attention {l_ms32:.3f} ms "
+          f"(max |diff| to plain {lib_err:.3g}); {nbytes} bytes, {nops} ops; bound "
+          f"{b_ms32:.4f} ms ({b_by32}; bytes at {HBM_BYTES_PER_S / 1e12} TB/s, ops at "
+          f"{BF16_TENSOR_OPS_PER_S / 1e12} TFLOP/s bf16 tensor cores)")
+    del args, q_cat, k_cat, v, gen
+    torch.cuda.empty_cache()
+
+    # -- 9c. card vs CPU on the dense smoke config --------------------------- #
+    small = serve_mod.dense_smoke_config(ARCH).with_overrides(dtype="float32")
+    tree = _numpy_tree(M.init_params(small, 7, device="cpu"))
+    runs = []
+    for where in ("cpu", DEVICE):
+        p_dev = M.params_from_jax(tree, where)
+        native.reset_launches()
+        res = serve_mod.serve_batch(ARCH, cfg=small, params=p_dev, device=where, **SERVE_SMALL)
+        cache = M.init_cache(small, SERVE_SMALL["requests"], 10, device=where)
+        toks = torch.from_numpy(
+            np.random.default_rng(5).integers(1, small.vocab_size, size=(SERVE_SMALL["requests"], 8))
+            .astype(np.int32)).to(where)
+        logits = []
+        with torch.no_grad():
+            for t in range(8):
+                out, cache = M.decode_step(small, p_dev, cache, toks[:, t : t + 1], t)
+                logits.append(out.cpu())
+        runs.append((res["tokens"], torch.cat(logits, dim=1), dict(native.LAUNCHES)))
+    (tok_cpu, log_cpu, l_cpu), (tok_card, log_card, l_card) = runs
+    n_small = small.num_layers * (SERVE_SMALL["prompt_len"] + SERVE_SMALL["gen_len"] + 8)
+    if any(l_cpu.values()) or l_card["mla_flash_decode"] != n_small:
+        raise AssertionError(f"phase 9c: launches cpu {l_cpu}, card {l_card}")
+    if not np.array_equal(tok_cpu, tok_card):
+        raise AssertionError(f"phase 9c: greedy tokens differ:\n{tok_cpu}\n{tok_card}")
+    if not torch.allclose(log_card, log_cpu, rtol=1e-4, atol=1e-4):
+        raise AssertionError("phase 9c: logits differ beyond 1e-4")
+    print(f"phase 9c: {ARCH} dense smoke config (2 dense layers, float32, TF32 off) from "
+          f"seed 7 on both devices: greedy tokens {tok_card.shape} identical, logits over 8 "
+          f"positions allclose 1e-4 (max |diff| "
+          f"{(log_card - log_cpu).abs().max().item():.3g}); card launches "
+          f"{l_card['mla_flash_decode']}")
+    del runs, tree
+
+    # -- 10. results ------------------------------------------------------ #
     replaces = {
         "fused_frontier_step": "src/repro/kernels/fused_step.py:698",
         "fused_step": "src/repro/kernels/fused_step.py:302",
@@ -1599,6 +1915,7 @@ def main() -> int:
         "score_policy_update_batch": "src/repro/kernels/score_update.py:257",
         "gather_mean": "src/repro/kernels/gather_mean.py:41",
         "segment_sum_equal": "src/repro/kernels/segment_sum.py:41",
+        "mla_flash_decode": "src/repro/kernels/mla_decode.py:91",
     }
     sources = {
         "fused_frontier_step": "src/repro_torch/kernels/csrc/fused_frontier_step.cu",
@@ -1614,6 +1931,7 @@ def main() -> int:
         "score_policy_update_batch": "src/repro_torch/kernels/csrc/score_update.cu",
         "gather_mean": "src/repro_torch/kernels/csrc/gather_mean.cu",
         "segment_sum_equal": "src/repro_torch/kernels/csrc/segment_sum.cu",
+        "mla_flash_decode": "src/repro_torch/kernels/csrc/mla_decode.cu",
     }
     launches = {
         "fused_frontier_step": (launches_raw["fused_frontier_step"], "phase 3 (raw path)"),
@@ -1651,6 +1969,11 @@ def main() -> int:
             launches_raw["segment_sum_equal"],
             "phase 3 (raw path: the layer-1 mean); phase 3b (ragged + store, both "
             f"means): {launches_ragged['segment_sum_equal']}",
+        ),
+        "mla_flash_decode": (
+            launches_serve["mla_flash_decode"],
+            f"phase 9 (DeepSeek-V3 serving at full width: {SERVE_LAYERS} layers x "
+            f"{SERVE['prompt_len'] + SERVE['gen_len']} steps); timed at decode_32k (phase 9b)",
         ),
     }
     kernels = []

@@ -213,6 +213,14 @@ class RunResult:
     def total_bytes_modeled(self) -> int:
         return int(sum(sum(log.bytes_modeled) for log in self.logs))
 
+    @property
+    def total_fetch_seconds(self) -> float:
+        """Measured wall-clock spent in store gathers (cluster steps sum
+        the per-step maximum across PEs, like epoch_times does)."""
+        per_step = zip(*(log.fetch_seconds for log in self.logs))
+        vals = [max(step) for step in per_step]
+        return float(sum(vals)) if vals else float("nan")
+
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet ({item})")
@@ -282,7 +290,7 @@ class DistributedTrainer:
         init_params: object = None,
     ):
         if runtime == "legacy":
-            raise _not_ported("runtime='legacy'", "ROADMAP Queue A item 8")
+            raise _not_ported("runtime='legacy'", "ROADMAP Queue A item 1")
         if runtime != "vectorized":
             raise ValueError(
                 f"runtime must be 'vectorized' or 'legacy', got {runtime!r}"

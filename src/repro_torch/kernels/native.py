@@ -34,19 +34,21 @@ SOURCES = {
     "score_update": "score_update.cu",
     "gather_mean": "gather_mean.cu",
     "segment_sum": "segment_sum.cu",
+    "mla_decode": "mla_decode.cu",
 }
 
 #: The wrappers that launch a kernel. A ``_wide`` kernel (int64 ids) is
 #: the second entry of its narrow twin's library; ``gather_rows`` and
 #: ``gather_rows_batch`` share the ``gather_rows`` library, and the three
 #: score entries the ``score_update`` library; ``segment_sum_equal`` is the
-#: ``segment_sum`` library's one entry.
+#: ``segment_sum`` library's one entry, ``mla_flash_decode`` the
+#: ``mla_decode`` library's.
 KERNELS = (
     "fused_frontier_step", "fused_step", "gather_rows_batch", "gather_rows",
     "fused_frontier_step_wide", "fused_step_wide",
     "frontier_unique_batch", "frontier_unique_batch_wide",
     "score_update", "score_update_batch", "score_policy_update_batch",
-    "gather_mean", "segment_sum_equal",
+    "gather_mean", "segment_sum_equal", "mla_flash_decode",
 )
 
 #: kernel name -> launches on the card (each wrapper adds one per launch).

@@ -35,6 +35,7 @@ __all__ = [
     "score_policy_update_batch",
     "gather_mean",
     "segment_sum_equal",
+    "mla_flash_decode",
     "LAUNCHES",
     "reset_launches",
     "INT32_SENTINEL",
@@ -567,3 +568,24 @@ def segment_sum_equal(data, k: int):
     from .segment_sum import segment_sum_equal_cuda
 
     return segment_sum_equal_cuda(data.contiguous(), int(k))
+
+
+@telemetry.profiled("mla_flash_decode")
+def mla_flash_decode(q_lat, q_rope, cache_c, cache_kr, pos, *, scale=None):
+    """MLA latent flash-decode: ``q_lat (B, H, r)``, ``q_rope (B, H, rr)``,
+    ``cache_c (B, S, r)``, ``cache_kr (B, S, rr)`` (one dtype, float32 or
+    bfloat16) and ``pos`` (rows ``0..pos`` attend; a host int on the card,
+    so reading it needs no sync) → the latent context ``(B, H, r)`` in the
+    cache's dtype. ``scale`` defaults to ``1/sqrt(r + rr)``. CPU tensors:
+    :func:`repro_torch.kernels.ref.mla_latent_attention`; CUDA: the Hopper
+    kernel (:func:`repro_torch.kernels.mla_decode.mla_flash_decode_cuda`)."""
+    if scale is None:
+        scale = 1.0 / (q_lat.shape[-1] + q_rope.shape[-1]) ** 0.5
+    if _route("mla_flash_decode", cache_c) == "cpu":
+        return ref.mla_latent_attention(q_lat, q_rope, cache_c, cache_kr, pos, scale)
+    from .mla_decode import mla_flash_decode_cuda
+
+    return mla_flash_decode_cuda(
+        q_lat.contiguous(), q_rope.contiguous(), cache_c.contiguous(),
+        cache_kr.contiguous(), int(pos), float(scale),
+    )

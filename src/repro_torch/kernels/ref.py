@@ -27,6 +27,10 @@ keys) and :func:`score_policy_update_batch` with its fixed-policy forms
 :func:`score_update_batch` and :func:`score_update` (the engine's
 scoring round).
 
+The model zoo's MLA decode has one: :func:`mla_latent_attention` (the
+masked softmax over the latent cache and the context in latent
+coordinates), which ``csrc/mla_decode.cu`` matches to allclose.
+
 The GraphSAGE step's two neighbour means have theirs too:
 :func:`gather_mean` (gather K table rows per destination and average
 them) and :func:`segment_sum_equal` (sum every k consecutive rows), each
@@ -823,3 +827,28 @@ def segment_sum_equal(data: torch.Tensor, k: int) -> torch.Tensor:
     for j in range(1, k):
         acc = acc + seg[:, j].to(torch.float32)
     return acc.to(data.dtype)
+
+
+#: The mask value of the reference's attention (XLA's ``-inf`` stand-in).
+MLA_NEG_INF = -2.3819763e38
+
+
+def mla_latent_attention(q_lat, q_rope, cache_c, cache_kr, pos, scale):
+    """``q_lat (B, H, r)``, ``q_rope (B, H, rr)``, ``cache_c (B, S, r)``,
+    ``cache_kr (B, S, rr)`` and ``pos`` (an int or a 0-dim tensor) → the
+    latent context ``(B, H, r)`` in the cache's dtype. Scores
+    ``(q_lat·c + q_rope·kr)·scale`` in float32, rows ``s > pos`` masked
+    with :data:`MLA_NEG_INF`, softmax, and the float32 context
+    ``probs @ c``. The spec of ``csrc/mla_decode.cu``."""
+    f32 = torch.float32
+    c = cache_c.to(f32)
+    scores = (
+        torch.einsum("bhr,bsr->bhs", q_lat.to(f32), c)
+        + torch.einsum("bhk,bsk->bhs", q_rope.to(f32), cache_kr.to(f32))
+    ) * scale
+    valid = torch.arange(cache_c.shape[1], device=cache_c.device) <= pos
+    scores = torch.where(
+        valid[None, None, :], scores, torch.tensor(MLA_NEG_INF, dtype=f32, device=c.device)
+    )
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhs,bsr->bhr", probs, c).to(cache_c.dtype)

@@ -10,7 +10,8 @@ sets; ``fused_frontier_step_wide`` and ``fused_step_wide`` over the wide
 sets, in both index modes of the kernels; ``frontier_unique_batch`` in
 both instantiations and the three score entries over theirs;
 ``gather_mean`` and ``segment_sum_equal`` over theirs, float32 and
-bfloat16), short
+bfloat16; ``mla_flash_decode`` to allclose over the reference test's
+shapes and the full-width serve shape, at the tile and split edges), short
 trainer runs on the card (narrow, rebased past ``2**31``, on the
 readback cadence, the staged fall-back past ``WIDE_ID_MAX``, and one
 under a telemetry session) against the same runs on the CPU, and one
@@ -301,3 +302,30 @@ def test_telemetry_session_on_the_card(card):
     for name in ("gather_mean", "segment_sum_equal"):
         assert launches[name] == calls
         assert counters[f"kernel.{name}.calls"]["total"] == calls
+
+
+MLA_SHAPES = [(1, 4, 32, 8, 64), (2, 8, 64, 16, 700), (1, 16, 128, 64, 512),
+              (4, 128, 512, 64, 289)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", MLA_SHAPES, ids=[str(s) for s in MLA_SHAPES])
+def test_mla_flash_decode_kernel_matches_plain(card, shape, dtype):
+    """The kernel against its plain version at pos 0, the tile and split
+    edges and S - 1, allclose at the reference's bars (1e-4 / 3e-2)."""
+    b, h, r, rr, s = shape
+    rng = np.random.default_rng(0)
+    q_lat, q_rope, c, kr = (
+        torch.from_numpy((rng.standard_normal(sh) * 0.3).astype(np.float32)).to(card).to(dtype)
+        for sh in ((b, h, r), (b, h, rr), (b, s, r), (b, s, rr))
+    )
+    scale = 1.0 / (r + rr) ** 0.5
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    for pos in sorted({0, 31, 32, 63, 64, s // 2, s - 2, s - 1}):
+        before = native.LAUNCHES["mla_flash_decode"]
+        got = ops.mla_flash_decode(q_lat, q_rope, c, kr, pos, scale=scale)
+        want = ref.mla_latent_attention(q_lat, q_rope, c, kr, pos, scale)
+        torch.cuda.synchronize()
+        assert native.LAUNCHES["mla_flash_decode"] == before + 1
+        assert got.dtype == dtype and got.shape == (b, h, r)
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)

@@ -12,7 +12,7 @@ the reference's ``load_jsonl`` and CLI read the port's JSONL, and the
 port's read the reference's.
 
 Not mirrored: ``test_legacy_runtime_emits_per_pe_tracks`` waits for the
-port's legacy runtime (``runtime="legacy"``, ROADMAP Queue A item 8),
+port's legacy runtime (``runtime="legacy"``, ROADMAP Queue A item 1),
 and ``test_sweep_rows_carry_telemetry_brief`` for ``runtime/sweep.py``;
 the per-PE Chrome tracks, which only the legacy runtime records, are
 checked on spans opened per PE by hand.

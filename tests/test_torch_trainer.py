@@ -244,3 +244,46 @@ def test_unported_run_paths_raise(parts, kwargs, match):
         )
     launches = COMMON["epochs"] * tr.mb_per_epoch + 1
     assert tr.last_device_engine.transfers["d2h"] == -(-launches // 2)
+
+
+def test_legacy_refusal_names_its_roadmap_item(parts):
+    _, port = parts
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 1"):
+        tgnn.DistributedTrainer(port, **dict(COMMON, variant="fixed", device="cpu",
+                                             runtime="legacy"))
+
+
+FETCH_LOGS = [
+    # (PE 0, PE 1, PE 2) fetch_seconds per step
+    ([0.5, 0.25, 1.0], [0.75, 0.125, 0.5], [0.25, 2.0, 0.0]),
+    ([0.0, 0.0], [0.0, 0.0]),
+    ([3.0], [1.5], [4.5], [0.5]),
+]
+
+
+def _run_result(pkg, fetch):
+    logs = [pkg.TrainerLog(fetch_seconds=list(f)) for f in fetch]
+    return pkg.RunResult(
+        variant="fixed", epoch_times=[], losses=[], accuracy=0.0, logs=logs,
+        controllers=[], graph_meta=[],
+    )
+
+
+@pytest.mark.parametrize("fetch", FETCH_LOGS, ids=["3pe", "zeros", "4pe-1step"])
+def test_total_fetch_seconds_matches_the_reference(fetch):
+    """Per step, the slowest PE's gather time; summed over the steps."""
+    from repro.gnn import train as jtrain
+    from repro_torch.gnn import train as ttrain
+
+    port = _run_result(ttrain, fetch).total_fetch_seconds
+    want = float(sum(max(step) for step in zip(*fetch)))
+    assert port == want == _run_result(jtrain, fetch).total_fetch_seconds
+
+
+def test_total_fetch_seconds_is_nan_without_steps():
+    from repro.gnn import train as jtrain
+    from repro_torch.gnn import train as ttrain
+
+    for fetch in ((), ([], [])):
+        assert np.isnan(_run_result(ttrain, fetch).total_fetch_seconds)
+        assert np.isnan(_run_result(jtrain, fetch).total_fetch_seconds)
