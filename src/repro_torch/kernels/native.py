@@ -86,6 +86,16 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def nvcc_command(source: Path, out: Path, verbose: bool = False) -> list[str]:
+    """The ``nvcc`` command that builds the kernel source ``source`` (which
+    may include the shared headers of ``csrc/``) into the library ``out``;
+    with ``-Xptxas -v`` when ``verbose``."""
+    cmd = [nvcc(), *NVCC_FLAGS]
+    if verbose:
+        cmd += ["-Xptxas", "-v"]
+    return cmd + ["-I", str(CSRC), "-o", str(out), str(source)]
+
+
 def _target(name: str) -> Path:
     h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
@@ -107,13 +117,10 @@ def build_all(names=None, verbose: bool = False) -> dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS]
-        if verbose:
-            cmd += ["-Xptxas", "-v"]
-        cmd += ["-o", str(tmp), str(CSRC / SOURCES[name])]
         procs[name] = (
             subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+                nvcc_command(CSRC / SOURCES[name], tmp, verbose),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             ),
             tmp,
             out,

@@ -39,6 +39,11 @@ from a seed; the constants are those of the scoring policy.
   bfloat16 data, ``K`` in {1, 3, 10, 25}, ``F`` in {1, 3, 64, 100, 128,
   600}, int32 and int64 indices, repeated indices and an index on the
   table's last row, ``B == 0`` and ``S == 0``.
+* :func:`mla_inputs` (``mla_flash_decode``): queries and caches of any
+  shape, N(0, 0.3²) as the reference's test draws them (scores spread by
+  about 0.1: a near-uniform softmax), or with the queries scaled so that
+  the scores spread by :data:`PEAKED` (a softmax that a wrong score term
+  or a dropped row visibly moves).
 """
 
 from __future__ import annotations
@@ -588,4 +593,32 @@ def segment_sum_scenarios() -> list[SegmentSumScenario]:
             data[k : 2 * k] = data[:k]  # a repeated segment
         dtype = "bfloat16" if bf16 else "float32"
         out.append(SegmentSumScenario(f"F{F}-k{k}-S{S}-{dtype}", data, k, dtype))
+    return out
+
+
+#: Standard deviation of the "peaked" MLA scores ``(q_lat·c + q_rope·kr)·
+#: scale``, half of its variance from each term.
+PEAKED = 3.0
+
+
+def mla_query_gains(r: int, rr: int, scale: float, spread: float) -> tuple[float, float]:
+    """Factors for ``q_lat`` and ``q_rope`` drawn like the caches,
+    N(0, 0.3²), that make each term of the scores spread by
+    ``spread / sqrt(2)`` at ``scale``."""
+    part = spread / 2**0.5
+    return tuple(part / (scale * 0.09 * max(n, 1) ** 0.5) for n in (r, rr))
+
+
+def mla_inputs(b, h, r, rr, s, seed=0, spread=None, scale=None) -> list[np.ndarray]:
+    """``[q_lat (b, h, r), q_rope (b, h, rr), cache_c (b, s, r), cache_kr
+    (b, s, rr)]`` float32 from ``seed``: N(0, 0.3²), the queries scaled by
+    :func:`mla_query_gains` when ``spread`` is given (``scale`` defaults to
+    ``1 / sqrt(r + rr)``)."""
+    rng = np.random.default_rng(seed)
+    out = [(rng.standard_normal(sh) * 0.3).astype(np.float32)
+           for sh in ((b, h, r), (b, h, rr), (b, s, r), (b, s, rr))]
+    if spread is not None:
+        g_lat, g_rope = mla_query_gains(r, rr, scale or 1.0 / (r + rr) ** 0.5, spread)
+        out[0] *= np.float32(g_lat)
+        out[1] *= np.float32(g_rope)
     return out

@@ -11,12 +11,17 @@ sets, in both index modes of the kernels; ``frontier_unique_batch`` in
 both instantiations and the three score entries over theirs;
 ``gather_mean`` and ``segment_sum_equal`` over theirs, float32 and
 bfloat16; ``mla_flash_decode`` to allclose over the reference test's
-shapes and the full-width serve shape, at the tile and split edges), short
+shapes, the full-width serve shape and the tensor-core kernel's edge
+shapes up to the widest row, at the tile and split edges, on
+near-uniform and on peaked scores, on caches whose rows past pos are
+NaN, and with its per-kernel launch counts by dtype), short
 trainer runs on the card (narrow, rebased past ``2**31``, on the
 readback cadence, the staged fall-back past ``WIDE_ID_MAX``, and one
 under a telemetry session) against the same runs on the CPU, and one
 committed golden trace re-recorded on the card.
 """
+
+import itertools
 
 import numpy as np
 import pytest
@@ -305,23 +310,43 @@ def test_telemetry_session_on_the_card(card):
 
 
 MLA_SHAPES = [(1, 4, 32, 8, 64), (2, 8, 64, 16, 700), (1, 16, 128, 64, 512),
-              (4, 128, 512, 64, 289)]
+              (4, 128, 512, 64, 289),
+              (2, 72, 128, 64, 300),  # H not a multiple of the 64-head block
+              (2, 8, 32, 4, 100),     # r 32 (a 64-wide box), rr 4 (no TMA: 8-byte rows)
+              (1, 8, 512, 128, 200),  # r 512, rr 128: a one-stage ring in bf16
+              (1, 8, 512, 672, 200),  # r + rr = 1184, the widest row: queries streamed
+              (2, 8, 32, 1152, 130)]
+MLA_REL = 1e-2  # bfloat16 on peaked scores: max |diff| <= MLA_REL * max |plain|
+
+
+def _mla_inputs(card, shape, dtype, seed=0, spread=None):
+    return [torch.from_numpy(a).to(card).to(dtype)
+            for a in scenarios.mla_inputs(*shape, seed=seed, spread=spread)]
+
+
+def _assert_mla_close(got, want, dtype, peaked):
+    """The reference's bars (1e-4 / 3e-2); on peaked scores bfloat16 also
+    within MLA_REL of the plain output's largest value."""
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if peaked and dtype == torch.bfloat16:
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= MLA_REL * want.float().abs().max().item()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("shape", MLA_SHAPES, ids=[str(s) for s in MLA_SHAPES])
 def test_mla_flash_decode_kernel_matches_plain(card, shape, dtype):
-    """The kernel against its plain version at pos 0, the tile and split
-    edges and S - 1, allclose at the reference's bars (1e-4 / 3e-2)."""
+    """The kernel against its plain version at pos 0, mid-tile, the tile
+    and split edges and S - 1, allclose at the reference's bars (1e-4 /
+    3e-2)."""
     b, h, r, rr, s = shape
-    rng = np.random.default_rng(0)
-    q_lat, q_rope, c, kr = (
-        torch.from_numpy((rng.standard_normal(sh) * 0.3).astype(np.float32)).to(card).to(dtype)
-        for sh in ((b, h, r), (b, h, rr), (b, s, r), (b, s, rr))
-    )
+    q_lat, q_rope, c, kr = _mla_inputs(card, shape, dtype)
     scale = 1.0 / (r + rr) ** 0.5
     tol = 1e-4 if dtype == torch.float32 else 3e-2
-    for pos in sorted({0, 31, 32, 63, 64, s // 2, s - 2, s - 1}):
+    for pos in sorted({0, 17, 31, 32, 63, 64, 100, s // 2, s - 2, s - 1}):
+        if pos >= s:
+            continue
         before = native.LAUNCHES["mla_flash_decode"]
         got = ops.mla_flash_decode(q_lat, q_rope, c, kr, pos, scale=scale)
         want = ref.mla_latent_attention(q_lat, q_rope, c, kr, pos, scale)
@@ -329,3 +354,95 @@ def test_mla_flash_decode_kernel_matches_plain(card, shape, dtype):
         assert native.LAUNCHES["mla_flash_decode"] == before + 1
         assert got.dtype == dtype and got.shape == (b, h, r)
         torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", MLA_SHAPES, ids=[str(s) for s in MLA_SHAPES])
+def test_mla_flash_decode_peaked_scores(card, shape, dtype):
+    """The same positions on queries scaled so that the scores spread by
+    scenarios.PEAKED: a softmax far from uniform, which a wrong score term,
+    a dropped row or uniform weights visibly move."""
+    b, h, r, rr, s = shape
+    q_lat, q_rope, c, kr = _mla_inputs(card, shape, dtype, spread=scenarios.PEAKED)
+    scale = 1.0 / (r + rr) ** 0.5
+    for pos in sorted({0, 17, 31, 32, 63, 64, 100, s // 2, s - 2, s - 1}):
+        if pos >= s:
+            continue
+        got = ops.mla_flash_decode(q_lat, q_rope, c, kr, pos, scale=scale)
+        want = ref.mla_latent_attention(q_lat, q_rope, c, kr, pos, scale)
+        torch.cuda.synchronize()
+        _assert_mla_close(got, want, dtype, peaked=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(4, 128, 512, 64, 289), (2, 8, 32, 4, 100)],
+                         ids=["serve", "r32-rr4"])
+def test_mla_flash_decode_ignores_nan_past_pos(card, shape, dtype):
+    """Cache rows past pos hold NaN: the output is finite and equals the
+    plain version on a zeroed tail (a masked row must contribute exact
+    zeros, and 0 times NaN is NaN on the tensor cores), on near-uniform and
+    on peaked scores."""
+    b, h, r, rr, s = shape
+    scale = 1.0 / (r + rr) ** 0.5
+    for spread, pos in itertools.product((None, scenarios.PEAKED), (0, 37, s // 2)):
+        q_lat, q_rope, c, kr = _mla_inputs(card, shape, dtype, seed=4, spread=spread)
+        c_nan, kr_nan = c.clone(), kr.clone()
+        c_nan[:, pos + 1 :] = float("nan")
+        kr_nan[:, pos + 1 :] = float("nan")
+        c_zero, kr_zero = c.clone(), kr.clone()
+        c_zero[:, pos + 1 :] = 0
+        kr_zero[:, pos + 1 :] = 0
+        got = ops.mla_flash_decode(q_lat, q_rope, c_nan, kr_nan, pos, scale=scale)
+        want = ref.mla_latent_attention(q_lat, q_rope, c_zero, kr_zero, pos, scale)
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got.float()).all())
+        _assert_mla_close(got, want, dtype, peaked=spread is not None)
+
+
+def _mla_sweep(n=16, seed=11):
+    """Seeded shapes over every R, RR from 0 to 1000 (8-byte rows, a
+    one-stage ring and streamed queries among them), H on and off the
+    64-head block, and pos inside, at the end of and past the cache."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    for i in range(n):
+        r = (32, 64, 128, 256, 512)[i % 5]
+        rr = (0, 4, 8, 12, 20, 64, 72, 1000)[i % 8]
+        h = (1, 3, 64, 65, 128, 130)[i % 6]
+        s = int(rng.integers(1, 1500))
+        pos = int(rng.choice([0, rng.integers(0, s), s - 1, s + 5]))
+        cases.append((int(rng.integers(1, 4)), h, r, rr, s, pos))
+    return cases
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", _mla_sweep(), ids=[str(c) for c in _mla_sweep()])
+def test_mla_flash_decode_sweep(card, case, dtype):
+    """A seeded sweep of shapes against the plain version, on near-uniform
+    and on peaked scores."""
+    b, h, r, rr, s, pos = case
+    scale = 1.0 / (r + rr) ** 0.5
+    for spread in (None, scenarios.PEAKED):
+        args = _mla_inputs(card, (b, h, r, rr, s), dtype, seed=sum(case), spread=spread)
+        got = ops.mla_flash_decode(*args, pos, scale=scale)
+        want = ref.mla_latent_attention(*args, pos, scale)
+        torch.cuda.synchronize()
+        _assert_mla_close(got, want, dtype, peaked=spread is not None)
+
+
+def test_mla_flash_decode_kernel_by_dtype(card):
+    """bfloat16 calls run the tensor-core kernel, float32 calls the
+    CUDA-core kernel; each call counts once in LAUNCHES either way."""
+    from repro_torch.kernels import mla_decode as md
+
+    for dtype, kernel in ((torch.bfloat16, "tensor_cores"), (torch.float32, "cuda_cores")):
+        args = _mla_inputs(card, (2, 128, 512, 64, 130), dtype)
+        before = dict(md.KERNEL_LAUNCHES)
+        launches = native.LAUNCHES["mla_flash_decode"]
+        for pos in (5, 129):
+            ops.mla_flash_decode(*args, pos)
+        torch.cuda.synchronize()
+        assert native.LAUNCHES["mla_flash_decode"] == launches + 2
+        assert {k: v - before[k] for k, v in md.KERNEL_LAUNCHES.items()} == {
+            name: 2 if name == kernel else 0 for name in md.KERNEL_LAUNCHES
+        }

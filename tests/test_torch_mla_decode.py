@@ -131,22 +131,96 @@ def test_cuda_wrapper_refuses_cpu_tensors():
         md.mla_flash_decode_cuda(*t, -1, 0.1)
 
 
-@pytest.mark.parametrize(
-    "B,H,n_valid",
-    [(1, 4, 1), (1, 4, 64), (2, 8, 700), (1, 16, 512), (4, 128, 1), (4, 128, 289),
-     (4, 128, 33), (128, 128, 32768), (1, 1, 100_000)],
-)
-def test_split_plan_covers_the_rows(B, H, n_valid):
+PLAN_CASES = [(1, 4, 1), (1, 4, 64), (2, 8, 700), (1, 16, 512), (4, 128, 1), (4, 128, 289),
+              (4, 128, 33), (128, 128, 32768), (1, 1, 100_000),
+              (1, 64, 300), (3, 64, 32768), (2, 72, 1000), (128, 72, 4096)]
+
+
+def _check_plan(B, H, n_valid, geom, slack=0):
     """Every split holds at least one valid row, the splits cover
-    ``0..n_valid-1`` in whole tiles, and the grid gets about two blocks
-    per SM where the rows allow it (what the kernel's entry checks)."""
+    ``0..n_valid-1`` in whole tiles (what the kernel's entry checks), and
+    the grid gives every SM a block, to within ``slack`` splits of each
+    head block, where the rows allow it."""
     sms = 132
-    n_split, chunk = md.split_plan(B, H, n_valid, sms)
-    assert chunk % md.TILE_ROWS == 0 and 1 <= n_split <= md.MAX_SPLITS
+    n_split, chunk = md.split_plan(B, H, n_valid, sms, geom)
+    assert chunk % geom.rows == 0 and 1 <= n_split <= md.MAX_SPLITS
     assert (n_split - 1) * chunk < n_valid <= n_split * chunk
-    blocks = B * -(-H // md.HEADS_PER_BLOCK)
-    tiles = -(-n_valid // md.TILE_ROWS)
-    if blocks >= 2 * sms:
+    blocks = B * -(-H // geom.heads)
+    tiles = -(-n_valid // geom.rows)
+    resident = geom.blocks_per_sm * sms
+    if blocks >= resident:
         assert n_split == 1
-    elif tiles >= -(-2 * sms // blocks):
-        assert blocks * n_split >= sms
+    elif tiles >= -(-resident // blocks):
+        assert blocks * (n_split + slack) >= sms
+    else:
+        assert n_split == tiles  # one tile a split: the least work a block can have
+
+
+@pytest.mark.parametrize("B,H,n_valid", PLAN_CASES)
+def test_split_plan_covers_the_rows(B, H, n_valid):
+    """The tensor-core kernel's plan (the default): 64-head blocks, 64-row
+    tiles, one block an SM; its few, large blocks round the splits to whole
+    64-row tiles, which may leave one split a head block short."""
+    _check_plan(B, H, n_valid, md.TENSOR_CORES, slack=1)
+    assert md.split_plan(B, H, n_valid, 132) == md.split_plan(B, H, n_valid, 132,
+                                                               md.TENSOR_CORES)
+
+
+@pytest.mark.parametrize("B,H,n_valid", PLAN_CASES)
+def test_split_plan_cuda_cores(B, H, n_valid):
+    """The float32 kernel's plan: 16-head blocks, 32-row tiles, two blocks
+    an SM."""
+    _check_plan(B, H, n_valid, md.CUDA_CORES)
+
+
+def test_geometry_by_dtype():
+    assert md.geometry(torch.bfloat16) == md.TENSOR_CORES == (64, 64, 1)
+    assert md.geometry(torch.float32) == md.CUDA_CORES == (16, 32, 2)
+    assert md.kernel_name(torch.bfloat16) == "tensor_cores"
+    assert md.kernel_name(torch.float32) == "cuda_cores"
+    # DeepSeek-V3 at decode_32k: 2 head blocks a request, 256 blocks, one split.
+    assert md.split_plan(128, 128, 32768, 132) == (1, 32768)
+    # The serve shape: 8 blocks, one 64-row tile a split.
+    assert md.split_plan(4, 128, 289, 132) == (5, 64)
+
+
+@pytest.mark.parametrize(
+    "R,RR,width",
+    [(512, 64, 576),    # DeepSeek-V3: 36 k-steps of 16
+     (256, 64, 320), (128, 64, 192), (64, 16, 128),
+     (32, 8, 128),      # r 32 reads one 64-wide chunk; r + rr = 40 pads K to 128
+     (32, 4, 128),      # rr 4: 8-byte kr rows (staged by plain loads)
+     (128, 0, 128), (512, 128, 640),
+     (512, 672, 1216),  # r + rr = 1184, the widest row either kernel takes
+     (32, 1152, 1216)],
+)
+def test_padded_width(R, RR, width):
+    """K padded to whole 64-column chunks of the bfloat16 row tile."""
+    assert md.padded_width(R, RR) == width and width % md.CHUNK == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_wide_rows_reach_the_kernel(dtype):
+    """Rows up to r + rr = 1184 are taken in both dtypes (the bfloat16
+    kernel streams the queries where they do not fit beside a row tile):
+    on CPU tensors the wrapper gets as far as the device check."""
+    t = as_torch(make_inputs(1, 4, 512, 672, 8), dtype)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        md.mla_flash_decode_cuda(*t, 3, 0.1)
+
+
+def test_sm_count_is_read_once(monkeypatch):
+    calls = []
+
+    class Props:
+        multi_processor_count = 132
+
+    def props(index):
+        calls.append(index)
+        return Props()
+
+    monkeypatch.setattr(md, "_SM_COUNT", {})
+    monkeypatch.setattr(torch.cuda, "get_device_properties", props)
+    dev = torch.device("cuda", 0)
+    assert md.sm_count(dev) == 132 and md.sm_count(dev) == 132
+    assert calls == [0]
