@@ -13,7 +13,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    ``gather_rows_batch`` and ``gather_rows``; ``fused_frontier_step_wide``
    and ``fused_step_wide`` on the wide sets (int64 ids at bases past 2^31
    and 2^32, ids ending at ``WIDE_ID_MAX``, a sparse set spread over 2^40),
-   each in both index modes of the kernels (direct maps and sorted);
+   each in both index modes of the kernels (direct maps and sorted), the
+   frontier sets with padding other than -1, a hub row and an odd packed
+   stride among them;
    ``frontier_unique_batch`` and its int64 twin on the frontier-dedup set,
    and ``score_policy_update_batch``, ``score_update_batch`` and
    ``score_update`` on the scoring set (every policy, weights on and off);
@@ -36,7 +38,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    from the feature table) and ``segment_sum_equal`` (the layer-1 mean);
    then ``fused_frontier_step`` and both aggregation kernels against their
    plain versions on the captured inputs of the run's own launches (full
-   shape), and all timed;
+   shape), and all timed, the frontier step also by its device operations
+   a call (torch.profiler) and its wrapper's host time;
 3b. the ragged path: the papers preset at ``scale=10`` (550k nodes, 1%
    train nodes, so every PE's seed block is shorter than the batch of
    2000), the same trainer with a ``FeatureStore(use_kernel=True)`` on the
@@ -61,7 +64,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 6. the wide raw loop: phase 3's graph rebased to id_base ``2**31 + 1000``,
    phase 3's run through ``fused_frontier_step_wide`` only: every stream,
    stat and buffer state equal to phase 3's (ids shifted), the kernel
-   bit-exact on every launch of the run, timed, stage times beside phase 3's;
+   bit-exact on every launch of the run, timed as in phase 3, stage times
+   beside phase 3's;
 6b. the wide ragged loop with the store: phase 3b's graph rebased, phase
    3b's run through ``fused_step_wide`` and ``gather_rows_batch``: streams,
    ``feat_sums``, bytes, state and payload equal to phase 3b's;
@@ -435,6 +439,39 @@ def step_ops(args) -> int:
     ids, queries, cand = args[0], args[6], args[7]
     P, C = ids.shape
     return int(P * 10 * (C + queries.shape[1] + cand.shape[1]))
+
+
+def device_op_names(fn) -> list[str]:
+    """Names of the device operations (kernels, memsets, copies) one call
+    of ``fn`` puts on the card, by torch.profiler (synchronised before and
+    after)."""
+    import torch
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+        activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA,
+        ]
+    ) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """Mean host time of one call of ``fn`` (what it takes to enqueue its
+    work: the card is synchronised before each call, not inside it)."""
+    import torch
+
+    total = 0.0
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * total / reps
 
 
 def profile_rows(fn, reps=3) -> str:
@@ -1093,6 +1130,10 @@ def main() -> int:
     )
     print("phase 3: device time per launch by kernel (torch.profiler): "
           + profile_rows(lambda: fs.fused_frontier_step_cuda(*args, **kw)))
+    ops_names = device_op_names(lambda: fs.fused_frontier_step_cuda(*args, **kw))
+    print(f"phase 3: fused_frontier_step: {len(ops_names)} device operations a call "
+          f"({', '.join(n[:40] for n in ops_names)}); wrapper host "
+          f"{host_ms(lambda: fs.fused_frontier_step_cuda(*args, **kw)):.4f} ms")
 
     # The aggregation kernels at the training step's shape (the accuracy
     # pass's launch is the last, at its own smaller batch).
@@ -1518,6 +1559,10 @@ def main() -> int:
     )
     print("phase 6: device time per launch by kernel (torch.profiler): "
           + profile_rows(lambda: fs.fused_frontier_step_wide_cuda(*args, **kw)))
+    ops_names = device_op_names(lambda: fs.fused_frontier_step_wide_cuda(*args, **kw))
+    print(f"phase 6: fused_frontier_step_wide: {len(ops_names)} device operations a call "
+          f"({', '.join(n[:40] for n in ops_names)}); wrapper host "
+          f"{host_ms(lambda: fs.fused_frontier_step_wide_cuda(*args, **kw)):.4f} ms")
     del trainer, result, clock, captured, parts, dev_w
 
     # -- 6b. the wide ragged loop, with the feature store ------------------ #

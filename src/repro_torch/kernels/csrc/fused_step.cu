@@ -21,7 +21,8 @@
 // binary search (sorted mode, for a launch whose id span is past the
 // wrapper's memory budget for the maps). Two kernels on the current
 // stream:
-//   (A) prefetch_state_kernel, one block per PE (score, rank, place);
+//   (A) prefetch_state_kernel, one cluster of 8 blocks per PE (score,
+//       rank, place; it also writes n_placed and n_valid);
 //   (B) probe_kernel, grid (ceil(M / 256), P): hit, hit_slot (-1 on a
 //       miss) and accessed marks for hit slots (several threads may write
 //       the same 1 to a slot: a benign race).
@@ -76,14 +77,16 @@ int launch(int P, int C, int M, int K, rudder::IdIndex<Id> ix, const Id* ids,
            const uint8_t* do_replace, const uint8_t* active_probe, Id* ids2,
            float* s2, uint8_t* valid2, uint8_t* acc3, float* w2, uint8_t* hit,
            int32_t* hit_slot, uint8_t* placed, int32_t* slot_pos,
-           int32_t* rank_slot, const rudder::Policy& pol, cudaStream_t s) {
+           int32_t* n_placed, int32_t* n_valid, int32_t* rank_slot,
+           const rudder::Policy& pol, cudaStream_t s) {
   if (P <= 0) return 0;
-  rudder::prefetch_state_kernel<Id, kSorted, rudder::SplitGates>
-      <<<P, rudder::kStateThreads, 0, s>>>(
-          C, K, rudder::SplitGates{active_score, do_replace, active_probe}, ix,
-          ids, scores, valid, accessed, in_cap, weights, cand, cand_w, nullptr,
-          ids2, s2, valid2, acc3, w2, placed, slot_pos, rank_slot, pol);
-  cudaError_t err = cudaGetLastError();
+  const rudder::StateOut<uint8_t> out{placed, K, slot_pos, C, n_placed,
+                                      n_valid, 1, nullptr, 0};
+  cudaError_t err = rudder::launch_state<Id, kSorted>(
+      P, C, K, rudder::SplitGates{active_score, do_replace, active_probe}, ix,
+      ids, scores, valid, accessed, in_cap, weights, cand, cand_w,
+      static_cast<const float*>(nullptr), ids2, s2, valid2, acc3, w2, out,
+      rank_slot, pol, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (M > 0) {
     dim3 grid((M + kProbeThreads - 1) / kProbeThreads, P);
@@ -101,7 +104,8 @@ int launch(int P, int C, int M, int K, rudder::IdIndex<Id> ix, const Id* ids,
 // Launches (A) then (B) on `stream`. Pointers are device pointers of
 // contiguous tensors; `weights`, `cand_w` and `w2` may be null (the
 // unweighted policies; with weights, cand_w is required). Ids must lie in
-// [0, N) or be negative padding. Returns the cudaError_t of the first
+// [0, N) or be negative padding; cand_first is filled with 0 and slot_of
+// with -1 (prefetch_state.cuh). Returns the cudaError_t of the first
 // failed launch, or 0.
 extern "C" int rudder_fused_step(
     int P, int C, int M, int K, int N, const int32_t* ids, const float* scores,
@@ -110,17 +114,18 @@ extern "C" int rudder_fused_step(
     const float* cand_w, const uint8_t* active_score, const uint8_t* do_replace,
     const uint8_t* active_probe, int32_t* ids2, float* s2, uint8_t* valid2,
     uint8_t* acc3, float* w2, uint8_t* hit, int32_t* hit_slot,
-    uint8_t* placed, int32_t* slot_pos, int32_t* slot_of, int32_t* cand_first,
-    int32_t* rank_slot, float increment, float decay, float threshold,
-    float score_cap, float initial_score, int mode, void* stream) {
+    uint8_t* placed, int32_t* slot_pos, int32_t* n_placed, int32_t* n_valid,
+    int32_t* slot_of, int32_t* cand_first, int32_t* rank_slot, float increment,
+    float decay, float threshold, float score_cap, float initial_score,
+    int mode, void* stream) {
   const rudder::Policy pol{increment, decay, threshold, score_cap,
                            initial_score, mode};
   const rudder::IdIndex<int32_t> ix{0, N, slot_of, cand_first};
   return launch<int32_t, false>(
       P, C, M, K, ix, ids, scores, valid, accessed, in_cap, weights, queries,
       cand, cand_w, active_score, do_replace, active_probe, ids2, s2, valid2,
-      acc3, w2, hit, hit_slot, placed, slot_pos, rank_slot, pol,
-      static_cast<cudaStream_t>(stream));
+      acc3, w2, hit, hit_slot, placed, slot_pos, n_placed, n_valid, rank_slot,
+      pol, static_cast<cudaStream_t>(stream));
 }
 
 // The int64 entry. `sorted` = 0: direct maps slot_of / cand_first over
@@ -138,8 +143,9 @@ extern "C" int rudder_fused_step_wide(
     const uint8_t* active_score, const uint8_t* do_replace,
     const uint8_t* active_probe, int64_t* ids2, float* s2, uint8_t* valid2,
     uint8_t* acc3, float* w2, uint8_t* hit, int32_t* hit_slot,
-    uint8_t* placed, int32_t* slot_pos, int32_t* slot_of, int32_t* cand_first,
-    int32_t* rank_slot, const int64_t* res_sorted, const int64_t* res_order,
+    uint8_t* placed, int32_t* slot_pos, int32_t* n_placed, int32_t* n_valid,
+    int32_t* slot_of, int32_t* cand_first, int32_t* rank_slot,
+    const int64_t* res_sorted, const int64_t* res_order,
     const int64_t* cand_sorted, const int64_t* cand_order, int32_t* cand_slot,
     float increment, float decay, float threshold, float score_cap,
     float initial_score, int mode, void* stream) {
@@ -153,10 +159,12 @@ extern "C" int rudder_fused_step_wide(
     return launch<int64_t, true>(
         P, C, M, K, ix, ids, scores, valid, accessed, in_cap, weights, queries,
         cand, cand_w, active_score, do_replace, active_probe, ids2, s2, valid2,
-        acc3, w2, hit, hit_slot, placed, slot_pos, rank_slot, pol, s);
+        acc3, w2, hit, hit_slot, placed, slot_pos, n_placed, n_valid,
+        rank_slot, pol, s);
   }
   return launch<int64_t, false>(
       P, C, M, K, ix, ids, scores, valid, accessed, in_cap, weights, queries,
       cand, cand_w, active_score, do_replace, active_probe, ids2, s2, valid2,
-      acc3, w2, hit, hit_slot, placed, slot_pos, rank_slot, pol, s);
+      acc3, w2, hit, hit_slot, placed, slot_pos, n_placed, n_valid, rank_slot,
+      pol, s);
 }

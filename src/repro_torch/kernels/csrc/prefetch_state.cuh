@@ -2,13 +2,22 @@
 // state, shared by fused_frontier_step.cu and fused_step.cu (sm_90a).
 //
 // Spec: repro_torch/kernels/ref.py::fused_step_core, steps 1 and 2. One
-// block per PE:
+// thread-block cluster of kStateCluster blocks per PE; each block owns a
+// contiguous eighth of the PE's slots and of its candidates and walks it
+// in tiles of kStateThreads, one element a thread (neighbouring threads on
+// neighbouring addresses, so every load coalesces):
 //   * the scoring round on valid slots of active_score PEs;
-//   * free / stale slot fill ranks and fresh candidate ranks by block-wide
-//     scans over contiguous per-thread chunks, so ranks follow slot and
-//     candidate order;
+//   * free / stale slot fill ranks and fresh candidate ranks by a block
+//     scan per tile plus a carry, after the counts of the lower blocks of
+//     the cluster (read from their shared memory, DSMEM), so ranks follow
+//     slot and candidate order as in the plain version;
 //   * placement: the candidate of fresh rank r takes the slot of fill
 //     rank r, at initial_score.
+// Three cluster barriers order the passes: the first makes every slot's
+// index entry and every candidate's first-occurrence entry visible before
+// the fresh test, the second makes every fresh flag and fill rank visible
+// before placement (which rewrites slot_of), the last keeps each block's
+// shared counts alive until the others have read them.
 //
 // Ids are a template parameter: int32_t on the narrow path, int64_t on the
 // wide one (graphs whose global ids sit at an id_base or pass 2^31 - 2).
@@ -19,11 +28,11 @@
 //     offset id - lo over [0, span):
 //       slot_of[p][id - lo]    slot holding id (or -1), left updated for
 //                              the probe that follows in the including file;
-//       cand_first[p][id - lo] earliest candidate position holding id
-//                              (atomicMin).
-//     Both are (P, span) int32 scratch, filled by the wrapper (-1 and
-//     INT_MAX). The narrow path is lo = 0, span = N: the maps, loads and
-//     stores of the slice-1 kernel.
+//       cand_first[p][id - lo] INT_MAX - (earliest candidate position
+//                              holding id), by atomicMax, so that a zero
+//                              fill initialises it.
+//     Both are (P, span) int32 scratch, filled by the caller (-1 and 0).
+//     The narrow path is lo = 0, span = N.
 //   sorted (kSorted = true): for a launch whose span is past the wrapper's
 //     memory budget for the maps. Per PE, the resident ids sorted once
 //     (invalid slots as the sentinel, the largest Id, which no eligible id
@@ -36,6 +45,11 @@
 // replacement round guarantees (it only admits non-resident,
 // first-occurrence ids).
 //
+// Where the round writes placed, slot_pos and the per-PE counts n_place
+// and n_valid is the caller's (StateOut): separate tensors for the fused
+// step, the columns of the packed readback and the counters for the
+// frontier step, so that no epilogue copies them.
+//
 // lo is also the origin of the local-indexed per-node arrays (part_of,
 // node_weights): node_weights[id - lo]. On the frontier path lo is the
 // graph's id_base in both modes.
@@ -47,15 +61,20 @@
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace rudder {
 
-constexpr int kStateThreads = 1024;
+namespace cg = cooperative_groups;
+
+constexpr int kStateThreads = 512;
+constexpr int kStateCluster = 8;
 constexpr int kModeAccumulate = 0;
 constexpr int kModeReset = 1;
 constexpr int kModeCapped = 2;
+constexpr int32_t kInt32Max = 2147483647;
 
 struct Policy {
   float increment;
@@ -108,6 +127,29 @@ struct IdIndex {
     const int64_t d = static_cast<int64_t>(id) - static_cast<int64_t>(lo);
     return (id >= 0 && d >= 0 && d < span) ? d : -1;
   }
+};
+
+// The round's per-PE outputs besides the state: placed (0/1 as PlacedT)
+// and slot_pos rows at their row strides, n_place and n_valid at
+// count_stride, and optionally n_valid once more at n_valid_col (the
+// packed readback's last column). Optionally too, for the kernels that run
+// after the round: rows of fill_words 32-bit words at fill_ones set to all
+// ones, and the first two words of every 4-word row at clear_counters set
+// to 0. The optional pointers are null when unused.
+template <typename PlacedT>
+struct StateOut {
+  PlacedT* placed;
+  int64_t placed_stride;
+  int32_t* slot_pos;
+  int64_t slot_pos_stride;
+  int32_t* n_place;
+  int32_t* n_valid;
+  int64_t count_stride;
+  int32_t* n_valid_col;
+  int64_t n_valid_col_stride;
+  uint32_t* fill_ones;
+  int64_t fill_words;
+  int32_t* clear_counters;
 };
 
 // First position in row[0, n) whose value is >= v.
@@ -205,11 +247,12 @@ __device__ __forceinline__ float score_round(float s, bool accessed, float w,
   return pol.mode == kModeCapped ? fminf(t, pol.score_cap) : t;
 }
 
-// One block per PE: score, rank, place. A placed slot's weight comes from
-// cand_w[k] (per candidate) when given, else node_weights[id - lo], else
-// 1.0.
-template <typename Id, bool kSorted, class Gates>
-__global__ void __launch_bounds__(kStateThreads)
+// Grid (kStateCluster, P), one cluster per PE: score, rank, place. A
+// placed slot's weight comes from cand_w[k] (per candidate) when given,
+// else node_weights[id - lo], else 1.0.
+template <typename Id, bool kSorted, class Gates, typename PlacedT>
+__global__ void __cluster_dims__(kStateCluster, 1, 1)
+    __launch_bounds__(kStateThreads)
     prefetch_state_kernel(int C, int K, Gates gates, IdIndex<Id> ix,
                           const Id* __restrict__ ids,
                           const float* __restrict__ scores,
@@ -223,10 +266,14 @@ __global__ void __launch_bounds__(kStateThreads)
                           Id* __restrict__ ids2, float* __restrict__ s2,
                           uint8_t* __restrict__ valid2,
                           uint8_t* __restrict__ acc3, float* __restrict__ w2,
-                          uint8_t* __restrict__ placed,
-                          int32_t* __restrict__ slot_pos,
+                          StateOut<PlacedT> out,
                           int32_t* __restrict__ rank_slot, Policy pol) {
-  const int p = blockIdx.x;
+  // This block's counts, read by the whole cluster: free, stale and valid
+  // slots, fresh candidates.
+  __shared__ int counts[4];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int b = static_cast<int>(cluster.block_rank());
+  const int p = blockIdx.y;
   const int t = threadIdx.x;
   const int T = blockDim.x;
   const int g = gates(p);
@@ -238,16 +285,29 @@ __global__ void __launch_bounds__(kStateThreads)
   const int64_t row_n = (int64_t)p * ix.span;
   int32_t* my_slot_of = kSorted ? nullptr : ix.slot_of + row_n;
   int32_t* my_cand_first = kSorted ? nullptr : ix.cand_first + row_n;
+  PlacedT* my_placed = out.placed + (int64_t)p * out.placed_stride;
+  int32_t* my_slot_pos = out.slot_pos + (int64_t)p * out.slot_pos_stride;
 
-  // Contiguous chunks keep ranks in slot / candidate order.
-  const int chunk_c = (C + T - 1) / T;
-  const int c0 = min(t * chunk_c, C), c1 = min(c0 + chunk_c, C);
-  const int chunk_k = (K + T - 1) / T;
-  const int k0 = min(t * chunk_k, K), k1 = min(k0 + chunk_k, K);
+  if (out.fill_ones) {
+    uint32_t* row = out.fill_ones + (int64_t)p * out.fill_words;
+    for (int64_t j = (int64_t)b * T + t; j < out.fill_words;
+         j += kStateCluster * T) {
+      row[j] = 0xFFFFFFFFu;
+    }
+  }
+  if (out.clear_counters && b == 0 && t == 0) {
+    out.clear_counters[4 * p] = 0;
+    out.clear_counters[4 * p + 1] = 0;
+  }
+
+  const int c_span = (C + kStateCluster - 1) / kStateCluster;
+  const int c_lo = min(b * c_span, C), c_hi = min(c_lo + c_span, C);
+  const int k_span = (K + kStateCluster - 1) / kStateCluster;
+  const int k_lo = min(b * k_span, K), k_hi = min(k_lo + k_span, K);
 
   // -- score round; copy the state through; index the resident ids ----- //
-  int n_free_mine = 0, n_stale_mine = 0;
-  for (int c = c0; c < c1; ++c) {
+  int n_free_mine = 0, n_stale_mine = 0, n_valid_mine = 0;
+  for (int c = c_lo + t; c < c_hi; c += T) {
     const int64_t i = row_c + c;
     const bool v = valid[i] != 0;
     const bool a = accessed[i] != 0;
@@ -266,37 +326,71 @@ __global__ void __launch_bounds__(kStateThreads)
     }
     n_free_mine += (!v && in_cap[i] != 0);
     n_stale_mine += (v && s < pol.threshold);
+    n_valid_mine += v;
   }
   if constexpr (!kSorted) {
-    for (int k = k0; k < k1; ++k) {
+    for (int k = k_lo + t; k < k_hi; k += T) {
       const int64_t d = ix.offset(cand[row_k + k]);
-      if (d >= 0) atomicMin(&my_cand_first[d], k);
+      if (d >= 0) atomicMax(&my_cand_first[d], kInt32Max - k);
     }
   }
-  int free_before, stale_before, n_free, n_stale;
-  block_scan2(n_free_mine, n_stale_mine, &free_before, &stale_before, &n_free,
-              &n_stale);
+  int e0, e1, tot_free, tot_stale, tot_valid, unused;
+  block_scan2(n_free_mine, n_stale_mine, &e0, &e1, &tot_free, &tot_stale);
+  block_scan2(n_valid_mine, 0, &e0, &e1, &tot_valid, &unused);
+  if (t == 0) {
+    counts[0] = tot_free;
+    counts[1] = tot_stale;
+    counts[2] = tot_valid;
+  }
+  __threadfence();
+  cluster.sync();
 
-  // -- fill ranks of free then stale slots ------------------------------ //
-  const int big = C + K + 1;
-  for (int c = c0; c < c1; ++c) {
-    const int64_t i = row_c + c;
-    const bool v = valid2[i] != 0;
-    int r = big;
-    if (!v && in_cap[i] != 0) {
-      r = free_before++;
-    } else if (v && s2[i] < pol.threshold) {
-      r = n_free + stale_before++;
+  int free_before = 0, stale_before = 0, n_free = 0, n_stale = 0, n_valid = 0;
+  for (int r = 0; r < kStateCluster; ++r) {
+    const int* theirs = cluster.map_shared_rank(counts, r);
+    const int f = theirs[0], s = theirs[1];
+    if (r < b) {
+      free_before += f;
+      stale_before += s;
     }
-    slot_pos[i] = r;
-    if (r < big) rank_slot[row_c + r] = c;
+    n_free += f;
+    n_stale += s;
+    n_valid += theirs[2];
+  }
+
+  // -- fill ranks of free then stale slots, in slot order --------------- //
+  // A thread re-reads only the slots it wrote above (same c, same t).
+  const int big = C + K + 1;
+  for (int base = c_lo; base < c_hi; base += T) {
+    const int c = base + t;
+    const int64_t i = row_c + c;
+    int is_free = 0, is_stale = 0;
+    if (c < c_hi) {
+      const bool v = valid2[i] != 0;
+      is_free = !v && in_cap[i] != 0;
+      is_stale = v && s2[i] < pol.threshold;
+    }
+    int ef, es, tf, ts;
+    block_scan2(is_free, is_stale, &ef, &es, &tf, &ts);
+    if (c < c_hi) {
+      int r = big;
+      if (is_free) {
+        r = free_before + ef;
+      } else if (is_stale) {
+        r = n_free + stale_before + es;
+      }
+      my_slot_pos[c] = r;
+      if (r < big) rank_slot[row_c + r] = c;
+    }
+    free_before += tf;
+    stale_before += ts;
   }
 
   // -- fresh candidates: valid, not resident, first occurrence --------- //
   // The flag is parked in `placed` so the placement pass below never
   // re-reads slot_of while other threads update it.
   int n_fresh_mine = 0;
-  for (int k = k0; k < k1; ++k) {
+  for (int k = k_lo + t; k < k_hi; k += T) {
     const Id id = cand[row_k + k];
     bool fresh = false;
     if (do_replace && id >= 0) {
@@ -307,27 +401,40 @@ __global__ void __launch_bounds__(kStateThreads)
         fresh = !resident && ix.cand_order[row_k + jc] == k;
       } else {
         const int64_t d = ix.offset(id);
-        fresh = d >= 0 && my_slot_of[d] < 0 && my_cand_first[d] == k;
+        fresh = d >= 0 && my_slot_of[d] < 0 && my_cand_first[d] == kInt32Max - k;
       }
     }
-    placed[row_k + k] = fresh;
+    my_placed[k] = static_cast<PlacedT>(fresh);
     n_fresh_mine += fresh;
   }
-  int fresh_before, unused_before, n_fresh, unused_total;
-  block_scan2(n_fresh_mine, 0, &fresh_before, &unused_before, &n_fresh,
-              &unused_total);
+  int tot_fresh;
+  block_scan2(n_fresh_mine, 0, &e0, &e1, &tot_fresh, &unused);
+  if (t == 0) counts[3] = tot_fresh;
+  __threadfence();
+  cluster.sync();
+
+  int fresh_before = 0, n_fresh = 0;
+  for (int r = 0; r < kStateCluster; ++r) {
+    const int f = cluster.map_shared_rank(counts, r)[3];
+    if (r < b) fresh_before += f;
+    n_fresh += f;
+  }
   const int n_place = do_replace ? min(n_free + n_stale, n_fresh) : 0;
 
   // -- placement: the candidate of fresh rank r takes the slot of fill
   //    rank r. New ids are never resident, so the slot_of entries cleared
   //    (replaced stale ids) and set (new ids) never coincide. ------------ //
-  for (int k = k0; k < k1; ++k) {
-    const int64_t j = row_k + k;
-    bool is_placed = false;
-    if (placed[j]) {
-      const int r = fresh_before++;
-      if (r < n_place) {
+  for (int base = k_lo; base < k_hi; base += T) {
+    const int k = base + t;
+    const int is_fresh = k < k_hi && my_placed[k] != 0;
+    int ef, unused_e, tf, unused_t;
+    block_scan2(is_fresh, 0, &ef, &unused_e, &tf, &unused_t);
+    if (k < k_hi) {
+      bool is_placed = false;
+      const int r = fresh_before + ef;
+      if (is_fresh && r < n_place) {
         is_placed = true;
+        const int64_t j = row_k + k;
         const int c = rank_slot[row_c + r];
         const int64_t i = row_c + c;
         const Id id = cand[j];
@@ -352,9 +459,41 @@ __global__ void __launch_bounds__(kStateThreads)
                                 : 1.0f);
         }
       }
+      my_placed[k] = static_cast<PlacedT>(is_placed);
     }
-    placed[j] = is_placed;
+    fresh_before += tf;
   }
+  if (b == 0 && t == 0) {
+    // Placement fills free slots (invalid before) first, then stale ones.
+    const int valid_after = n_valid + min(n_place, n_free);
+    out.n_place[(int64_t)p * out.count_stride] = n_place;
+    out.n_valid[(int64_t)p * out.count_stride] = valid_after;
+    if (out.n_valid_col) {
+      out.n_valid_col[(int64_t)p * out.n_valid_col_stride] = valid_after;
+    }
+  }
+  cluster.sync();  // keep `counts` alive until every block has read it
+}
+
+// Launches prefetch_state_kernel on `s`: grid (kStateCluster, P).
+template <typename Id, bool kSorted, class Gates, typename PlacedT>
+inline cudaError_t launch_state(int P, int C, int K, Gates gates,
+                                const IdIndex<Id>& ix, const Id* ids,
+                                const float* scores, const uint8_t* valid,
+                                const uint8_t* accessed, const uint8_t* in_cap,
+                                const float* weights, const Id* cand,
+                                const float* cand_w, const float* node_weights,
+                                Id* ids2, float* s2, uint8_t* valid2,
+                                uint8_t* acc3, float* w2,
+                                const StateOut<PlacedT>& out,
+                                int32_t* rank_slot, const Policy& pol,
+                                cudaStream_t s) {
+  prefetch_state_kernel<Id, kSorted, Gates, PlacedT>
+      <<<dim3(kStateCluster, P), kStateThreads, 0, s>>>(
+          C, K, gates, ix, ids, scores, valid, accessed, in_cap, weights, cand,
+          cand_w, node_weights, ids2, s2, valid2, acc3, w2, out, rank_slot,
+          pol);
+  return cudaGetLastError();
 }
 
 }  // namespace rudder

@@ -6,22 +6,35 @@ Ports of the reference's Pallas ``fused_frontier_step_pallas`` (the
 single-launch raw path) and ``fused_step_pallas`` (the ragged-seed-block
 path), and of their wide-id twins ``fused_frontier_step_wide_pallas``
 and ``fused_step_wide_pallas``, which take int64 ids here where the
-reference splits them into ``(hi, lo)`` int32 word planes. The wrappers
-keep the reference's split between framework ops and the kernel: the
-frontier row sort before it and the miss compaction, packed readback and
-payload scatter after it (:func:`repro_torch.kernels.ref.frontier_pack`)
-stay PyTorch ops, as they were XLA ops around the ``pallas_call``; the
-score → replace → probe core is CUDA. Their plain versions are
-:func:`repro_torch.kernels.ref.fused_frontier_step`,
+reference splits them into ``(hi, lo)`` int32 word planes. Their plain
+versions are :func:`repro_torch.kernels.ref.fused_frontier_step`,
 :func:`repro_torch.kernels.ref.fused_step` and their ``_wide`` twins,
 which they match bit for bit.
 
+The frontier step's direct route (every narrow launch, and every wide
+launch whose scratch fits :data:`MAP_BUDGET_BYTES`) is the whole step on
+the card: the wrapper checks, allocates the outputs and one scratch
+block, and makes one C call, which clears the scratch (two memsets) and
+launches three kernels — a count sort's histogram over the local ids
+``id - id_base``, the state round, and a look-back scan that probes,
+codes, compacts the misses and writes the packed readback. No PyTorch op
+runs between the checks and the return. The row sort and
+:func:`repro_torch.kernels.ref.frontier_pack` are not called on this
+route. The scratch block is kept from one launch to the next on the same
+device and stream (``_SCRATCH``): allocating it anew cost in-run
+launches a ``cudaMalloc``. With a feature store's table attached, the
+admission rows are still copied into the payload by PyTorch ops after
+the launch (:func:`repro_torch.kernels.ref.payload_scatter`).
+
 The kernels look ids up in per-PE direct-mapped ``(P, span)`` maps keyed
-by ``id - lo`` (``prefetch_state.cuh``). A wide launch whose maps would
-pass :data:`MAP_BUDGET_BYTES` (a sparse id set spread over a span of
-2^40, say) takes the kernels' sorted mode instead: the wrapper sorts the
-resident ids and the candidates once per launch and the kernel
-binary-searches them. Both modes give the same outputs.
+by ``id - lo`` (``prefetch_state.cuh``). A wide launch whose scratch
+would pass :data:`MAP_BUDGET_BYTES` (a sparse id set spread over a span
+of 2^40, say) takes the sorted route instead, which stays as it was: the
+wrapper row-sorts the frontier, the resident ids and the candidates with
+``torch.sort``, the state round binary-searches them, and the miss
+compaction and packing are :func:`repro_torch.kernels.ref.frontier_pack_wide`.
+The fused step's wrappers fill their maps and sort (in the sorted mode)
+with PyTorch ops. Every route gives the same outputs.
 """
 
 from __future__ import annotations
@@ -33,56 +46,58 @@ import torch
 
 from . import native
 from .native import check_tensor, ptr
-from .ref import frontier_pack, frontier_pack_wide
+from .ref import frontier_pack_wide, payload_scatter
 
 _MODES = {"accumulate": 0, "reset": 1, "capped": 2}
-_INT32_MAX = int(np.iinfo(np.int32).max)
 #: The sorted mode's padding for invalid resident slots: no id the wide
 #: path accepts (``<= WIDE_ID_MAX``, about 2^61) can equal it.
 _INT64_MAX = int(np.iinfo(np.int64).max)
+#: Local ids a tile of the frontier step's scan covers (``kTile`` of
+#: ``csrc/fused_frontier_step.cu``).
+_EXPAND_TILE = 512
 
-#: Most bytes a wide launch spends on its two ``(P, span)`` int32 maps;
-#: past it the launch takes the sorted mode. (The checks on the card set it
-#: to 0 for a while to hold the sorted mode on dense scenario sets too.)
+#: Most bytes a wide launch spends on its direct-mapped scratch (the
+#: frontier step's whole scratch block, the fused step's two ``(P, span)``
+#: int32 maps); past it the launch takes the sorted mode. (The checks on
+#: the card set it to 0 for a while to hold the sorted mode on dense
+#: scenario sets too.)
 MAP_BUDGET_BYTES = 256 << 20
 
 _PTR = ctypes.c_void_p
-_FRONTIER_ARGS = (
-    [ctypes.c_int] * 5        # P, C, K, Mt, N
-    + [_PTR] * 11             # aug .. node_weights
-    + [_PTR] * 8              # ids2 .. slot_pos
-    + [_PTR] * 3              # slot_of, cand_first, rank_slot
-    + [ctypes.c_float] * 5    # increment .. initial_score
-    + [ctypes.c_int, _PTR]    # mode, stream
+_I64 = ctypes.c_int64
+_CONSTS = [ctypes.c_float] * 5 + [ctypes.c_int, _PTR]  # increment .. initial_score, mode, stream
+_DIRECT_ARGS = (
+    [_PTR] * 10               # aug, ids .. node_weights
+    + [_PTR] * 6              # ids2, s2, valid2, acc3, w2, packed
+    + [_PTR, _I64, _PTR, _I64]  # zero region, 0xFF region
+    + [_PTR] * 10             # counters .. others
+    + _CONSTS
+)
+_FRONTIER_ARGS = [ctypes.c_int] * 7 + _DIRECT_ARGS  # P, C, K, Mt, N, kc, n_tiles
+_FRONTIER_WIDE_ARGS = [ctypes.c_int] * 7 + [_I64] + _DIRECT_ARGS  # + id_base
+_SORTED_ARGS = [_PTR] * 5     # res_sorted, res_order, cand_sorted, cand_order, cand_slot
+_FRONTIER_SORTED_ARGS = (
+    [ctypes.c_int] * 5 + [_I64]  # P, C, K, Mt, N, id_base
+    + [_PTR] * 11             # aug, sk, ids .. node_weights
+    + [_PTR] * 11             # ids2 .. w2, code, placed, slot_pos, n_place, n_valid, rank_slot
+    + _SORTED_ARGS
+    + _CONSTS
 )
 _STEP_ARGS = (
     [ctypes.c_int] * 5        # P, C, M, K, N
     + [_PTR] * 12             # ids .. active_probe
-    + [_PTR] * 9              # ids2 .. slot_pos
+    + [_PTR] * 11             # ids2 .. slot_pos, n_placed, n_valid
     + [_PTR] * 3              # slot_of, cand_first, rank_slot
-    + [ctypes.c_float] * 5    # increment .. initial_score
-    + [ctypes.c_int, _PTR]    # mode, stream
-)
-_SORTED_ARGS = [_PTR] * 5     # res_sorted, res_order, cand_sorted, cand_order, cand_slot
-_FRONTIER_WIDE_ARGS = (
-    [ctypes.c_int] * 5        # P, C, K, Mt, N
-    + [ctypes.c_int64, ctypes.c_int]  # id_base, sorted
-    + [_PTR] * 11             # aug .. node_weights
-    + [_PTR] * 8              # ids2 .. slot_pos
-    + [_PTR] * 3              # slot_of, cand_first, rank_slot
-    + _SORTED_ARGS
-    + [ctypes.c_float] * 5    # increment .. initial_score
-    + [ctypes.c_int, _PTR]    # mode, stream
+    + _CONSTS
 )
 _STEP_WIDE_ARGS = (
     [ctypes.c_int] * 4        # P, C, M, K
-    + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int]  # lo, span, sorted
+    + [_I64, _I64, ctypes.c_int]  # lo, span, sorted
     + [_PTR] * 12             # ids .. active_probe
-    + [_PTR] * 9              # ids2 .. slot_pos
+    + [_PTR] * 11             # ids2 .. slot_pos, n_placed, n_valid
     + [_PTR] * 3              # slot_of, cand_first, rank_slot
     + _SORTED_ARGS
-    + [ctypes.c_float] * 5    # increment .. initial_score
-    + [ctypes.c_int, _PTR]    # mode, stream
+    + _CONSTS
 )
 
 
@@ -106,30 +121,151 @@ def _check_state(
         check_tensor(weights, "weights", torch.float32, (P, C))
 
 
+def _check_frontier(touched_aug, part_of, cand, node_weights, P, idt):
+    Mt = touched_aug.shape[1] - 1
+    if Mt < 0:
+        raise ValueError("touched_aug needs its gate column")
+    N = part_of.shape[0]
+    for name, t, dt, shape in (
+        ("touched_aug", touched_aug, idt, (P, Mt + 1)),
+        ("part_of", part_of, torch.int32, (N,)),
+        ("cand", cand, idt, (P, cand.shape[-1])),
+    ):
+        check_tensor(t, name, dt, shape)
+    if node_weights is not None:
+        check_tensor(node_weights, "node_weights", torch.float32, (N,))
+    return Mt, N
+
+
+def _constants(increment, decay, threshold, score_cap, initial_score, mode, dev):
+    return (
+        float(increment), float(decay), float(threshold), float(score_cap),
+        float(initial_score), _MODES[mode], torch.cuda.current_stream(dev).cuda_stream,
+    )
+
+
 def _maps(P: int, N: int, dev):
-    """The per-PE direct-mapped scratch of ``prefetch_state.cuh``."""
+    """The fused step's per-PE direct-mapped scratch of
+    ``prefetch_state.cuh``: ``slot_of`` at -1 and ``cand_first`` at 0."""
     slot_of = torch.full((P, N), -1, dtype=torch.int32, device=dev)
-    cand_first = torch.full((P, N), _INT32_MAX, dtype=torch.int32, device=dev)
+    cand_first = torch.zeros((P, N), dtype=torch.int32, device=dev)
     return slot_of, cand_first
 
 
-def _wide_index(ids, valid, cand, span: int):
-    """The IdIndex scratch of a wide launch: ``(sorted, slot_of,
-    cand_first, res_sorted, res_order, cand_sorted, cand_order,
-    cand_slot)``, the tensors of the other mode None. The sorted mode
-    when the two maps would pass :data:`MAP_BUDGET_BYTES`."""
+def _sorted_index(ids, valid, cand):
+    """The sorted mode's rows: ``(res_sorted, res_order, cand_sorted,
+    cand_order, cand_slot)``."""
     P, K = cand.shape
-    dev = ids.device
-    if 8 * P * span <= MAP_BUDGET_BYTES:
-        return (False, *_maps(P, span, dev), None, None, None, None, None)
     res = torch.where(valid, ids, torch.full_like(ids, _INT64_MAX))
     res_sorted, res_order = torch.sort(res, dim=1)
     cand_sorted, cand_order = torch.sort(cand, dim=1, stable=True)
-    cand_slot = torch.empty((P, K), dtype=torch.int32, device=dev)
+    cand_slot = torch.empty((P, K), dtype=torch.int32, device=ids.device)
     return (
-        True, None, None, res_sorted.contiguous(), res_order.contiguous(),
+        res_sorted.contiguous(), res_order.contiguous(),
         cand_sorted.contiguous(), cand_order.contiguous(), cand_slot,
     )
+
+
+def _wide_index(ids, valid, cand, span: int):
+    """The fused step's IdIndex scratch of a wide launch: ``(sorted,
+    slot_of, cand_first, res_sorted, res_order, cand_sorted, cand_order,
+    cand_slot)``, the tensors of the other mode None. The sorted mode
+    when the two maps would pass :data:`MAP_BUDGET_BYTES`."""
+    P = ids.shape[0]
+    if 8 * P * span <= MAP_BUDGET_BYTES:
+        return (False, *_maps(P, span, ids.device), None, None, None, None, None)
+    return (True, None, None, *_sorted_index(ids, valid, cand))
+
+
+#: The frontier step's scratch block of each (device, stream), kept from one
+#: direct-route launch to the next on that stream (stream order keeps a
+#: launch's memsets behind the previous launch's kernels). A fresh block of
+#: tens of MB each launch cost the in-run launch a ``cudaMalloc`` of 0.5–3
+#: ms whenever the training step had split the cached one.
+_SCRATCH: dict = {}
+
+
+def frontier_scratch(P: int, C: int, N: int, Mt: int, id_bytes: int):
+    """Layout of the frontier step's scratch block on its direct route:
+    ``({name: (byte offset, bytes)}, total bytes, n_tiles)``. The zero
+    region runs from 0 to ``slot_of``'s offset (the per-row counts of -1
+    and other negative keys, the scan's ticket and ``(P, n_tiles)`` tile
+    states, ``cand_first`` and the count sort's ``counts``, both ``(P,
+    N)``); the 0xFF region is ``slot_of``; ``rank_slot`` and the gathered
+    negative keys (``others``) are not cleared. Every part starts on a
+    16-byte boundary."""
+    n_tiles = -(-N // _EXPAND_TILE)
+    parts = (
+        ("neg", P * 2 * 4),
+        ("ticket", 4),
+        ("tiles", P * n_tiles * 8),
+        ("cand_first", P * N * 4),
+        ("counts", P * N * 4),
+        ("slot_of", P * N * 4),
+        ("rank_slot", P * C * 4),
+        ("others", P * Mt * id_bytes),
+    )
+    layout, at = {}, 0
+    for name, nbytes in parts:
+        layout[name] = (at, nbytes)
+        at += -(-nbytes // 16) * 16
+    return layout, at, n_tiles
+
+
+def _scratch_block(nbytes: int, dev, stream: int) -> torch.Tensor:
+    """At least ``nbytes`` of the (device, stream)'s kept scratch."""
+    key = (dev.index, stream)
+    block = _SCRATCH.get(key)
+    if block is None or block.numel() < nbytes:
+        block = _SCRATCH[key] = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    return block
+
+
+def _frontier_direct(
+    entry, wide_args, state, touched_aug, part_of, cand, node_weights, payload,
+    table, loc, *, cand_cap, id_base, consts,
+):
+    """The direct route of both frontier entries: allocations and one C
+    call (two memsets, three kernels), then, with a store table, the
+    payload scatter."""
+    ids, scores, valid, accessed, in_capacity, weights = state
+    P, C = ids.shape
+    K = cand.shape[1]
+    Mt = touched_aug.shape[1] - 1
+    N = part_of.shape[0]
+    kc = min(int(cand_cap), Mt)
+    dev = ids.device
+    layout, total, n_tiles = frontier_scratch(P, C, N, Mt, ids.element_size())
+    ids2 = torch.empty_like(ids)
+    s2 = torch.empty_like(scores)
+    valid2 = torch.empty_like(valid)
+    acc3 = torch.empty_like(accessed)
+    w2 = torch.empty_like(weights) if weights is not None else None
+    words = 3 if ids.dtype == torch.int64 else 2
+    packed = torch.empty((P, words * Mt + K + C + 1), dtype=torch.int32, device=dev)
+    cand_next = torch.empty((P, kc), dtype=ids.dtype, device=dev)
+    counters = torch.empty((P, 4), dtype=torch.int32, device=dev)
+    base = _scratch_block(max(total, 16), dev, consts[-1]).data_ptr()
+    at = {name: base + off for name, (off, _) in layout.items()}
+    err = entry(
+        P, C, K, Mt, N, kc, n_tiles, *wide_args,
+        ptr(touched_aug), ptr(ids), ptr(scores), ptr(valid), ptr(accessed),
+        ptr(in_capacity), ptr(weights), ptr(part_of), ptr(cand), ptr(node_weights),
+        ptr(ids2), ptr(s2), ptr(valid2), ptr(acc3), ptr(w2), ptr(packed),
+        base, layout["slot_of"][0], at["slot_of"], layout["slot_of"][1],
+        ptr(counters), at["neg"], at["ticket"], at["tiles"], at["cand_first"],
+        at["counts"], ptr(cand_next), at["slot_of"], at["rank_slot"], at["others"],
+        *consts,
+    )
+    native.check(err, entry.__name__)
+    payload2 = payload
+    if table is not None:
+        col = words * Mt + K
+        payload2 = payload_scatter(
+            ids2, packed[:, col : col + C], counters[:, 2], payload, table, loc,
+            id_base=id_base,
+        )
+    return ids2, s2, valid2, acc3, w2, payload2, cand_next, packed, counters
 
 
 def fused_frontier_step_cuda(
@@ -155,67 +291,32 @@ def fused_frontier_step_cuda(
     mode: str,
     initial_score: float,
 ):
-    """One launch of the Hopper frontier-step kernel; same arguments and
-    outputs as :func:`repro_torch.kernels.ref.fused_frontier_step`.
+    """One launch of the Hopper frontier step (the direct route); same
+    arguments and outputs as
+    :func:`repro_torch.kernels.ref.fused_frontier_step`.
 
     Takes int32 ids (``touched_aug``, ``ids``, ``cand``, ``part_of``),
     float32 scores and weights, bool masks, all contiguous on one CUDA
     device; ids must lie in ``[0, len(part_of))`` or be negative
     padding. Raises on anything else — there is no other route on the
     card."""
-    P, C = ids.shape
-    K = cand.shape[1]
-    Mt = touched_aug.shape[1] - 1
-    N = part_of.shape[0]
-    if Mt < 0:
-        raise ValueError("touched_aug needs its gate column")
+    P = ids.shape[0]
     _check_state(ids, scores, valid, accessed, in_capacity, weights, mode)
-    for name, t, dt, shape in (
-        ("touched_aug", touched_aug, torch.int32, (P, Mt + 1)),
-        ("part_of", part_of, torch.int32, (N,)),
-        ("cand", cand, torch.int32, (P, K)),
-    ):
-        check_tensor(t, name, dt, shape)
-    if node_weights is not None:
-        check_tensor(node_weights, "node_weights", torch.float32, (N,))
-    dev = ids.device
+    _check_frontier(touched_aug, part_of, cand, node_weights, P, torch.int32)
     fn = native.bind(
         "fused_frontier_step", "rudder_fused_frontier_step", _FRONTIER_ARGS
     )
-
-    with torch.cuda.device(dev):
-        sk = torch.sort(touched_aug[:, :Mt], dim=1).values.contiguous()
-        ids2 = torch.empty_like(ids)
-        s2 = torch.empty_like(scores)
-        valid2 = torch.empty_like(valid)
-        acc3 = torch.empty_like(accessed)
-        w2 = torch.empty_like(weights) if weights is not None else None
-        code = torch.empty((P, Mt), dtype=torch.int32, device=dev)
-        placed = torch.empty((P, K), dtype=torch.bool, device=dev)
-        slot_pos = torch.empty((P, C), dtype=torch.int32, device=dev)
-        slot_of, cand_first = _maps(P, N, dev)
-        rank_slot = torch.empty((P, C), dtype=torch.int32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            P, C, K, Mt, N,
-            ptr(touched_aug), ptr(sk), ptr(ids), ptr(scores), ptr(valid),
-            ptr(accessed), ptr(in_capacity), ptr(weights), ptr(part_of),
-            ptr(cand), ptr(node_weights),
-            ptr(ids2), ptr(s2), ptr(valid2), ptr(acc3), ptr(w2),
-            ptr(code), ptr(placed), ptr(slot_pos),
-            ptr(slot_of), ptr(cand_first), ptr(rank_slot),
-            float(increment), float(decay), float(threshold), float(score_cap),
-            float(initial_score), _MODES[mode], stream,
+    with torch.cuda.device(ids.device):
+        consts = _constants(
+            increment, decay, threshold, score_cap, initial_score, mode, ids.device
         )
-        native.check(err, "fused_frontier_step")
+        outs = _frontier_direct(
+            fn, (), (ids, scores, valid, accessed, in_capacity, weights),
+            touched_aug, part_of, cand, node_weights, payload, table, loc,
+            cand_cap=cand_cap, id_base=None, consts=consts,
+        )
         native.LAUNCHES["fused_frontier_step"] += 1
-        n_place = placed.sum(dim=1, dtype=torch.int32)
-        n_valid = valid2.sum(dim=1, dtype=torch.int32)
-        cand_next, packed, counters, payload2 = frontier_pack(
-            sk, code, placed, slot_pos, n_place, n_valid, ids2, payload, table,
-            loc, cand_cap=cand_cap,
-        )
-    return ids2, s2, valid2, acc3, w2, payload2, cand_next, packed, counters
+    return outs
 
 
 def fused_step_cuda(
@@ -280,10 +381,11 @@ def fused_step_cuda(
         hit_slot = torch.empty((P, M), dtype=torch.int32, device=dev)
         placed = torch.empty((P, K), dtype=torch.bool, device=dev)
         slot_pos = torch.empty((P, C), dtype=torch.int32, device=dev)
+        n_placed = torch.empty((P,), dtype=torch.int32, device=dev)
+        n_valid = torch.empty((P,), dtype=torch.int32, device=dev)
         slot_of, cand_first = _maps(P, N, dev)
         rank_slot = torch.empty((P, C), dtype=torch.int32, device=dev)
         cw = cand_weights if weights is not None else None
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             P, C, M, K, N,
             ptr(ids), ptr(scores), ptr(valid), ptr(accessed), ptr(in_capacity),
@@ -291,14 +393,12 @@ def fused_step_cuda(
             ptr(active_score), ptr(do_replace), ptr(active_probe),
             ptr(ids2), ptr(s2), ptr(valid2), ptr(acc3), ptr(w2),
             ptr(hit), ptr(hit_slot), ptr(placed), ptr(slot_pos),
+            ptr(n_placed), ptr(n_valid),
             ptr(slot_of), ptr(cand_first), ptr(rank_slot),
-            float(increment), float(decay), float(threshold), float(score_cap),
-            float(initial_score), _MODES[mode], stream,
+            *_constants(increment, decay, threshold, score_cap, initial_score, mode, dev),
         )
         native.check(err, "fused_step")
         native.LAUNCHES["fused_step"] += 1
-        n_placed = placed.sum(dim=1, dtype=torch.int32)
-        n_valid = valid2.sum(dim=1, dtype=torch.int32)
     return (
         ids2, s2, valid2, acc3, w2, hit, hit_slot, placed, slot_pos,
         n_placed, n_valid,
@@ -329,7 +429,7 @@ def fused_frontier_step_wide_cuda(
     mode: str,
     initial_score: float,
 ):
-    """One launch of the Hopper frontier-step kernel on int64 ids; same
+    """One launch of the Hopper frontier step on int64 ids; same
     arguments and outputs as
     :func:`repro_torch.kernels.ref.fused_frontier_step_wide`.
 
@@ -337,63 +437,65 @@ def fused_frontier_step_wide_cuda(
     column, ``ids``, ``cand``), an int32 ``part_of`` indexed by the local
     id ``id - id_base``, float32 scores and weights and bool masks, all
     contiguous on one CUDA device; frontier ids must lie in ``[id_base,
-    id_base + len(part_of))`` or be negative padding. Reads nothing back
+    id_base + len(part_of))`` or be negative padding. The direct route
+    when its scratch (:func:`frontier_scratch`) fits
+    :data:`MAP_BUDGET_BYTES`, else the sorted route. Reads nothing back
     to the host. Raises on anything else — there is no other route on
     the card."""
     P, C = ids.shape
     K = cand.shape[1]
-    Mt = touched_aug.shape[1] - 1
-    N = part_of.shape[0]
-    if Mt < 0:
-        raise ValueError("touched_aug needs its gate column")
     _check_state(ids, scores, valid, accessed, in_capacity, weights, mode, torch.int64)
-    for name, t, dt, shape in (
-        ("touched_aug", touched_aug, torch.int64, (P, Mt + 1)),
-        ("part_of", part_of, torch.int32, (N,)),
-        ("cand", cand, torch.int64, (P, K)),
-    ):
-        check_tensor(t, name, dt, shape)
-    if node_weights is not None:
-        check_tensor(node_weights, "node_weights", torch.float32, (N,))
+    Mt, N = _check_frontier(touched_aug, part_of, cand, node_weights, P, torch.int64)
     dev = ids.device
-    fn = native.bind(
-        "fused_frontier_step", "rudder_fused_frontier_step_wide", _FRONTIER_WIDE_ARGS
-    )
-
+    state = (ids, scores, valid, accessed, in_capacity, weights)
+    _, total, _ = frontier_scratch(P, C, N, Mt, 8)
     with torch.cuda.device(dev):
-        sk = torch.sort(touched_aug[:, :Mt], dim=1).values.contiguous()
-        ids2 = torch.empty_like(ids)
-        s2 = torch.empty_like(scores)
-        valid2 = torch.empty_like(valid)
-        acc3 = torch.empty_like(accessed)
-        w2 = torch.empty_like(weights) if weights is not None else None
-        code = torch.empty((P, Mt), dtype=torch.int32, device=dev)
-        placed = torch.empty((P, K), dtype=torch.bool, device=dev)
-        slot_pos = torch.empty((P, C), dtype=torch.int32, device=dev)
-        rank_slot = torch.empty((P, C), dtype=torch.int32, device=dev)
-        srt, slot_of, cand_first, *rows = _wide_index(ids, valid, cand, N)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            P, C, K, Mt, N, int(id_base), int(srt),
-            ptr(touched_aug), ptr(sk), ptr(ids), ptr(scores), ptr(valid),
-            ptr(accessed), ptr(in_capacity), ptr(weights), ptr(part_of),
-            ptr(cand), ptr(node_weights),
-            ptr(ids2), ptr(s2), ptr(valid2), ptr(acc3), ptr(w2),
-            ptr(code), ptr(placed), ptr(slot_pos),
-            ptr(slot_of), ptr(cand_first), ptr(rank_slot),
-            *(ptr(t) for t in rows),
-            float(increment), float(decay), float(threshold), float(score_cap),
-            float(initial_score), _MODES[mode], stream,
-        )
-        native.check(err, "fused_frontier_step_wide")
+        consts = _constants(increment, decay, threshold, score_cap, initial_score, mode, dev)
+        if total <= MAP_BUDGET_BYTES:
+            fn = native.bind(
+                "fused_frontier_step", "rudder_fused_frontier_step_wide",
+                _FRONTIER_WIDE_ARGS,
+            )
+            outs = _frontier_direct(
+                fn, (int(id_base),), state, touched_aug, part_of, cand,
+                node_weights, payload, table, loc, cand_cap=cand_cap,
+                id_base=int(id_base), consts=consts,
+            )
+        else:
+            fn = native.bind(
+                "fused_frontier_step", "rudder_fused_frontier_step_wide_sorted",
+                _FRONTIER_SORTED_ARGS,
+            )
+            sk = torch.sort(touched_aug[:, :Mt], dim=1).values.contiguous()
+            ids2 = torch.empty_like(ids)
+            s2 = torch.empty_like(scores)
+            valid2 = torch.empty_like(valid)
+            acc3 = torch.empty_like(accessed)
+            w2 = torch.empty_like(weights) if weights is not None else None
+            code = torch.empty((P, Mt), dtype=torch.int32, device=dev)
+            placed = torch.empty((P, K), dtype=torch.bool, device=dev)
+            slot_pos = torch.empty((P, C), dtype=torch.int32, device=dev)
+            n_place = torch.empty((P,), dtype=torch.int32, device=dev)
+            n_valid = torch.empty((P,), dtype=torch.int32, device=dev)
+            rank_slot = torch.empty((P, C), dtype=torch.int32, device=dev)
+            rows = _sorted_index(ids, valid, cand)
+            err = fn(
+                P, C, K, Mt, N, int(id_base),
+                ptr(touched_aug), ptr(sk), ptr(ids), ptr(scores), ptr(valid),
+                ptr(accessed), ptr(in_capacity), ptr(weights), ptr(part_of),
+                ptr(cand), ptr(node_weights),
+                ptr(ids2), ptr(s2), ptr(valid2), ptr(acc3), ptr(w2),
+                ptr(code), ptr(placed), ptr(slot_pos), ptr(n_place), ptr(n_valid),
+                ptr(rank_slot), *(ptr(t) for t in rows), *consts,
+            )
+            native.check(err, "fused_frontier_step_wide (sorted)")
+            cand_next, packed, counters, payload2 = frontier_pack_wide(
+                sk, code, placed, slot_pos, n_place, n_valid, ids2, payload,
+                table, loc, cand_cap=cand_cap, id_base=id_base,
+            )
+            outs = (ids2, s2, valid2, acc3, w2, payload2, cand_next, packed, counters)
         native.LAUNCHES["fused_frontier_step_wide"] += 1
-        n_place = placed.sum(dim=1, dtype=torch.int32)
-        n_valid = valid2.sum(dim=1, dtype=torch.int32)
-        cand_next, packed, counters, payload2 = frontier_pack_wide(
-            sk, code, placed, slot_pos, n_place, n_valid, ids2, payload, table,
-            loc, cand_cap=cand_cap, id_base=id_base,
-        )
-    return ids2, s2, valid2, acc3, w2, payload2, cand_next, packed, counters
+    return outs
 
 
 def wide_id_range(*id_tensors) -> tuple[int, int]:
@@ -475,10 +577,11 @@ def fused_step_wide_cuda(
         hit_slot = torch.empty((P, M), dtype=torch.int32, device=dev)
         placed = torch.empty((P, K), dtype=torch.bool, device=dev)
         slot_pos = torch.empty((P, C), dtype=torch.int32, device=dev)
+        n_placed = torch.empty((P,), dtype=torch.int32, device=dev)
+        n_valid = torch.empty((P,), dtype=torch.int32, device=dev)
         rank_slot = torch.empty((P, C), dtype=torch.int32, device=dev)
         srt, slot_of, cand_first, *rows = _wide_index(ids, valid, cand, span)
         cw = cand_weights if weights is not None else None
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             P, C, M, K, lo, span, int(srt),
             ptr(ids), ptr(scores), ptr(valid), ptr(accessed), ptr(in_capacity),
@@ -486,15 +589,13 @@ def fused_step_wide_cuda(
             ptr(active_score), ptr(do_replace), ptr(active_probe),
             ptr(ids2), ptr(s2), ptr(valid2), ptr(acc3), ptr(w2),
             ptr(hit), ptr(hit_slot), ptr(placed), ptr(slot_pos),
+            ptr(n_placed), ptr(n_valid),
             ptr(slot_of), ptr(cand_first), ptr(rank_slot),
             *(ptr(t) for t in rows),
-            float(increment), float(decay), float(threshold), float(score_cap),
-            float(initial_score), _MODES[mode], stream,
+            *_constants(increment, decay, threshold, score_cap, initial_score, mode, dev),
         )
         native.check(err, "fused_step_wide")
         native.LAUNCHES["fused_step_wide"] += 1
-        n_placed = placed.sum(dim=1, dtype=torch.int32)
-        n_valid = valid2.sum(dim=1, dtype=torch.int32)
     return (
         ids2, s2, valid2, acc3, w2, hit, hit_slot, placed, slot_pos,
         n_placed, n_valid,

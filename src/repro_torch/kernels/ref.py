@@ -133,6 +133,52 @@ def frontier_prologue_wide(
     return frontier_prologue(touched_aug, part_of, id_base=int(id_base))
 
 
+def frontier_count_sort(
+    touched_aug: torch.Tensor, part_of: torch.Tensor, id_base: int | None = None
+):
+    """The row sort of :func:`frontier_prologue` as the kernels do it:
+    a count sort over the local ids ``id - id_base`` (``bincount`` →
+    ``cumsum`` → ``repeat_interleave``) behind each row's negative keys,
+    which are sorted among themselves. Every non-negative key must lie in
+    ``[id_base, id_base + len(part_of))``. Returns ``(sk, remote)``,
+    equal to :func:`frontier_prologue`'s: the row-sorted keys and the
+    unique-remote mask (the first position of each remote id's run).
+    Used by the tests only."""
+    P = touched_aug.shape[0]
+    N = part_of.shape[0]
+    base = 0 if id_base is None else int(id_base)
+    touched = touched_aug[:, :-1]
+    rows, remotes = [], []
+    for p in range(P):
+        keys = touched[p]
+        neg = torch.sort(keys[keys < 0]).values
+        local = (keys[keys >= 0].to(torch.int64) - base)
+        counts = torch.bincount(local, minlength=N)
+        ids = torch.repeat_interleave(torch.arange(N, dtype=torch.int64), counts)
+        rows.append(torch.cat([neg, (ids + base).to(keys.dtype)]))
+        first = torch.zeros(keys.shape[0], dtype=torch.bool)
+        starts = neg.shape[0] + torch.cumsum(counts, 0) - counts
+        present = counts > 0
+        first[starts[present]] = part_of[present].to(torch.int32) != p
+        remotes.append(first)
+    return torch.stack(rows), torch.stack(remotes)
+
+
+def compact_misses(
+    sk: torch.Tensor, code: torch.Tensor, *, cand_cap: int, id_base: int | None = None
+) -> torch.Tensor:
+    """:func:`frontier_pack`'s ``cand_next`` as the kernels build it: a
+    miss (``code == 1``) is the first position of its id's run and ``sk``
+    ascends, so each miss's rank is a ``cumsum`` of the miss flags, and no
+    second sort is needed. Used by the tests only."""
+    kc = min(int(cand_cap), sk.shape[1])
+    miss = code == 1
+    rank = torch.cumsum(miss, dim=1) - 1
+    out = torch.full((sk.shape[0], kc + 1), -1, dtype=sk.dtype)
+    out.scatter_(1, torch.where(miss & (rank < kc), rank, kc), sk)
+    return out[:, :kc]
+
+
 def cand_weights_of(cand: torch.Tensor, node_weights: torch.Tensor | None):
     """Per-candidate degree weights (1.0 for padding or without weights)."""
     if node_weights is None:

@@ -9,8 +9,9 @@ from a seed; the constants are those of the scoring policy.
 * :func:`frontier_scenarios` (``fused_frontier_step``): every scoring
   policy, weighted and unweighted, scores sitting on the stale
   threshold, capacity-masked slots, empty and all-duplicate frontier
-  rows, the drained ``Mt == 1`` launch and the initial all -1 ``(P, 1)``
-  candidate block.
+  rows, the drained ``Mt == 1`` launch, the initial all -1 ``(P, 1)``
+  candidate block, padding at -2 and -7 mixed with -1, and a hub row
+  (one id 4500 times in a row of 5000).
 * :func:`fused_step_scenarios` (``fused_step``): every policy, weighted
   and unweighted, empty query and candidate rows, all-duplicate
   candidates, candidates already resident, every gate off,
@@ -22,7 +23,9 @@ from a seed; the constants are those of the scoring policy.
   Every narrow scenario shifted by :data:`BASE` (``2**31 + 1000``, the
   smallest interesting wide base); a base past ``2**32`` whose ids cross
   a ``2**30`` word boundary of the reference's ``(hi, lo)`` split; ids
-  ending at ``WIDE_ID_MAX``; and, for the fused step, a sparse set whose
+  ending at ``WIDE_ID_MAX``; a frontier set whose packed row
+  (``3 Mt + K + C + 1`` words) is odd and larger than the others; and,
+  for the fused step, a sparse set whose
   ids spread over ``[BASE, BASE + 2**40]``, far past any direct map (the
   kernel's sorted mode). Each wide scenario keeps its narrow source, so
   the tests can hold wide against narrow under the id map.
@@ -123,6 +126,8 @@ def make_scenario(
     dup_row: bool = False,
     drained: bool = False,
     initial_cand: bool = False,
+    pads: tuple = (),
+    hub: int = 0,
 ) -> Scenario:
     rng = np.random.default_rng(seed)
     pol = scoring.make_policy(policy)
@@ -161,6 +166,12 @@ def make_scenario(
             touched[0] = -1
         if dup_row:
             touched[-1] = touched[-1, 0] if touched[-1, 0] >= 0 else 7
+        if pads:  # padding other than -1, mixed with it
+            pad = touched == -1
+            touched[pad] = rng.choice(np.array((-1, *pads), np.int32), size=int(pad.sum()))
+        if hub:  # one id, remote to row 1, `hub` times in that row
+            hub_id = int(np.flatnonzero(part_of != 1)[0])
+            touched[1, rng.permutation(Mt)[:hub]] = hub_id
     gates = rng.integers(0, 8, size=P).astype(np.int32)
     gates[0] = 7  # at least one PE with every phase on
     touched_aug = np.concatenate([touched, gates[:, None]], axis=1)
@@ -203,6 +214,9 @@ def frontier_scenarios() -> list[Scenario]:
     out.append(make_scenario("initial-cand", 102, initial_cand=True))
     out.append(make_scenario("drained-initial", 103, drained=True, initial_cand=True))
     out.append(make_scenario("one-pe", 104, policy="hybrid", P=1, C=5, K=7, Mt=9, N=20))
+    out.append(make_scenario("neg-padding", 105, pads=(-2, -7)))
+    out.append(make_scenario("hub-row", 106, policy="degree", weighted=True, C=40,
+                             K=60, Mt=5000, N=3000, hub=4500))
     return out
 
 
@@ -377,6 +391,9 @@ def wide_frontier_scenarios() -> list[Scenario]:
     out.append(widen(by["rudder-u"], 2**32 + 2**30 - 20))
     out.append(widen(by["degree-w"], WIDE_ID_MAX - by["degree-w"].part_of.shape[0] + 1))
     out.append(widen(by["hybrid-w"], 2**40 + 3))
+    # A packed row of 3 Mt + K + C + 1 = 1057 int32 words: an odd stride,
+    # so every other row's int64 keys sit off an 8-byte boundary.
+    out.append(widen(make_scenario("odd-stride", 107, P=2, C=20, K=37, Mt=333, N=500), BASE))
     return out
 
 

@@ -131,6 +131,28 @@ def _on(card, sc):
     ]
 
 
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+def test_frontier_direct_route_is_a_few_device_ops(card, wide):
+    """One direct-route call of each frontier wrapper, profiled: no sort
+    kernel, and at most 6 device operations (it issues two memsets and
+    three kernels), on the hub-row set."""
+    from repro_torch.kernels import fused_step as fs
+
+    sc = next(s for s in (WIDE if wide else SCENARIOS) if s.name.startswith("hub-row"))
+    args = _on(card, sc)
+    wrapper = fs.fused_frontier_step_wide_cuda if wide else fs.fused_frontier_step_cuda
+    wrapper(*args, **sc.kwargs())  # builds the library
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA,
+    ]) as prof:
+        wrapper(*args, **sc.kwargs())
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert 1 <= len(names) <= 6, names
+    assert not any("sort" in n.lower() for n in names), names
+
+
 @pytest.mark.parametrize("budget", [None, 0], ids=["direct", "sorted"])
 @pytest.mark.parametrize("sc", WIDE, ids=[s.name for s in WIDE])
 def test_fused_frontier_wide_kernel_matches_plain(card, sc, budget, monkeypatch):

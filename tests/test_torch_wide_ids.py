@@ -20,6 +20,11 @@ here, on the CPU:
   reference's ``device="jnp"`` wide run and against the port's narrow run
   with id streams shifted by ``BASE``; the traced run's arrays likewise.
 
+Also the kernels' count sort and cumsum miss compaction as plain twins
+(``ref.frontier_count_sort``, ``ref.compact_misses``) on every wide
+frontier set, and the ``@given`` twin of the reference's base-shift
+property.
+
 Tolerance: none — every stream, id and state array is bit-identical
 (scores compared as their bit patterns); the trainers here run without
 the GNN step, so there are no losses.
@@ -30,15 +35,17 @@ import copy
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 import repro.gnn as jgnn
 import repro.graph as jgraph
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro.runtime import engine as jeng
 from repro_torch.core import scoring
 from repro_torch.gnn import DistributedTrainer
 from repro_torch.graph import generate, partition_graph
-from repro_torch.kernels import ops, scenarios
+from repro_torch.kernels import ops, ref, scenarios
 from repro_torch.runtime import engine as teng
 from repro_torch.store import FeatureStore
 
@@ -224,6 +231,84 @@ def test_scenarios_cover_the_wide_edge_cases():
     for s in FRONTIER + STEPS:
         assert s.ids.dtype == np.int64 and s.cand.dtype == np.int64
         assert all(ops.wide_id_eligible(a.max()) for a in (s.ids, s.cand))
+
+
+@pytest.mark.parametrize("sc", FRONTIER, ids=[s.name for s in FRONTIER])
+def test_count_sort_matches_sort_and_reference_prologue(sc):
+    """The kernels' count sort over ``id - id_base`` (its plain twin
+    ``ref.frontier_count_sort``) gives ``torch.sort``'s keys and the
+    reference wide prologue's ``(hi, lo)`` keys and unique-remote mask;
+    ``ref.compact_misses`` gives the step's ``cand_next``."""
+    aug, part_of = _t(sc.touched_aug), _t(sc.part_of)
+    sk, remote = ref.frontier_count_sort(aug, part_of, id_base=sc.id_base)
+    _eq(sk, torch.sort(aug[:, :-1], dim=1).values, f"{sc.name} sort")
+    t_hi, t_lo = jops.split_ids(sc.touched_aug[:, :-1])
+    planes = np.concatenate([t_lo, t_hi, sc.touched_aug[:, -1:].astype(np.int32)], axis=1)
+    want = jref.frontier_prologue_wide(planes, sc.part_of, id_base=sc.id_base)
+    _eq(sk, jops.join_ids(np.asarray(want[4]), np.asarray(want[3])), f"{sc.name} keys")
+    _eq(remote, want[-1], f"{sc.name} remote")
+    out = _port_frontier(sc)
+    Mt = sc.touched_aug.shape[1] - 1
+    keys = out[7][:, : 2 * Mt].contiguous().view(torch.int64)
+    _eq(keys, sk, f"{sc.name} packed keys")
+    cand_next = ref.compact_misses(
+        keys, out[7][:, 2 * Mt : 3 * Mt], cand_cap=sc.cand_cap, id_base=sc.id_base
+    )
+    _eq(cand_next, out[6], f"{sc.name} cand_next")
+
+
+def test_wide_sets_include_an_odd_packed_stride():
+    odd = [s for s in FRONTIER if s.name.startswith("odd-stride")]
+    assert odd
+    for s in odd:
+        Mt = s.touched_aug.shape[1] - 1
+        assert (3 * Mt + s.cand.shape[1] + s.ids.shape[1] + 1) % 2 == 1
+
+
+# --------------------------------------------------------------------------- #
+# The @given twin of the reference's base-shift property
+# (tests/test_wide_ids.py::TestWideHypothesis): the port's fused step on
+# ids shifted past 2^31 equals the narrow step, and the reference's jnp
+# oracle on the shifted ids.
+@settings(max_examples=15, deadline=None)
+@given(
+    P=st.integers(min_value=1, max_value=3),
+    C=st.integers(min_value=1, max_value=5),
+    M=st.integers(min_value=1, max_value=5),
+    seed=st.integers(min_value=0, max_value=2**16),
+    base=st.sampled_from([2**31, 2**31 + 1000, 2**40, 2**55 + 3]),
+)
+def test_base_shift_invariance(P, C, M, seed, base):
+    rng = np.random.default_rng(seed)
+    # Resident ids unique per PE, as the engine keeps them.
+    ids = np.stack([rng.choice(50, C, replace=False) for _ in range(P)]).astype(np.int64)
+    valid = rng.random((P, C)) < 0.7
+    ids[~valid] = -1
+    scores = (rng.random((P, C)) * 2).astype(np.float32)
+    accessed = rng.random((P, C)) < 0.4
+    in_cap = np.ones((P, C), bool)
+    q = rng.integers(0, 50, (P, M)).astype(np.int64)
+    c = rng.integers(0, 50, (P, M)).astype(np.int64)
+    gates = tuple(rng.random(P) < 0.8 for _ in range(3))
+
+    def run(i, qq, cc):
+        return ops.fused_step_batch(
+            _t(i), _t(scores), _t(valid), _t(accessed), _t(in_cap), None,
+            _t(qq), _t(cc), None, *[_t(g) for g in gates], num_ids=50,
+        )
+
+    shifted = np.where(ids >= 0, ids + base, ids)
+    narrow = run(ids, q, c)
+    big = run(shifted, q + base, c + base)
+    n_ids = narrow[0].numpy().astype(np.int64)
+    _eq(big[0], np.where(n_ids >= 0, n_ids + base, -1), "ids2")
+    for i in range(1, 11):
+        _eq(big[i], narrow[i], f"output {i}")
+    want = jops.fused_step_batch(
+        shifted, scores, valid, accessed, in_cap, None, q + base, c + base, None, *gates
+    )
+    for i in range(11):
+        _eq(big[i], want[i], f"reference output {i}")
 
 
 # --------------------------------------------------------------------------- #
