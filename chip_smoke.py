@@ -46,7 +46,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    card, 8 epochs of one step each, both neighbour means on
    ``segment_sum_equal`` over the store's rows; ``fused_step``,
    ``gather_rows_batch`` and ``segment_sum_equal`` against their plain
-   versions on the run's captured launches, all timed;
+   versions on the run's captured launches, all timed; the fused step in
+   both of its forms (the engine's, gate words in and the packed readback
+   out, and the reference's eleven outputs), each with its device
+   operations a call (torch.profiler) and its wrapper's host time, and
+   its kept maps clean (-1 / 0) after the run, the checks and the timings;
 4. card vs CPU: the raw path at ``scale=1`` (batch 256), the same with the
    feature store (the in-launch payload scatter), a ragged store run
    (products ``scale=0.15``, batch 72), the raw path on the graph rebased
@@ -68,7 +72,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    beside phase 3's;
 6b. the wide ragged loop with the store: phase 3b's graph rebased, phase
    3b's run through ``fused_step_wide`` and ``gather_rows_batch``: streams,
-   ``feat_sums``, bytes, state and payload equal to phase 3b's;
+   ``feat_sums``, bytes, state and payload equal to phase 3b's; the fused
+   step checked, timed and its maps checked as in phase 3b;
 7. the readback cadence: phase 3's graph, narrow and rebased, the ``fixed``
    controller at ``readback_every=4`` against ``readback_every=1``: equal
    logs, one counter pull per 4 launches, the readback time per step;
@@ -96,7 +101,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    by torch.profiler and the share of the bound reached;
 9c. card vs CPU: the dense smoke config in float32 served on both devices
    from the same weights: greedy tokens identical, logits allclose 1e-4;
-10. a ``kernels`` JSON line, and as the last line the device JSON line.
+10. a ``kernels`` JSON line (the fused step's rows time the engine's form,
+   the reference form's times beside them), and as the last line the
+   device JSON line.
 
 Each path's launch counts are zeroed just before it runs and read just
 after (the serving path launches ``mla_flash_decode`` only); the device loops (phases 3, 3b, 6, 6b, 7) launch neither of the
@@ -189,8 +196,8 @@ AGGREGATION_KERNELS = ("gather_mean", "segment_sum_equal")
 DISPATCHER_OF = {
     "fused_frontier_step": "fused_frontier_step_batch",
     "fused_frontier_step_wide": "fused_frontier_step_wide_batch",
-    "fused_step": "fused_step_batch",
-    "fused_step_wide": "fused_step_wide_batch",
+    "fused_step": "fused_step_readback_batch",
+    "fused_step_wide": "fused_step_readback_batch",
 }
 
 #: Loss tolerance of the card-vs-CPU runs: the same float32 math, summed in
@@ -215,6 +222,7 @@ STEP_OUT = (
     "ids2", "scores2", "valid2", "accessed3", "weights2", "hit", "hit_slot",
     "placed", "slot_pos", "n_placed", "n_valid",
 )
+READBACK_OUT = ("ids2", "scores2", "valid2", "accessed3", "weights2", "packed")
 UNIQUE_OUT = ("first", "remote", "unique_count", "remote_count")
 SCORE_OUT = ("new", "stale")
 
@@ -441,12 +449,18 @@ def step_ops(args) -> int:
     return int(P * 10 * (C + queries.shape[1] + cand.shape[1]))
 
 
-def device_op_names(fn) -> list[str]:
-    """Names of the device operations (kernels, memsets, copies) one call
-    of ``fn`` puts on the card, by torch.profiler (synchronised before and
-    after)."""
+def device_ops_a_call(fn, reps: int = 5) -> str:
+    """The device operations (kernels, memsets, copies) a call of ``fn``
+    puts on the card, from torch.profiler's chrome trace: ``reps`` calls,
+    each in its own ``record_function`` range, their operations matched
+    to it through the correlation ids of the runtime calls made inside
+    the range. The profiler can miss operations (the event list more
+    often than the trace, and at times a whole single-kernel call), so
+    this reports the most any call showed, the count of each call, and
+    the names of the fullest call's operations, in order."""
     import torch
 
+    fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(
         activities=[
@@ -454,9 +468,33 @@ def device_op_names(fn) -> list[str]:
             torch.profiler.ProfilerActivity.CUDA,
         ]
     ) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        for i in range(reps):
+            with torch.profiler.record_function(f"chip_smoke_call_{i}"):
+                fn()
+            torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+    ranges = [e for e in events if str(e.get("name", "")).startswith("chip_smoke_call_")
+              and e.get("cat") in ("user_annotation", "cpu_op")]
+    call_of = {}  # correlation id of a runtime call -> its range
+    for e in events:
+        corr = (e.get("args") or {}).get("correlation")
+        if corr is None or e.get("cat") not in ("cuda_runtime", "cuda_driver"):
+            continue
+        for r in ranges:
+            if r["ts"] <= e["ts"] <= r["ts"] + r["dur"]:
+                call_of[corr] = r["name"]
+    calls = {r["name"]: [] for r in ranges}
+    for e in sorted(events, key=lambda e: e["ts"]):
+        corr = (e.get("args") or {}).get("correlation")
+        if e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy") and corr in call_of:
+            calls[call_of[corr]].append(e["name"])
+    counts = [len(calls.get(f"chip_smoke_call_{i}", [])) for i in range(reps)]
+    fullest = max(calls.values(), key=len, default=[])
+    return (f"{max(counts, default=0)} device operations a call (each of {reps} calls: "
+            f"{counts}; {', '.join(n[:44] for n in fullest)})")
 
 
 def host_ms(fn, reps: int = 20) -> float:
@@ -754,6 +792,104 @@ def compare_runs(what, a_tr, a_run, b_tr, b_run, store: bool, base: int = 0):
     if store and a_run.total_bytes_measured != a_run.total_bytes_modeled:
         raise AssertionError(f"{what}: measured bytes != modeled bytes")
     return float(np.max(np.abs(np.subtract(a_run.losses, b_run.losses))))
+
+
+def plain_readback(args, kw):
+    """The fused step's engine form (gate words in, the packed readback
+    out) composed of plain versions: the gate bits, ``ref.fused_step``,
+    ``ref.pack_readback``."""
+    from repro_torch.kernels import ref
+
+    bits = [(args[9] & bit) != 0 for bit in (1, 2, 4)]
+    out = ref.fused_step(*args[:9], *bits, **kw)
+    return (*out[:5], ref.pack_readback(*out[5:9], out[10]))
+
+
+def assert_maps_clean(what) -> int:
+    """Raise unless the fused step's kept maps (every device and stream)
+    are all -1 (``slot_of``) and 0 (``cand_first``); returns their
+    entries."""
+    import torch
+
+    from repro_torch.kernels import fused_step as fs
+
+    torch.cuda.synchronize()
+    if not fs._MAPS:
+        raise AssertionError(f"{what}: the fused step kept no maps")
+    for key, (slot_of, cand_first) in fs._MAPS.items():
+        if not (bool((slot_of == -1).all()) and bool((cand_first == 0).all())):
+            raise AssertionError(f"{what}: the kept maps of {key} are not clean")
+    return sum(m[0].numel() for m in fs._MAPS.values())
+
+
+def check_fused_step(tag, caps, wide, flush, max_err):
+    """A ragged run's fused step (phases 3b and 6b): every captured launch
+    in the engine's form (``fused_step_readback_cuda``: gate words in, the
+    packed readback out) and in the reference's (``fused_step_cuda`` /
+    ``_wide_cuda`` on the unpacked bits) bit-exact against its plain
+    version; the kept maps clean after the run, the checks and the
+    timings; both forms timed at the launch with the most work, with their
+    device operations a call, wrapper host ms and the kernel alone.
+    Returns the ``kernels`` line's timing tuple (the engine's form) and the
+    reference form's numbers beside it."""
+    import torch
+
+    from repro_torch.kernels import fused_step as fs
+    from repro_torch.kernels import ref
+
+    name = "fused_step_wide" if wide else "fused_step"
+    entries = assert_maps_clean(f"{tag}: after the run")
+    ref_wrapper = fs.fused_step_wide_cuda if wide else fs.fused_step_cuda
+
+    def forms(args, kw):
+        bits = [(args[9] & bit) != 0 for bit in (1, 2, 4)]
+        plain_kw = {k: v for k, v in kw.items() if k not in ("id_lo", "num_ids")}
+        ref_kw = kw if wide else {k: v for k, v in kw.items() if k != "id_lo"}
+        return (
+            lambda: fs.fused_step_readback_cuda(*args, **kw),
+            lambda: plain_readback(args, plain_kw),
+            lambda: ref_wrapper(*args[:9], *bits, **ref_kw),
+            lambda: ref.fused_step(*args[:9], *bits, **plain_kw),
+        )
+
+    for i, (args, kw) in enumerate(caps):
+        k_rb, p_rb, k_ref, p_ref = forms(args, kw)
+        for got, want, names, form in ((k_rb(), p_rb(), READBACK_OUT, "engine"),
+                                       (k_ref(), p_ref(), STEP_OUT, "reference")):
+            torch.cuda.synchronize()
+            max_err[name] = max(max_err[name], compare_outputs(
+                got, want, names, f"{tag} {name} {i} ({form} form)"))
+    assert_maps_clean(f"{tag}: after the checks")
+    print(f"{tag}: kernel == plain, bit-exact, on all {len(caps)} {name} launches of "
+          f"the run, in both forms; the kept maps ({entries} entries each) clean after "
+          f"the run and the checks")
+
+    args, kw = max(caps, key=lambda c: c[0][6].shape[1] + c[0][7].shape[1])
+    k_rb, p_rb, k_ref, p_ref = forms(args, kw)
+    k_ms, p_ms, _, raw = time_pair(k_rb, p_rb, flush)
+    r_ms, rp_ms, _, raw_ref = time_pair(k_ref, p_ref, flush)
+    nbytes = tensor_bytes(args, k_rb())
+    nops = step_ops(args)
+    b_ms, b_by = bound(nbytes, nops)
+    alone = kernel_device_ms(k_rb, ("fused_step_kernel",), reps=10)["fused_step_kernel"]
+    alone_ref = kernel_device_ms(k_ref, ("fused_step_kernel",), reps=10)["fused_step_kernel"]
+    extra = {"reference_form_ms": r_ms, "reference_form_plain_ms": rp_ms}
+    P, C = args[0].shape
+    print(
+        f"{tag}: {name} at P={P}, C={C}, M={args[6].shape[1]}, K={args[7].shape[1]}, "
+        f"id_lo={kw.get('id_lo')}, num_ids={kw['num_ids']}; engine form: kernel "
+        f"{raw[0]:.4f}/{raw[1]:.4f} ms, plain {raw[2]:.4f}/{raw[3]:.4f} ms; reference "
+        f"form: kernel {raw_ref[0]:.4f}/{raw_ref[1]:.4f} ms, plain "
+        f"{raw_ref[2]:.4f}/{raw_ref[3]:.4f} ms; {nbytes} bytes, {nops} ops; bound "
+        f"{b_ms:.4f} ms ({b_by}); kernel alone (torch.profiler): engine form "
+        + (f"{alone:.4f} ms" if alone else "not measured") + ", reference form "
+        + (f"{alone_ref:.4f} ms" if alone_ref else "not measured")
+    )
+    for form, fn in (("engine", k_rb), ("reference", k_ref)):
+        print(f"{tag}: {name} ({form} form): {device_ops_a_call(fn)}; wrapper host "
+              f"{host_ms(fn):.4f} ms")
+    assert_maps_clean(f"{tag}: after the timings")
+    return (k_ms, p_ms, None, b_ms, b_by), extra
 
 
 # --------------------------------------------------------------------------- #
@@ -1130,10 +1266,9 @@ def main() -> int:
     )
     print("phase 3: device time per launch by kernel (torch.profiler): "
           + profile_rows(lambda: fs.fused_frontier_step_cuda(*args, **kw)))
-    ops_names = device_op_names(lambda: fs.fused_frontier_step_cuda(*args, **kw))
-    print(f"phase 3: fused_frontier_step: {len(ops_names)} device operations a call "
-          f"({', '.join(n[:40] for n in ops_names)}); wrapper host "
-          f"{host_ms(lambda: fs.fused_frontier_step_cuda(*args, **kw)):.4f} ms")
+    print("phase 3: fused_frontier_step: "
+          + device_ops_a_call(lambda: fs.fused_frontier_step_cuda(*args, **kw))
+          + f"; wrapper host {host_ms(lambda: fs.fused_frontier_step_cuda(*args, **kw)):.4f} ms")
 
     # The aggregation kernels at the training step's shape (the accuracy
     # pass's launch is the last, at its own smaller batch).
@@ -1203,7 +1338,7 @@ def main() -> int:
     )
     if steps != RAGGED["epochs"] or min(train_sizes) >= RAGGED["batch_size"]:
         raise AssertionError("phase 3b: expected ragged blocks and one step per epoch")
-    clock = StageClock(["fused_step_batch", "gather_rows_batch", *AGGREGATION_KERNELS])
+    clock = StageClock(["fused_step_readback_batch", "gather_rows_batch", *AGGREGATION_KERNELS])
     native.reset_launches()
     store.kernel_gathers = 0
     torch.cuda.synchronize()
@@ -1233,7 +1368,7 @@ def main() -> int:
     if result.total_bytes_measured != result.total_bytes_modeled:
         raise AssertionError("phase 3b: measured bytes != modeled bytes")
     transfers = trainer.last_device_engine.transfers
-    step_caps = clock.launches["fused_step_batch"]
+    step_caps = clock.launches["fused_step_readback_batch"]
     print(
         f"phase 3b: {steps} steps, launches {launches_ragged} (fused_step = steps + 1, "
         f"gather_rows_batch = the store's {store.kernel_gathers} kernel gathers, "
@@ -1248,7 +1383,7 @@ def main() -> int:
         "step": clock.ms("step"),
         "sample_host": clock.ms("sample"),
         "decide_host": clock.ms("decision"),
-        "launch_device_cuda_events": clock.device_ms("fused_step_batch", True),
+        "launch_device_cuda_events": clock.device_ms("fused_step_readback_batch", True),
         "launch_host": clock.ms("device.launch", True),
         # Launch readback (the sync that waits for the kernel) plus the
         # payload's pull_rows readback, summed per step.
@@ -1258,14 +1393,9 @@ def main() -> int:
         "train": clock.ms("train"),
     }, steps, wall)
 
-    for i, (args, kw) in enumerate(step_caps):
-        kw_plain = {k: v for k, v in kw.items() if k != "num_ids"}
-        got = fs.fused_step_cuda(*args, **kw)
-        want = ref.fused_step(*args, **kw_plain)
-        torch.cuda.synchronize()
-        max_err["fused_step"] = max(
-            max_err["fused_step"], compare_outputs(got, want, STEP_OUT, f"fused_step {i}")
-        )
+    extras = {}  # the kernels line's further keys, by kernel
+    timings["fused_step"], extras["fused_step"] = check_fused_step(
+        "phase 3b", step_caps, False, flush, max_err)
     gather_caps = clock.launches["gather_rows_batch"]
     for i, (args, _kw) in enumerate(gather_caps):
         got = gr.gather_rows_batch_cuda(*args)
@@ -1275,9 +1405,8 @@ def main() -> int:
             compare_outputs(got, ref.gather_rows_batch(*args), ["out"], f"gather {i}"),
         )
     n_agg = check_captured("phase 3b", clock, max_err)
-    print(f"phase 3b: kernel == plain, bit-exact, on all {len(step_caps)} fused_step, "
-          f"{len(gather_caps)} gather_rows_batch and {n_agg} segment_sum_equal "
-          f"launches of the run")
+    print(f"phase 3b: kernel == plain, bit-exact, on all {len(gather_caps)} "
+          f"gather_rows_batch and {n_agg} segment_sum_equal launches of the run")
     # The layer-2 mean over the store's rows: the run's largest reduction.
     data, k = max(clock.launches["segment_sum_equal"], key=lambda c: c[0][0].numel())[0]
     seg_shape = (data.shape[0] // k, k, data.shape[1])
@@ -1298,29 +1427,6 @@ def main() -> int:
         f"events), median {float(np.median(clock.device_ms('segment_sum_equal'))):.4f}"
     )
     del data, outs
-
-    # The launch with the most work (the decision plane gates replacement
-    # off on some steps, and those launches carry no candidates).
-    args, kw = max(step_caps, key=lambda c: c[0][6].shape[1] + c[0][7].shape[1])
-    kw_plain = {k: v for k, v in kw.items() if k != "num_ids"}
-    k_ms, p_ms, _, raw = time_pair(
-        lambda: fs.fused_step_cuda(*args, **kw),
-        lambda: ref.fused_step(*args, **kw_plain),
-        flush,
-    )
-    outs = fs.fused_step_cuda(*args, **kw)
-    nbytes = tensor_bytes(args, outs)
-    nops = step_ops(args)
-    b_ms, b_by = bound(nbytes, nops)
-    timings["fused_step"] = (k_ms, p_ms, None, b_ms, b_by)
-    print(
-        f"phase 3b: fused_step at P={args[0].shape[0]}, C={args[0].shape[1]}, "
-        f"M={args[6].shape[1]}, K={args[7].shape[1]}, num_ids={kw['num_ids']}: "
-        f"kernel {raw[0]:.4f}/{raw[1]:.4f} ms, plain {raw[2]:.4f}/{raw[3]:.4f} ms; "
-        f"{nbytes} bytes, {nops} ops; bound {b_ms:.4f} ms ({b_by})"
-    )
-    print("phase 3b: fused_step device time per launch by kernel (torch.profiler): "
-          + profile_rows(lambda: fs.fused_step_cuda(*args, **kw)))
 
     # The largest gather of the run (the training step's feature rows).
     tables, idx = max(gather_caps, key=lambda c: c[0][1].numel())[0]
@@ -1559,10 +1665,9 @@ def main() -> int:
     )
     print("phase 6: device time per launch by kernel (torch.profiler): "
           + profile_rows(lambda: fs.fused_frontier_step_wide_cuda(*args, **kw)))
-    ops_names = device_op_names(lambda: fs.fused_frontier_step_wide_cuda(*args, **kw))
-    print(f"phase 6: fused_frontier_step_wide: {len(ops_names)} device operations a call "
-          f"({', '.join(n[:40] for n in ops_names)}); wrapper host "
-          f"{host_ms(lambda: fs.fused_frontier_step_wide_cuda(*args, **kw)):.4f} ms")
+    print("phase 6: fused_frontier_step_wide: "
+          + device_ops_a_call(lambda: fs.fused_frontier_step_wide_cuda(*args, **kw))
+          + f"; wrapper host {host_ms(lambda: fs.fused_frontier_step_wide_cuda(*args, **kw)):.4f} ms")
     del trainer, result, clock, captured, parts, dev_w
 
     # -- 6b. the wide ragged loop, with the feature store ------------------ #
@@ -1573,7 +1678,7 @@ def main() -> int:
     steps = trainer.epochs * trainer.mb_per_epoch
     print(f"phase 6b: papers scale={RAGGED_SCALE} rebased to id_base {WIDE_BASE}, "
           f"phase 3b's run; set-up {time.perf_counter() - t0:.1f} s")
-    clock = StageClock(["fused_step_wide_batch", "gather_rows_batch"])
+    clock = StageClock(["fused_step_readback_batch", "gather_rows_batch"])
     native.reset_launches()
     store.kernel_gathers = 0
     torch.cuda.synchronize()
@@ -1602,45 +1707,15 @@ def main() -> int:
     print_stages("phase 6b", {
         "step": clock.ms("step"),
         "sample_host": clock.ms("sample"),
-        "launch_device_cuda_events": clock.device_ms("fused_step_wide_batch", True),
+        "launch_device_cuda_events": clock.device_ms("fused_step_readback_batch", True),
         "launch_host": clock.ms("device.launch", True),
         "readback_per_step": clock.per_step("device.readback"),
         "store_serve": clock.ms("fetch.serve"),
         "train": clock.ms("train"),
     }, steps, wall)
-    step_caps = clock.launches["fused_step_wide_batch"]
-    for i, (args, kw) in enumerate(step_caps):
-        plain_kw = {k: v for k, v in kw.items() if k not in ("id_lo", "num_ids")}
-        got = fs.fused_step_wide_cuda(*args, **kw)
-        want = ref.fused_step_wide(*args, **plain_kw)
-        torch.cuda.synchronize()
-        max_err["fused_step_wide"] = max(
-            max_err["fused_step_wide"],
-            compare_outputs(got, want, STEP_OUT, f"fused_step_wide {i}"),
-        )
-    print(f"phase 6b: kernel == plain, bit-exact, on all {len(step_caps)} "
-          f"fused_step_wide launches of the run")
-    args, kw = max(step_caps, key=lambda c: c[0][6].shape[1] + c[0][7].shape[1])
-    plain_kw = {k: v for k, v in kw.items() if k not in ("id_lo", "num_ids")}
-    k_ms, p_ms, _, raw = time_pair(
-        lambda: fs.fused_step_wide_cuda(*args, **kw),
-        lambda: ref.fused_step_wide(*args, **plain_kw),
-        flush,
-    )
-    outs = fs.fused_step_wide_cuda(*args, **kw)
-    nbytes = tensor_bytes(args, outs)
-    nops = step_ops(args)
-    b_ms, b_by = bound(nbytes, nops)
-    timings["fused_step_wide"] = (k_ms, p_ms, None, b_ms, b_by)
-    print(
-        f"phase 6b: fused_step_wide at P={args[0].shape[0]}, C={args[0].shape[1]}, "
-        f"M={args[6].shape[1]}, K={args[7].shape[1]}, id_lo={kw['id_lo']}, "
-        f"num_ids={kw['num_ids']}: kernel {raw[0]:.4f}/{raw[1]:.4f} ms, plain "
-        f"{raw[2]:.4f}/{raw[3]:.4f} ms; {nbytes} bytes, {nops} ops; "
-        f"bound {b_ms:.4f} ms ({b_by})"
-    )
-    print("phase 6b: fused_step_wide device time per launch by kernel (torch.profiler): "
-          + profile_rows(lambda: fs.fused_step_wide_cuda(*args, **kw)))
+    step_caps = clock.launches["fused_step_readback_batch"]
+    timings["fused_step_wide"], extras["fused_step_wide"] = check_fused_step(
+        "phase 6b", step_caps, True, flush, max_err)
     del trainer, result, clock, step_caps, store, parts, papers, g_papers
 
     # -- 7. the readback cadence ------------------------------------------ #
@@ -2167,6 +2242,7 @@ def main() -> int:
             "bound_ms": b_ms,
             "bound_by": b_by,
             "library_ms": l_ms,
+            **extras.get(name, {}),
         })
     print("kernels: " + ", ".join(f"{k['name']} launches={k['launches']}" for k in kernels))
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -1,4 +1,4 @@
-"""Where the frontier step's time goes inside a training run, on the card.
+"""Where the prefetch step's time goes inside a training run, on the card.
 
 ``chip_smoke.py`` phase 3 times each launch of the raw loop's frontier step
 by CUDA events around the dispatcher call: in the run that reads several
@@ -27,10 +27,16 @@ matching), so that the two read side by side. The rows (with every
 operation's name and time) and the chrome trace of each window go to
 ``--out`` (by default ``_profiles/`` in the checkout).
 
+With ``--ragged`` the same for the ragged loop's fused step: phase 3b's
+run (``papers`` at ``scale=10`` with a kernel-backed feature store,
+``chip_smoke.RAGGED``; with ``--wide`` phase 6b's), the engine's
+``fused_step_readback_batch`` launches, and alone its wrapper
+``fused_step_readback_cuda``.
+
 Usage (from the repository root, on a machine with a card)::
 
-    python3 scripts/frontier_inrun_profile.py [--src PATH] [--wide] [--tag NAME]
-        [--capture-aggregation] [--out DIR]
+    python3 scripts/frontier_inrun_profile.py [--src PATH] [--wide] [--ragged]
+        [--tag NAME] [--capture-aggregation] [--out DIR]
 
 ``--src`` points at the ``src`` directory of the package to profile (by
 default this checkout's), so that two trees can be compared in one call.
@@ -103,7 +109,9 @@ def summarise(ops) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
-    ap.add_argument("--wide", action="store_true", help="phase 6's rebased run")
+    ap.add_argument("--wide", action="store_true", help="phase 6's (6b's) rebased run")
+    ap.add_argument("--ragged", action="store_true",
+                    help="phase 3b's ragged run and its fused step")
     ap.add_argument("--launches", type=int, nargs=2, default=(2, 3),
                     help="0-based indices of the first and last launch in the window")
     ap.add_argument("--tag", default="tree")
@@ -127,12 +135,24 @@ def main() -> int:
     from repro_torch.graph import generate, partition_graph
     from repro_torch.kernels import fused_step as fs
     from repro_torch.kernels import native
+    from repro_torch.store import FeatureStore
 
     dev = torch.device("cuda")
     native.build_all()
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
-    name = "fused_frontier_step_wide_batch" if args.wide else "fused_frontier_step_batch"
+    from repro_torch.kernels import ops
+
+    # A tree from before the engine's readback form launches the reference
+    # form from the engine (``--src`` of an older tree).
+    readback = hasattr(ops, "fused_step_readback_batch")
+    if args.ragged:
+        name = ("fused_step_readback_batch" if readback
+                else "fused_step_wide_batch" if args.wide else "fused_step_batch")
+        label = "step launch "
+    else:
+        name = "fused_frontier_step_wide_batch" if args.wide else "fused_frontier_step_batch"
+        label = "frontier launch "
     first, last = args.launches
 
     class WindowClock(cs.StageClock):
@@ -161,6 +181,10 @@ def main() -> int:
                     torch.profiler.ProfilerActivity.CUDA,
                 ])
                 self.prof.__enter__()
+                # The window's first device operation, which the profiler
+                # can miss, so that it is not a launch's.
+                torch.zeros(1, device=dev)
+                torch.cuda.synchronize()
             # Capture the inputs as StageClock does, outside the range.
             self.launches[fname].append((
                 [x.clone() if isinstance(x, torch.Tensor) and x.numel() <= 2**25
@@ -170,7 +194,7 @@ def main() -> int:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             t0 = time.perf_counter()
-            with torch.profiler.record_function(f"frontier launch {i}"):
+            with torch.profiler.record_function(f"{label}{i}"):
                 start.record()
                 out = fn(*a, **kw)
                 end.record()
@@ -181,10 +205,16 @@ def main() -> int:
                 self.prof.__exit__(None, None, None)
             return out
 
-    g = generate("products", seed=0, scale=cs.MAIN_SCALE)
+    g = generate("papers" if args.ragged else "products", seed=0,
+                 scale=cs.RAGGED_SCALE if args.ragged else cs.MAIN_SCALE)
     if args.wide:
         g = g.rebase(cs.WIDE_BASE)
-    trainer = DistributedTrainer(partition_graph(g, 4), device="cuda", **cs.RUN)
+    parts = partition_graph(g, 4)
+    if args.ragged:
+        store = FeatureStore.for_partitions(parts, device="cuda", use_kernel=True)
+        trainer = DistributedTrainer(parts, device="cuda", feature_store=store, **cs.RAGGED)
+    else:
+        trainer = DistributedTrainer(parts, device="cuda", **cs.RUN)
     captured = [name, *cs.AGGREGATION_KERNELS] if args.capture_aggregation else [name]
     clock = WindowClock(captured, by_ref=[trainer.features])
     torch.cuda.synchronize()
@@ -193,14 +223,16 @@ def main() -> int:
     torch.cuda.synchronize()
     events_ms = clock.device_ms(name)
     tag = f"{args.tag}_{'wide' if args.wide else 'narrow'}"
-    trace = out_dir / f"frontier_inrun_{tag}.json"
+    kind = "step" if args.ragged else "frontier"
+    trace = out_dir / f"{kind}_inrun_{tag}.json"
     clock.prof.export_chrome_trace(str(trace))
-    found = device_ops_in(trace, "frontier launch ")
+    found = device_ops_in(trace, label)
     card = cs.card_line()
     # Every launch but the prime one (0) and the drained one (the last, Mt = 1).
     steady = range(1, len(events_ms) - 1)
     rows = [{
-        "tree": args.tag, "wide": args.wide, "where": "in run, every launch",
+        "tree": args.tag, "wide": args.wide, "ragged": args.ragged,
+        "where": "in run, every launch",
         "capture_aggregation": args.capture_aggregation,
         "launches": len(events_ms),
         "events_ms": [round(events_ms[i], 4) for i in steady],
@@ -211,12 +243,16 @@ def main() -> int:
     for i in range(first, last + 1):
         row = {"tree": args.tag, "wide": args.wide, "launch": i, "where": "in run",
                "events_ms": events_ms[i], "host_ms": clock.host[i]}
-        row.update(summarise(found.get(f"frontier launch {i}", [])))
+        row.update(summarise(found.get(f"{label}{i}", [])))
         rows.append(row)
 
     # The middle launch of the window, alone.
     (a, kw) = clock.launches[name][first]
-    wrapper = fs.fused_frontier_step_wide_cuda if args.wide else fs.fused_frontier_step_cuda
+    if args.ragged:
+        wrapper = (fs.fused_step_readback_cuda if readback
+                   else fs.fused_step_wide_cuda if args.wide else fs.fused_step_cuda)
+    else:
+        wrapper = fs.fused_frontier_step_wide_cuda if args.wide else fs.fused_frontier_step_cuda
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
     call = lambda: wrapper(*a, **kw)  # noqa: E731
     call()
@@ -225,17 +261,19 @@ def main() -> int:
     with torch.profiler.profile(activities=[
         torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA,
     ]) as prof:
-        with torch.profiler.record_function(f"frontier launch {first} alone"):
+        torch.zeros(1, device=dev)  # the operation the profiler can miss
+        torch.cuda.synchronize()
+        with torch.profiler.record_function(f"{label}{first} alone"):
             call()
         torch.cuda.synchronize()
-    alone_trace = out_dir / f"frontier_alone_{tag}.json"
+    alone_trace = out_dir / f"{kind}_alone_{tag}.json"
     prof.export_chrome_trace(str(alone_trace))
-    alone = device_ops_in(alone_trace, "frontier launch ")
+    alone = device_ops_in(alone_trace, label)
     row = {"tree": args.tag, "wide": args.wide, "launch": first, "where": "alone",
            "events_ms": alone_ms}
-    row.update(summarise(alone.get(f"frontier launch {first} alone", [])))
+    row.update(summarise(alone.get(f"{label}{first} alone", [])))
     rows.append(row)
-    with open(out_dir / f"frontier_inrun_{tag}.jsonl", "w") as f:
+    with open(out_dir / f"{kind}_inrun_{tag}.jsonl", "w") as f:
         for row in rows:
             row["card"] = card
             f.write(json.dumps(row) + "\n")

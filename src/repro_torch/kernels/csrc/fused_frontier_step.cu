@@ -424,7 +424,8 @@ __global__ void __launch_bounds__(kProbeThreads)
     out = 1;
     if (active_probe) {
       const int32_t slot =
-          rudder::sorted_lookup(ix, p, C, K, v, ids2, valid2, placed);
+          rudder::sorted_lookup(ix, p, C, K, v, ids2, valid2,
+                                placed + (int64_t)p * K);
       if (slot >= 0) {
         out = slot + 2;
         acc3[(int64_t)p * C + slot] = 1;

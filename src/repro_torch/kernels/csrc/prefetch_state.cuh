@@ -2,22 +2,31 @@
 // state, shared by fused_frontier_step.cu and fused_step.cu (sm_90a).
 //
 // Spec: repro_torch/kernels/ref.py::fused_step_core, steps 1 and 2. One
-// thread-block cluster of kStateCluster blocks per PE; each block owns a
-// contiguous eighth of the PE's slots and of its candidates and walks it
-// in tiles of kStateThreads, one element a thread (neighbouring threads on
-// neighbouring addresses, so every load coalesces):
+// thread-block cluster of kBlocks blocks per PE (state_round, a device
+// function the including file's kernel calls); each block owns a
+// contiguous 1/kBlocks of the PE's slots and of its candidates and walks
+// it in tiles of kStateThreads x kItems elements, element j of thread t at
+// tile position j * kStateThreads + t (neighbouring threads on
+// neighbouring addresses, so every load coalesces, and a thread's kItems
+// loads are independent, so they are in flight together):
 //   * the scoring round on valid slots of active_score PEs;
-//   * free / stale slot fill ranks and fresh candidate ranks by a block
-//     scan per tile plus a carry, after the counts of the lower blocks of
-//     the cluster (read from their shared memory, DSMEM), so ranks follow
+//   * free / stale slot fill ranks and fresh candidate ranks by one block
+//     scan per tile (block_scan_n: the kItems rows of the tile scanned
+//     together) plus a carry, after the counts of the lower blocks of the
+//     cluster (read from their shared memory, DSMEM), so ranks follow
 //     slot and candidate order as in the plain version;
 //   * placement: the candidate of fresh rank r takes the slot of fill
 //     rank r, at initial_score.
-// Three cluster barriers order the passes: the first makes every slot's
-// index entry and every candidate's first-occurrence entry visible before
-// the fresh test, the second makes every fresh flag and fill rank visible
-// before placement (which rewrites slot_of), the last keeps each block's
-// shared counts alive until the others have read them.
+// When a block's slots (candidates) fit one tile — up to 32,768 a PE for
+// both steps' shapes, so every launch of the trainers' paths — the free /
+// stale flags (the candidates and their fresh flags) stay in registers
+// from one pass to the next; otherwise each pass re-reads them. Two cluster barriers order the
+// passes: the first makes every slot's index entry and every candidate's
+// first-occurrence entry visible before the fresh test, the second makes
+// every fresh flag and fill rank visible before placement (which rewrites
+// slot_of). The caller ends the round with a third (cluster.sync), which
+// keeps each block's shared counts alive until the others have read them;
+// fused_step.cu's kernel fences first and probes after it.
 //
 // Ids are a template parameter: int32_t on the narrow path, int64_t on the
 // wide one (graphs whose global ids sit at an id_base or pass 2^31 - 2).
@@ -30,9 +39,11 @@
 //                              the probe that follows in the including file;
 //       cand_first[p][id - lo] INT_MAX - (earliest candidate position
 //                              holding id), by atomicMax, so that a zero
-//                              fill initialises it.
-//     Both are (P, span) int32 scratch, filled by the caller (-1 and 0).
-//     The narrow path is lo = 0, span = N.
+//                              entry is an empty one.
+//     Both are (P, span) int32 scratch at -1 and 0 when the launch starts:
+//     the frontier step memsets them, the fused step keeps them clean from
+//     one launch to the next (its kernel puts back what it wrote). The
+//     narrow path is lo = 0, span = N.
 //   sorted (kSorted = true): for a launch whose span is past the wrapper's
 //     memory budget for the maps. Per PE, the resident ids sorted once
 //     (invalid slots as the sentinel, the largest Id, which no eligible id
@@ -46,9 +57,9 @@
 // first-occurrence ids).
 //
 // Where the round writes placed, slot_pos and the per-PE counts n_place
-// and n_valid is the caller's (StateOut): separate tensors for the fused
-// step, the columns of the packed readback and the counters for the
-// frontier step, so that no epilogue copies them.
+// and n_valid is the caller's (StateOut): separate tensors, or the columns
+// of the packed readback (and the counters of the frontier step), so that
+// no epilogue copies them.
 //
 // lo is also the origin of the local-indexed per-node arrays (part_of,
 // node_weights): node_weights[id - lo]. On the frontier path lo is the
@@ -70,7 +81,11 @@ namespace rudder {
 namespace cg = cooperative_groups;
 
 constexpr int kStateThreads = 512;
+// The frontier step's cluster: blocks per PE.
 constexpr int kStateCluster = 8;
+// Elements a thread takes per tile of the state round (see the note at
+// the top); the fused step's kernel picks its own (fused_step.cu).
+constexpr int kStateItems = 8;
 constexpr int kModeAccumulate = 0;
 constexpr int kModeReset = 1;
 constexpr int kModeCapped = 2;
@@ -86,7 +101,9 @@ struct Policy {
 };
 
 // Gate bits of PE p (active_score | do_replace << 1 | active_probe << 2)
-// packed into the last column of a (P, stride) id block.
+// in column stride - 1 of a (P, stride) block of Ids: the last column of
+// the frontier step's id block, or (stride 1) the (P,) int32 words the
+// fused step's engine uploads.
 template <typename Id>
 struct PackedGates {
   const Id* aug;
@@ -131,11 +148,11 @@ struct IdIndex {
 
 // The round's per-PE outputs besides the state: placed (0/1 as PlacedT)
 // and slot_pos rows at their row strides, n_place and n_valid at
-// count_stride, and optionally n_valid once more at n_valid_col (the
-// packed readback's last column). Optionally too, for the kernels that run
-// after the round: rows of fill_words 32-bit words at fill_ones set to all
-// ones, and the first two words of every 4-word row at clear_counters set
-// to 0. The optional pointers are null when unused.
+// count_stride (n_place may be null), and optionally n_valid once more at
+// n_valid_col (the packed readback's last column). Optionally too, for the
+// kernels that run after the round: rows of fill_words 32-bit words at
+// fill_ones set to all ones, and the first two words of every 4-word row
+// at clear_counters set to 0. The optional pointers are null when unused.
 template <typename PlacedT>
 struct StateOut {
   PlacedT* placed;
@@ -169,11 +186,11 @@ __device__ __forceinline__ int lower_bound(const Id* row, int n, Id v) {
 
 // Slot of q in PE p's post-replace state, or -1 (sorted mode): q was
 // resident before the round and its slot was not refilled, or q was
-// admitted by this round.
-template <typename Id>
+// admitted by this round. placed_row is PE p's row of the placed flags.
+template <typename Id, typename PlacedT>
 __device__ __forceinline__ int32_t sorted_lookup(
     const IdIndex<Id>& ix, int p, int C, int K, Id q, const Id* ids2,
-    const uint8_t* valid2, const uint8_t* placed) {
+    const uint8_t* valid2, const PlacedT* placed_row) {
   const int64_t row_c = (int64_t)p * C;
   const int64_t row_k = (int64_t)p * K;
   int j = lower_bound(ix.res_sorted + row_c, C, q);
@@ -186,7 +203,7 @@ __device__ __forceinline__ int32_t sorted_lookup(
   j = lower_bound(ix.cand_sorted + row_k, K, q);
   if (j < K && ix.cand_sorted[row_k + j] == q) {
     const int64_t k = ix.cand_order[row_k + j];
-    if (placed[row_k + k] != 0) return ix.cand_slot[row_k + k];
+    if (placed_row[k] != 0) return ix.cand_slot[row_k + k];
   }
   return -1;
 }
@@ -238,6 +255,87 @@ __device__ inline void block_scan2(int a, int b, int* excl_a, int* excl_b,
   __syncthreads();  // the shared arrays are reused by the next call
 }
 
+// N exclusive block-wide scans at once, one per counter of v (over the
+// threads in order); tot gets the block totals. Three __syncthreads for
+// all N. Every thread of the block must call it.
+template <int N>
+__device__ __forceinline__ void block_scan_n(const uint32_t (&v)[N],
+                                             uint32_t (&excl)[N],
+                                             uint32_t (&tot)[N]) {
+  __shared__ uint32_t warp_sums[N][32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = (blockDim.x + 31) >> 5;
+  uint32_t inc[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) inc[j] = v[j];
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const uint32_t y = __shfl_up_sync(0xffffffffu, inc[j], off);
+      if (lane >= off) inc[j] += y;
+    }
+  }
+  if (lane == 31) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) warp_sums[j][warp] = inc[j];
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      uint32_t w = lane < nwarps ? warp_sums[j][lane] : 0u;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const uint32_t y = __shfl_up_sync(0xffffffffu, w, off);
+        if (lane >= off) w += y;
+      }
+      warp_sums[j][lane] = w;  // inclusive prefix over warps
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    excl[j] = (warp > 0 ? warp_sums[j][warp - 1] : 0u) + inc[j] - v[j];
+    tot[j] = warp_sums[j][nwarps - 1];
+  }
+  __syncthreads();  // the shared array is reused by the next call
+}
+
+// Sums of words [first, first + N) of `counts` over the cluster's kBlocks
+// blocks (total) and over those of rank below b (below). Lane r < kBlocks
+// of each warp reads block r's words, so that a warp makes one round trip
+// to distributed shared memory, and the warp adds them up.
+template <int kBlocks, int N>
+__device__ __forceinline__ void cluster_sums(const cg::cluster_group& cluster,
+                                             int* counts, int first, int b,
+                                             int (&total)[N], int (&below)[N]) {
+  static_assert(kBlocks <= 32, "one lane a block");
+  const int lane = threadIdx.x & 31;
+  int mine[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) mine[i] = 0;
+  if (lane < kBlocks) {
+    const int* theirs = cluster.map_shared_rank(counts, lane);
+#pragma unroll
+    for (int i = 0; i < N; ++i) mine[i] = theirs[first + i];
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    total[i] = mine[i];
+    below[i] = lane < b ? mine[i] : 0;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      total[i] += __shfl_xor_sync(0xffffffffu, total[i], off);
+      below[i] += __shfl_xor_sync(0xffffffffu, below[i], off);
+    }
+  }
+}
+
 __device__ __forceinline__ float score_round(float s, bool accessed, float w,
                                              const Policy& pol) {
   if (!accessed) return __fmul_rn(s, pol.decay);
@@ -247,9 +345,298 @@ __device__ __forceinline__ float score_round(float s, bool accessed, float w,
   return pol.mode == kModeCapped ? fminf(t, pol.score_cap) : t;
 }
 
-// Grid (kStateCluster, P), one cluster per PE: score, rank, place. A
-// placed slot's weight comes from cand_w[k] (per candidate) when given,
-// else node_weights[id - lo], else 1.0.
+// The round of PE blockIdx.y by this block, rank cluster.block_rank() of
+// the kBlocks blocks of its cluster: score, rank, place. A placed slot's
+// weight comes from cand_w[k] (per candidate) when given, else
+// node_weights[id - lo], else 1.0. Every thread of the cluster must call
+// it; the caller ends it with cluster.sync() (see the note at the top).
+template <int kBlocks, int kItems, typename Id, bool kSorted, class Gates,
+          typename PlacedT>
+__device__ __forceinline__ void state_round(
+    const cg::cluster_group& cluster, int C, int K, const Gates& gates,
+    const IdIndex<Id>& ix, const Id* __restrict__ ids,
+    const float* __restrict__ scores, const uint8_t* __restrict__ valid,
+    const uint8_t* __restrict__ accessed, const uint8_t* __restrict__ in_cap,
+    const float* __restrict__ weights, const Id* __restrict__ cand,
+    const float* __restrict__ cand_w, const float* __restrict__ node_weights,
+    Id* __restrict__ ids2, float* __restrict__ s2,
+    uint8_t* __restrict__ valid2, uint8_t* __restrict__ acc3,
+    float* __restrict__ w2, const StateOut<PlacedT>& out,
+    int32_t* __restrict__ rank_slot, const Policy& pol) {
+  constexpr int T = kStateThreads;
+  constexpr int kTile = T * kItems;
+  // This block's counts, read by the whole cluster: free, stale and valid
+  // slots, fresh candidates.
+  __shared__ int counts[4];
+  const int b = static_cast<int>(cluster.block_rank());
+  const int p = blockIdx.y;
+  const int t = threadIdx.x;
+  const int g = gates(p);
+  const bool active_score = (g & 1) != 0;
+  const bool do_replace = (g & 2) != 0;
+
+  const int64_t row_c = (int64_t)p * C;
+  const int64_t row_k = (int64_t)p * K;
+  const int64_t row_n = (int64_t)p * ix.span;
+  int32_t* my_slot_of = kSorted ? nullptr : ix.slot_of + row_n;
+  int32_t* my_cand_first = kSorted ? nullptr : ix.cand_first + row_n;
+  PlacedT* my_placed = out.placed + (int64_t)p * out.placed_stride;
+  int32_t* my_slot_pos = out.slot_pos + (int64_t)p * out.slot_pos_stride;
+
+  if (out.fill_ones) {
+    uint32_t* row = out.fill_ones + (int64_t)p * out.fill_words;
+    for (int64_t j = (int64_t)b * T + t; j < out.fill_words; j += kBlocks * T) {
+      row[j] = 0xFFFFFFFFu;
+    }
+  }
+  if (out.clear_counters && b == 0 && t == 0) {
+    out.clear_counters[4 * p] = 0;
+    out.clear_counters[4 * p + 1] = 0;
+  }
+
+  const int c_span = (C + kBlocks - 1) / kBlocks;
+  const int c_lo = min(b * c_span, C), c_hi = min(c_lo + c_span, C);
+  const int k_span = (K + kBlocks - 1) / kBlocks;
+  const int k_lo = min(b * k_span, K), k_hi = min(k_lo + k_span, K);
+  // One tile holds the whole slice: flags and candidates stay in registers.
+  const bool c_one = c_hi - c_lo <= kTile;
+  const bool k_one = k_hi - k_lo <= kTile;
+
+  // -- score round; copy the state through; index the resident ids ----- //
+  // fl: free | stale << 16 of this thread's slots of the last tile.
+  uint32_t fl[kItems] = {};
+  uint32_t n_mine[3] = {0u, 0u, 0u};  // free, stale, valid
+  for (int base = c_lo; base < c_hi; base += kTile) {
+    bool v[kItems], a[kItems], cap[kItems];
+    float s[kItems], w[kItems];
+    Id id[kItems];
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const int c = base + j * T + t;
+      if (c < c_hi) {
+        const int64_t i = row_c + c;
+        v[j] = valid[i] != 0;
+        a[j] = accessed[i] != 0;
+        cap[j] = in_cap[i] != 0;
+        s[j] = scores[i];
+        w[j] = weights ? weights[i] : 1.0f;
+        id[j] = ids[i];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const int c = base + j * T + t;
+      fl[j] = 0u;
+      if (c < c_hi) {
+        const int64_t i = row_c + c;
+        float sc = s[j];
+        if (active_score && v[j]) sc = score_round(sc, a[j], w[j], pol);
+        s2[i] = sc;
+        ids2[i] = id[j];
+        valid2[i] = v[j];
+        acc3[i] = a[j] && !active_score;
+        if (weights) w2[i] = w[j];
+        if constexpr (!kSorted) {
+          const int64_t d = ix.offset(id[j]);
+          if (v[j] && d >= 0) my_slot_of[d] = c;
+        }
+        const uint32_t is_free = !v[j] && cap[j];
+        const uint32_t is_stale = v[j] && sc < pol.threshold;
+        fl[j] = is_free | (is_stale << 16);
+        n_mine[0] += is_free;
+        n_mine[1] += is_stale;
+        n_mine[2] += v[j];
+      }
+    }
+  }
+  // cid: this thread's candidates of the last tile (-1 past the slice).
+  Id cid[kItems];
+#pragma unroll
+  for (int j = 0; j < kItems; ++j) cid[j] = Id(-1);
+  if constexpr (!kSorted) {
+    for (int base = k_lo; base < k_hi; base += kTile) {
+#pragma unroll
+      for (int j = 0; j < kItems; ++j) {
+        const int k = base + j * T + t;
+        cid[j] = k < k_hi ? cand[row_k + k] : Id(-1);
+      }
+#pragma unroll
+      for (int j = 0; j < kItems; ++j) {
+        const int64_t d = ix.offset(cid[j]);
+        if (d >= 0) atomicMax(&my_cand_first[d], kInt32Max - (base + j * T + t));
+      }
+    }
+  }
+  uint32_t unused[3], tot[3];
+  block_scan_n<3>(n_mine, unused, tot);
+  if (t == 0) {
+    counts[0] = static_cast<int>(tot[0]);
+    counts[1] = static_cast<int>(tot[1]);
+    counts[2] = static_cast<int>(tot[2]);
+  }
+  __threadfence();
+  cluster.sync();
+
+  int totals[3], lower[3];  // free, stale, valid
+  cluster_sums<kBlocks, 3>(cluster, counts, 0, b, totals, lower);
+  const int n_free = totals[0], n_stale = totals[1], n_valid = totals[2];
+  int free_before = lower[0], stale_before = lower[1];
+
+  // -- fill ranks of free then stale slots, in slot order --------------- //
+  // A tile holds at most kTile flags of each kind, so the free and stale
+  // counts of a scan share one word. A thread re-reads (for a slice of
+  // several tiles) only the slots it wrote above.
+  const int big = C + K + 1;
+  for (int base = c_lo; base < c_hi; base += kTile) {
+    if (!c_one) {
+#pragma unroll
+      for (int j = 0; j < kItems; ++j) {
+        const int c = base + j * T + t;
+        fl[j] = 0u;
+        if (c < c_hi) {
+          const int64_t i = row_c + c;
+          const bool v = valid2[i] != 0;
+          fl[j] = static_cast<uint32_t>(!v && in_cap[i] != 0) |
+                  (static_cast<uint32_t>(v && s2[i] < pol.threshold) << 16);
+        }
+      }
+    }
+    uint32_t ex[kItems], rows[kItems];
+    block_scan_n<kItems>(fl, ex, rows);
+    uint32_t before = 0u;  // free | stale << 16 of the tile's lower rows
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const int c = base + j * T + t;
+      if (c < c_hi) {
+        const uint32_t e = before + ex[j];
+        int r = big;
+        if (fl[j] & 0xFFFFu) {
+          r = free_before + static_cast<int>(e & 0xFFFFu);
+        } else if (fl[j] >> 16) {
+          r = n_free + stale_before + static_cast<int>(e >> 16);
+        }
+        my_slot_pos[c] = r;
+        if (r < big) rank_slot[row_c + r] = c;
+      }
+      before += rows[j];
+    }
+    free_before += static_cast<int>(before & 0xFFFFu);
+    stale_before += static_cast<int>(before >> 16);
+  }
+
+  // -- fresh candidates: valid, not resident, first occurrence --------- //
+  // For a slice of several tiles the flag is parked in `placed`, so that
+  // the placement pass never re-reads slot_of while other threads update
+  // it.
+  uint32_t fr[kItems];
+  uint32_t n_fresh_mine[1] = {0u};
+  for (int base = k_lo; base < k_hi; base += kTile) {
+    if (kSorted || !k_one) {
+#pragma unroll
+      for (int j = 0; j < kItems; ++j) {
+        const int k = base + j * T + t;
+        cid[j] = k < k_hi ? cand[row_k + k] : Id(-1);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const int k = base + j * T + t;
+      const Id id = cid[j];
+      bool fresh = false;
+      if (do_replace && id >= 0) {
+        if constexpr (kSorted) {
+          const int jr = lower_bound(ix.res_sorted + row_c, C, id);
+          const bool resident = jr < C && ix.res_sorted[row_c + jr] == id;
+          const int jc = lower_bound(ix.cand_sorted + row_k, K, id);
+          fresh = !resident && ix.cand_order[row_k + jc] == k;
+        } else {
+          const int64_t d = ix.offset(id);
+          fresh = d >= 0 && my_slot_of[d] < 0 &&
+                  my_cand_first[d] == kInt32Max - k;
+        }
+      }
+      fr[j] = fresh;
+      if (!k_one && k < k_hi) my_placed[k] = static_cast<PlacedT>(fresh);
+      n_fresh_mine[0] += fresh;
+    }
+  }
+  uint32_t tot_fresh[1], unused1[1];
+  block_scan_n<1>(n_fresh_mine, unused1, tot_fresh);
+  if (t == 0) counts[3] = static_cast<int>(tot_fresh[0]);
+  __threadfence();
+  cluster.sync();
+
+  int fresh_total[1], fresh_lower[1];
+  cluster_sums<kBlocks, 1>(cluster, counts, 3, b, fresh_total, fresh_lower);
+  const int n_fresh = fresh_total[0];
+  int fresh_before = fresh_lower[0];
+  const int n_place = do_replace ? min(n_free + n_stale, n_fresh) : 0;
+
+  // -- placement: the candidate of fresh rank r takes the slot of fill
+  //    rank r. New ids are never resident, so the slot_of entries cleared
+  //    (replaced stale ids) and set (new ids) never coincide. ------------ //
+  for (int base = k_lo; base < k_hi; base += kTile) {
+    if (!k_one) {
+#pragma unroll
+      for (int j = 0; j < kItems; ++j) {
+        const int k = base + j * T + t;
+        fr[j] = k < k_hi && my_placed[k] != 0;
+        cid[j] = k < k_hi ? cand[row_k + k] : Id(-1);
+      }
+    }
+    uint32_t ex[kItems], rows[kItems];
+    block_scan_n<kItems>(fr, ex, rows);
+    int before = fresh_before;
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const int k = base + j * T + t;
+      if (k < k_hi) {
+        const int r = before + static_cast<int>(ex[j]);
+        const bool is_placed = fr[j] != 0 && r < n_place;
+        if (is_placed) {
+          const int64_t jj = row_k + k;
+          const int c = rank_slot[row_c + r];
+          const int64_t i = row_c + c;
+          const Id id = cid[j];
+          if constexpr (kSorted) {
+            ix.cand_slot[jj] = c;
+          } else {
+            if (valid[i] != 0) {
+              const int64_t d_old = ix.offset(ids[i]);
+              if (d_old >= 0) my_slot_of[d_old] = -1;
+            }
+            my_slot_of[ix.offset(id)] = c;
+          }
+          ids2[i] = id;
+          s2[i] = pol.initial_score;
+          valid2[i] = 1;
+          acc3[i] = 0;
+          if (weights) {
+            w2[i] = cand_w ? cand_w[jj]
+                           : (node_weights
+                                  ? node_weights[static_cast<int64_t>(id) -
+                                                 static_cast<int64_t>(ix.lo)]
+                                  : 1.0f);
+          }
+        }
+        my_placed[k] = static_cast<PlacedT>(is_placed);
+      }
+      before += static_cast<int>(rows[j]);
+    }
+    fresh_before = before;
+  }
+  if (b == 0 && t == 0) {
+    // Placement fills free slots (invalid before) first, then stale ones.
+    const int valid_after = n_valid + min(n_place, n_free);
+    if (out.n_place) out.n_place[(int64_t)p * out.count_stride] = n_place;
+    out.n_valid[(int64_t)p * out.count_stride] = valid_after;
+    if (out.n_valid_col) {
+      out.n_valid_col[(int64_t)p * out.n_valid_col_stride] = valid_after;
+    }
+  }
+}
+
+// The frontier step's round: grid (kStateCluster, P), one cluster per PE.
 template <typename Id, bool kSorted, class Gates, typename PlacedT>
 __global__ void __cluster_dims__(kStateCluster, 1, 1)
     __launch_bounds__(kStateThreads)
@@ -268,210 +655,11 @@ __global__ void __cluster_dims__(kStateCluster, 1, 1)
                           uint8_t* __restrict__ acc3, float* __restrict__ w2,
                           StateOut<PlacedT> out,
                           int32_t* __restrict__ rank_slot, Policy pol) {
-  // This block's counts, read by the whole cluster: free, stale and valid
-  // slots, fresh candidates.
-  __shared__ int counts[4];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int b = static_cast<int>(cluster.block_rank());
-  const int p = blockIdx.y;
-  const int t = threadIdx.x;
-  const int T = blockDim.x;
-  const int g = gates(p);
-  const bool active_score = (g & 1) != 0;
-  const bool do_replace = (g & 2) != 0;
-
-  const int64_t row_c = (int64_t)p * C;
-  const int64_t row_k = (int64_t)p * K;
-  const int64_t row_n = (int64_t)p * ix.span;
-  int32_t* my_slot_of = kSorted ? nullptr : ix.slot_of + row_n;
-  int32_t* my_cand_first = kSorted ? nullptr : ix.cand_first + row_n;
-  PlacedT* my_placed = out.placed + (int64_t)p * out.placed_stride;
-  int32_t* my_slot_pos = out.slot_pos + (int64_t)p * out.slot_pos_stride;
-
-  if (out.fill_ones) {
-    uint32_t* row = out.fill_ones + (int64_t)p * out.fill_words;
-    for (int64_t j = (int64_t)b * T + t; j < out.fill_words;
-         j += kStateCluster * T) {
-      row[j] = 0xFFFFFFFFu;
-    }
-  }
-  if (out.clear_counters && b == 0 && t == 0) {
-    out.clear_counters[4 * p] = 0;
-    out.clear_counters[4 * p + 1] = 0;
-  }
-
-  const int c_span = (C + kStateCluster - 1) / kStateCluster;
-  const int c_lo = min(b * c_span, C), c_hi = min(c_lo + c_span, C);
-  const int k_span = (K + kStateCluster - 1) / kStateCluster;
-  const int k_lo = min(b * k_span, K), k_hi = min(k_lo + k_span, K);
-
-  // -- score round; copy the state through; index the resident ids ----- //
-  int n_free_mine = 0, n_stale_mine = 0, n_valid_mine = 0;
-  for (int c = c_lo + t; c < c_hi; c += T) {
-    const int64_t i = row_c + c;
-    const bool v = valid[i] != 0;
-    const bool a = accessed[i] != 0;
-    const float w = weights ? weights[i] : 1.0f;
-    float s = scores[i];
-    if (active_score && v) s = score_round(s, a, w, pol);
-    const Id id = ids[i];
-    s2[i] = s;
-    ids2[i] = id;
-    valid2[i] = v;
-    acc3[i] = a && !active_score;
-    if (weights) w2[i] = w;
-    if constexpr (!kSorted) {
-      const int64_t d = ix.offset(id);
-      if (v && d >= 0) my_slot_of[d] = c;
-    }
-    n_free_mine += (!v && in_cap[i] != 0);
-    n_stale_mine += (v && s < pol.threshold);
-    n_valid_mine += v;
-  }
-  if constexpr (!kSorted) {
-    for (int k = k_lo + t; k < k_hi; k += T) {
-      const int64_t d = ix.offset(cand[row_k + k]);
-      if (d >= 0) atomicMax(&my_cand_first[d], kInt32Max - k);
-    }
-  }
-  int e0, e1, tot_free, tot_stale, tot_valid, unused;
-  block_scan2(n_free_mine, n_stale_mine, &e0, &e1, &tot_free, &tot_stale);
-  block_scan2(n_valid_mine, 0, &e0, &e1, &tot_valid, &unused);
-  if (t == 0) {
-    counts[0] = tot_free;
-    counts[1] = tot_stale;
-    counts[2] = tot_valid;
-  }
-  __threadfence();
-  cluster.sync();
-
-  int free_before = 0, stale_before = 0, n_free = 0, n_stale = 0, n_valid = 0;
-  for (int r = 0; r < kStateCluster; ++r) {
-    const int* theirs = cluster.map_shared_rank(counts, r);
-    const int f = theirs[0], s = theirs[1];
-    if (r < b) {
-      free_before += f;
-      stale_before += s;
-    }
-    n_free += f;
-    n_stale += s;
-    n_valid += theirs[2];
-  }
-
-  // -- fill ranks of free then stale slots, in slot order --------------- //
-  // A thread re-reads only the slots it wrote above (same c, same t).
-  const int big = C + K + 1;
-  for (int base = c_lo; base < c_hi; base += T) {
-    const int c = base + t;
-    const int64_t i = row_c + c;
-    int is_free = 0, is_stale = 0;
-    if (c < c_hi) {
-      const bool v = valid2[i] != 0;
-      is_free = !v && in_cap[i] != 0;
-      is_stale = v && s2[i] < pol.threshold;
-    }
-    int ef, es, tf, ts;
-    block_scan2(is_free, is_stale, &ef, &es, &tf, &ts);
-    if (c < c_hi) {
-      int r = big;
-      if (is_free) {
-        r = free_before + ef;
-      } else if (is_stale) {
-        r = n_free + stale_before + es;
-      }
-      my_slot_pos[c] = r;
-      if (r < big) rank_slot[row_c + r] = c;
-    }
-    free_before += tf;
-    stale_before += ts;
-  }
-
-  // -- fresh candidates: valid, not resident, first occurrence --------- //
-  // The flag is parked in `placed` so the placement pass below never
-  // re-reads slot_of while other threads update it.
-  int n_fresh_mine = 0;
-  for (int k = k_lo + t; k < k_hi; k += T) {
-    const Id id = cand[row_k + k];
-    bool fresh = false;
-    if (do_replace && id >= 0) {
-      if constexpr (kSorted) {
-        const int jr = lower_bound(ix.res_sorted + row_c, C, id);
-        const bool resident = jr < C && ix.res_sorted[row_c + jr] == id;
-        const int jc = lower_bound(ix.cand_sorted + row_k, K, id);
-        fresh = !resident && ix.cand_order[row_k + jc] == k;
-      } else {
-        const int64_t d = ix.offset(id);
-        fresh = d >= 0 && my_slot_of[d] < 0 && my_cand_first[d] == kInt32Max - k;
-      }
-    }
-    my_placed[k] = static_cast<PlacedT>(fresh);
-    n_fresh_mine += fresh;
-  }
-  int tot_fresh;
-  block_scan2(n_fresh_mine, 0, &e0, &e1, &tot_fresh, &unused);
-  if (t == 0) counts[3] = tot_fresh;
-  __threadfence();
-  cluster.sync();
-
-  int fresh_before = 0, n_fresh = 0;
-  for (int r = 0; r < kStateCluster; ++r) {
-    const int f = cluster.map_shared_rank(counts, r)[3];
-    if (r < b) fresh_before += f;
-    n_fresh += f;
-  }
-  const int n_place = do_replace ? min(n_free + n_stale, n_fresh) : 0;
-
-  // -- placement: the candidate of fresh rank r takes the slot of fill
-  //    rank r. New ids are never resident, so the slot_of entries cleared
-  //    (replaced stale ids) and set (new ids) never coincide. ------------ //
-  for (int base = k_lo; base < k_hi; base += T) {
-    const int k = base + t;
-    const int is_fresh = k < k_hi && my_placed[k] != 0;
-    int ef, unused_e, tf, unused_t;
-    block_scan2(is_fresh, 0, &ef, &unused_e, &tf, &unused_t);
-    if (k < k_hi) {
-      bool is_placed = false;
-      const int r = fresh_before + ef;
-      if (is_fresh && r < n_place) {
-        is_placed = true;
-        const int64_t j = row_k + k;
-        const int c = rank_slot[row_c + r];
-        const int64_t i = row_c + c;
-        const Id id = cand[j];
-        if constexpr (kSorted) {
-          ix.cand_slot[j] = c;
-        } else {
-          if (valid[i] != 0) {
-            const int64_t d_old = ix.offset(ids[i]);
-            if (d_old >= 0) my_slot_of[d_old] = -1;
-          }
-          my_slot_of[ix.offset(id)] = c;
-        }
-        ids2[i] = id;
-        s2[i] = pol.initial_score;
-        valid2[i] = 1;
-        acc3[i] = 0;
-        if (weights) {
-          w2[i] = cand_w ? cand_w[j]
-                         : (node_weights
-                                ? node_weights[static_cast<int64_t>(id) -
-                                               static_cast<int64_t>(ix.lo)]
-                                : 1.0f);
-        }
-      }
-      my_placed[k] = static_cast<PlacedT>(is_placed);
-    }
-    fresh_before += tf;
-  }
-  if (b == 0 && t == 0) {
-    // Placement fills free slots (invalid before) first, then stale ones.
-    const int valid_after = n_valid + min(n_place, n_free);
-    out.n_place[(int64_t)p * out.count_stride] = n_place;
-    out.n_valid[(int64_t)p * out.count_stride] = valid_after;
-    if (out.n_valid_col) {
-      out.n_valid_col[(int64_t)p * out.n_valid_col_stride] = valid_after;
-    }
-  }
+  const cg::cluster_group cluster = cg::this_cluster();
+  state_round<kStateCluster, kStateItems, Id, kSorted>(
+      cluster, C, K, gates, ix, ids, scores, valid, accessed, in_cap, weights,
+      cand, cand_w, node_weights, ids2, s2, valid2, acc3, w2, out, rank_slot,
+      pol);
   cluster.sync();  // keep `counts` alive until every block has read it
 }
 

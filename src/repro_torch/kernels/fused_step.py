@@ -33,13 +33,29 @@ of 2^40, say) takes the sorted route instead, which stays as it was: the
 wrapper row-sorts the frontier, the resident ids and the candidates with
 ``torch.sort``, the state round binary-searches them, and the miss
 compaction and packing are :func:`repro_torch.kernels.ref.frontier_pack_wide`.
-The fused step's wrappers fill their maps and sort (in the sorted mode)
-with PyTorch ops. Every route gives the same outputs.
+
+The fused step's direct route (every narrow launch, and every wide
+launch whose two ``(P, span)`` maps fit :data:`MAP_BUDGET_BYTES`) is one
+allocation and one kernel launch: the wrapper checks, carves every
+output from one byte block and makes one C call, which launches
+``fused_step_kernel`` — the state round, the probe, and the restore of
+every map entry the launch wrote. The maps themselves are kept from one
+launch to the next on the same device and stream (``_MAPS``), clean
+between launches, and filled only when they are allocated or grown. Two
+forms share the kernel: the reference's eleven outputs
+(:func:`fused_step_cuda`, :func:`fused_step_wide_cuda`) and the engine's
+(:func:`fused_step_readback_cuda`), which reads the ``(P,)`` gate words
+the engine uploads and writes the packed readback
+``[hit | hit_slot | placed | slot_pos | n_valid]`` itself. Past the
+budget a wide launch takes the sorted mode, whose rows ``torch.sort``
+builds first. Every route gives the same outputs.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 
 import numpy as np
 import torch
@@ -83,22 +99,30 @@ _FRONTIER_SORTED_ARGS = (
     + _SORTED_ARGS
     + _CONSTS
 )
-_STEP_ARGS = (
-    [ctypes.c_int] * 5        # P, C, M, K, N
-    + [_PTR] * 12             # ids .. active_probe
-    + [_PTR] * 11             # ids2 .. slot_pos, n_placed, n_valid
-    + [_PTR] * 3              # slot_of, cand_first, rank_slot
-    + _CONSTS
-)
-_STEP_WIDE_ARGS = (
-    [ctypes.c_int] * 4        # P, C, M, K
-    + [_I64, _I64, ctypes.c_int]  # lo, span, sorted
-    + [_PTR] * 12             # ids .. active_probe
-    + [_PTR] * 11             # ids2 .. slot_pos, n_placed, n_valid
-    + [_PTR] * 3              # slot_of, cand_first, rank_slot
-    + _SORTED_ARGS
-    + _CONSTS
-)
+
+
+def _step_args(wide: bool, gates: int, outs: int) -> list:
+    """Argument types of a fused-step entry: the shape (and, wide, ``lo``,
+    ``span``, ``sorted``), nine inputs (``ids`` .. ``cand_w``), ``gates``
+    gate pointers, the five state outputs and ``outs`` more, ``slot_of``,
+    ``cand_first`` and ``rank_slot``, (wide) the sorted rows, the
+    constants."""
+    head = [ctypes.c_int] * 4 + ([_I64, _I64, ctypes.c_int] if wide else [ctypes.c_int])
+    return (
+        head + [_PTR] * (9 + gates + 5 + outs + 3)
+        + (_SORTED_ARGS if wide else []) + _CONSTS
+    )
+
+
+#: (wide, packed) -> the fused step's C entry and its argument types: the
+#: reference's form (three gate vectors, six more outputs) and the engine's
+#: (the gate words, the packed readback).
+_STEP_ENTRIES = {
+    (False, False): ("rudder_fused_step", _step_args(False, 3, 6)),
+    (False, True): ("rudder_fused_step_packed", _step_args(False, 1, 1)),
+    (True, False): ("rudder_fused_step_wide", _step_args(True, 3, 6)),
+    (True, True): ("rudder_fused_step_wide_packed", _step_args(True, 1, 1)),
+}
 
 
 def _check_state(
@@ -144,14 +168,6 @@ def _constants(increment, decay, threshold, score_cap, initial_score, mode, dev)
     )
 
 
-def _maps(P: int, N: int, dev):
-    """The fused step's per-PE direct-mapped scratch of
-    ``prefetch_state.cuh``: ``slot_of`` at -1 and ``cand_first`` at 0."""
-    slot_of = torch.full((P, N), -1, dtype=torch.int32, device=dev)
-    cand_first = torch.zeros((P, N), dtype=torch.int32, device=dev)
-    return slot_of, cand_first
-
-
 def _sorted_index(ids, valid, cand):
     """The sorted mode's rows: ``(res_sorted, res_order, cand_sorted,
     cand_order, cand_slot)``."""
@@ -164,17 +180,6 @@ def _sorted_index(ids, valid, cand):
         res_sorted.contiguous(), res_order.contiguous(),
         cand_sorted.contiguous(), cand_order.contiguous(), cand_slot,
     )
-
-
-def _wide_index(ids, valid, cand, span: int):
-    """The fused step's IdIndex scratch of a wide launch: ``(sorted,
-    slot_of, cand_first, res_sorted, res_order, cand_sorted, cand_order,
-    cand_slot)``, the tensors of the other mode None. The sorted mode
-    when the two maps would pass :data:`MAP_BUDGET_BYTES`."""
-    P = ids.shape[0]
-    if 8 * P * span <= MAP_BUDGET_BYTES:
-        return (False, *_maps(P, span, ids.device), None, None, None, None, None)
-    return (True, None, None, *_sorted_index(ids, valid, cand))
 
 
 #: The frontier step's scratch block of each (device, stream), kept from one
@@ -219,6 +224,63 @@ def _scratch_block(nbytes: int, dev, stream: int) -> torch.Tensor:
     if block is None or block.numel() < nbytes:
         block = _SCRATCH[key] = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     return block
+
+
+#: The fused step's direct-mapped maps of each (device, stream): flat
+#: int32 ``slot_of`` at -1 and ``cand_first`` at 0, filled once when they
+#: are allocated or grown. Every launch's kernel puts back the entries it
+#: wrote, so they are clean from one launch to the next, and a launch of
+#: any ``(P, span)`` and ``lo`` may use a pair large enough; a launch that
+#: fails drops them. Allocating and filling a fresh ``(P, span)`` pair a
+#: launch cost two fills of 8.8 MB each at the ragged loop's shape.
+_MAPS: dict = {}
+
+
+def step_maps(n: int, dev, stream: int):
+    """The (device, stream)'s kept ``(slot_of, cand_first)``, at least
+    ``n`` entries each: grown (to at least twice the old size, within
+    :data:`MAP_BUDGET_BYTES`) and filled when too small."""
+    key = (dev.index, stream)
+    maps = _MAPS.get(key)
+    if maps is None or maps[0].numel() < n:
+        old = 0 if maps is None else maps[0].numel()
+        cap = max(n, 1, min(2 * old, MAP_BUDGET_BYTES // 8))
+        maps = _MAPS[key] = (
+            torch.full((cap,), -1, dtype=torch.int32, device=dev),
+            torch.zeros((cap,), dtype=torch.int32, device=dev),
+        )
+    return maps
+
+
+@functools.lru_cache(maxsize=64)
+def _layout(parts: tuple):
+    """:func:`_carve`'s plan for ``parts``: the block's bytes, its dtypes,
+    and per part ``(dtype, shape, stride, offset in elements)`` or None;
+    each part on a 16-byte boundary."""
+    plan, at = [], 0
+    for part in parts:
+        if part is None:
+            plan.append(None)
+            continue
+        dtype, shape = part
+        stride = (shape[1], 1) if len(shape) == 2 else (1,)
+        plan.append((dtype, shape, stride, at // dtype.itemsize))
+        at += -(-dtype.itemsize * math.prod(shape) // 16) * 16
+    dtypes = tuple({p[0] for p in plan if p is not None})
+    return max(at, 16), dtypes, tuple(plan)
+
+
+def _carve(dev, parts: tuple):
+    """One ``torch.empty`` byte block for every ``(dtype, shape)`` of
+    ``parts``: the parts' views (None where a part is None), one view of
+    the block per dtype and one strided view per part, so that carving
+    costs few host operations."""
+    total, dtypes, plan = _layout(parts)
+    block = torch.empty(total, dtype=torch.uint8, device=dev)
+    typed = {dt: block.view(dt) for dt in dtypes}
+    return [
+        None if e is None else typed[e[0]].as_strided(e[1], e[2], e[3]) for e in plan
+    ]
 
 
 def _frontier_direct(
@@ -319,6 +381,69 @@ def fused_frontier_step_cuda(
     return outs
 
 
+def _check_step(state, queries, cand, cand_weights, mode, idt) -> int:
+    """Raise unless the fused step's inputs are what its kernel takes;
+    returns ``P``."""
+    ids, scores, valid, accessed, in_capacity, weights = state
+    P = ids.shape[0]
+    K = cand.shape[1]
+    _check_state(ids, scores, valid, accessed, in_capacity, weights, mode, idt)
+    check_tensor(queries, "queries", idt, (P, queries.shape[1]))
+    check_tensor(cand, "cand", idt, (P, K))
+    if weights is not None:
+        if cand_weights is None:
+            raise ValueError("weights need cand_weights on the card")
+        check_tensor(cand_weights, "cand_weights", torch.float32, (P, K))
+    return P
+
+
+def _fused_step(packed, state, queries, cand, cand_weights, gates, lo, span, consts):
+    """One launch of the fused step: carve the outputs from one block and
+    make one C call (direct mode: the kept maps; a wide launch whose maps
+    would pass :data:`MAP_BUDGET_BYTES`: the sorted rows of
+    :func:`_sorted_index`). Returns the state outputs and then the packed
+    readback (``packed``) or the reference's six more outputs."""
+    ids, scores, valid, accessed, in_capacity, weights = state
+    P, C = ids.shape
+    M = queries.shape[1]
+    K = cand.shape[1]
+    dev, stream = ids.device, consts[-1]
+    wide = ids.dtype == torch.int64
+    srt = wide and 8 * P * span > MAP_BUDGET_BYTES
+    i32 = torch.int32
+    parts = (
+        (ids.dtype, (P, C)), (torch.float32, (P, C)), (torch.bool, (P, C)),
+        (torch.bool, (P, C)), None if weights is None else (torch.float32, (P, C)),
+    )
+    if packed:
+        parts += ((i32, (P, 2 * M + K + C + 1)),)
+    else:
+        parts += (
+            (torch.bool, (P, M)), (i32, (P, M)), (torch.bool, (P, K)), (i32, (P, C)),
+            (i32, (P,)), (i32, (P,)),
+        )
+    outs = _carve(dev, parts)
+    rank_slot = _scratch_block(4 * P * C, dev, stream)
+    if srt:
+        maps, rows = (None, None), _sorted_index(ids, valid, cand)
+    else:
+        maps, rows = step_maps(P * span, dev, stream), (None,) * 5
+    name, argtypes = _STEP_ENTRIES[(wide, packed)]
+    fn = native.bind("fused_step", name, argtypes)
+    head = (P, C, M, K, lo, span, int(srt)) if wide else (P, C, M, K, span)
+    cw = cand_weights if weights is not None else None
+    err = fn(
+        *head, *(ptr(t) for t in (*state, queries, cand, cw)),
+        *(ptr(g) for g in gates), *(ptr(t) for t in outs),
+        *(ptr(m) for m in maps), rank_slot.data_ptr(),
+        *((ptr(t) for t in rows) if wide else ()), *consts,
+    )
+    if err:
+        _MAPS.pop((dev.index, stream), None)
+    native.check(err, name)
+    return outs
+
+
 def fused_step_cuda(
     ids: torch.Tensor,
     scores: torch.Tensor,
@@ -349,60 +474,67 @@ def fused_step_cuda(
     weights, bool masks and ``(P,)`` bool gates, all contiguous on one
     CUDA device; with ``weights`` it needs ``cand_weights``. Raises on
     anything else — there is no other route on the card."""
-    P, C = ids.shape
-    M = queries.shape[1]
-    K = cand.shape[1]
-    N = int(num_ids)
-    if N < 0:
-        raise ValueError(f"num_ids must be >= 0, got {N}")
-    _check_state(ids, scores, valid, accessed, in_capacity, weights, mode)
-    check_tensor(queries, "queries", torch.int32, (P, M))
-    check_tensor(cand, "cand", torch.int32, (P, K))
-    for name, t in (
-        ("active_score", active_score),
-        ("do_replace", do_replace),
-        ("active_probe", active_probe),
-    ):
+    state = (ids, scores, valid, accessed, in_capacity, weights)
+    P = _check_step(state, queries, cand, cand_weights, mode, torch.int32)
+    gates = (active_score, do_replace, active_probe)
+    for name, t in zip(("active_score", "do_replace", "active_probe"), gates):
         check_tensor(t, name, torch.bool, (P,))
-    if weights is not None:
-        if cand_weights is None:
-            raise ValueError("weights need cand_weights on the card")
-        check_tensor(cand_weights, "cand_weights", torch.float32, (P, K))
+    lo, span = _id_range(False, state, queries, cand, None, num_ids)
     dev = ids.device
-    fn = native.bind("fused_step", "rudder_fused_step", _STEP_ARGS)
-
     with torch.cuda.device(dev):
-        ids2 = torch.empty_like(ids)
-        s2 = torch.empty_like(scores)
-        valid2 = torch.empty_like(valid)
-        acc3 = torch.empty_like(accessed)
-        w2 = torch.empty_like(weights) if weights is not None else None
-        hit = torch.empty((P, M), dtype=torch.bool, device=dev)
-        hit_slot = torch.empty((P, M), dtype=torch.int32, device=dev)
-        placed = torch.empty((P, K), dtype=torch.bool, device=dev)
-        slot_pos = torch.empty((P, C), dtype=torch.int32, device=dev)
-        n_placed = torch.empty((P,), dtype=torch.int32, device=dev)
-        n_valid = torch.empty((P,), dtype=torch.int32, device=dev)
-        slot_of, cand_first = _maps(P, N, dev)
-        rank_slot = torch.empty((P, C), dtype=torch.int32, device=dev)
-        cw = cand_weights if weights is not None else None
-        err = fn(
-            P, C, M, K, N,
-            ptr(ids), ptr(scores), ptr(valid), ptr(accessed), ptr(in_capacity),
-            ptr(weights), ptr(queries), ptr(cand), ptr(cw),
-            ptr(active_score), ptr(do_replace), ptr(active_probe),
-            ptr(ids2), ptr(s2), ptr(valid2), ptr(acc3), ptr(w2),
-            ptr(hit), ptr(hit_slot), ptr(placed), ptr(slot_pos),
-            ptr(n_placed), ptr(n_valid),
-            ptr(slot_of), ptr(cand_first), ptr(rank_slot),
-            *_constants(increment, decay, threshold, score_cap, initial_score, mode, dev),
-        )
-        native.check(err, "fused_step")
+        consts = _constants(increment, decay, threshold, score_cap, initial_score, mode, dev)
+        outs = _fused_step(False, state, queries, cand, cand_weights, gates, lo, span, consts)
         native.LAUNCHES["fused_step"] += 1
-    return (
-        ids2, s2, valid2, acc3, w2, hit, hit_slot, placed, slot_pos,
-        n_placed, n_valid,
-    )
+    return tuple(outs)
+
+
+def fused_step_readback_cuda(
+    ids: torch.Tensor,
+    scores: torch.Tensor,
+    valid: torch.Tensor,
+    accessed: torch.Tensor,
+    in_capacity: torch.Tensor,
+    weights: torch.Tensor | None,
+    queries: torch.Tensor,
+    cand: torch.Tensor,
+    cand_weights: torch.Tensor | None,
+    gates: torch.Tensor,
+    *,
+    num_ids: int | None,
+    id_lo: int | None = None,
+    increment: float,
+    decay: float,
+    threshold: float,
+    score_cap: float,
+    mode: str,
+    initial_score: float,
+):
+    """The engine's form of the Hopper fused step: ``gates`` is ``(P,)``
+    int32, the bits ``active_score | do_replace << 1 | active_probe << 2``
+    of each PE, and the outputs are ``(ids, scores, valid, accessed,
+    weights, packed)``, ``packed`` the ``(P, 2 M + K + C + 1)`` int32 block
+    ``[hit | hit_slot | placed | slot_pos | n_valid]`` of
+    :func:`repro_torch.kernels.ref.pack_readback`, written by the kernel.
+
+    int32 ids run :func:`fused_step_cuda`'s kernel (ids in ``[0,
+    num_ids)``), int64 ids :func:`fused_step_wide_cuda`'s (ids in
+    ``[id_lo, id_lo + num_ids)``, read off the tensors when either is
+    None). The direct route is one allocation and one kernel launch; the
+    sorted mode of a wide launch past :data:`MAP_BUDGET_BYTES` sorts its
+    rows first. Raises on anything else — there is no other route on the
+    card."""
+    wide = ids.dtype == torch.int64
+    state = (ids, scores, valid, accessed, in_capacity, weights)
+    idt = torch.int64 if wide else torch.int32
+    P = _check_step(state, queries, cand, cand_weights, mode, idt)
+    check_tensor(gates, "gates", torch.int32, (P,))
+    lo, span = _id_range(wide, state, queries, cand, id_lo, num_ids)
+    dev = ids.device
+    with torch.cuda.device(dev):
+        consts = _constants(increment, decay, threshold, score_cap, initial_score, mode, dev)
+        outs = _fused_step(True, state, queries, cand, cand_weights, (gates,), lo, span, consts)
+        native.LAUNCHES["fused_step_wide" if wide else "fused_step"] += 1
+    return tuple(outs)
 
 
 def fused_frontier_step_wide_cuda(
@@ -511,6 +643,26 @@ def wide_id_range(*id_tensors) -> tuple[int, int]:
     return (0, 1) if hi < 0 else (lo, hi - lo + 1)
 
 
+def _id_range(wide, state, queries, cand, id_lo, num_ids) -> tuple[int, int]:
+    """``(lo, span)`` of a launch's maps: ``(0, num_ids)`` narrow; wide,
+    ``(id_lo, num_ids)``, or :func:`wide_id_range` when either is None."""
+    if not wide:
+        if num_ids is None or int(num_ids) < 0 or (id_lo or 0) != 0:
+            raise ValueError(
+                f"narrow ids need num_ids >= 0 and id_lo 0, got {num_ids} and {id_lo}"
+            )
+        return 0, int(num_ids)
+    if id_lo is None or num_ids is None:
+        ids, valid = state[0], state[2]
+        id_lo, num_ids = wide_id_range(
+            torch.where(valid, ids, torch.full_like(ids, -1)), queries, cand
+        )
+    lo, span = int(id_lo), int(num_ids)
+    if lo < 0 or span < 1:
+        raise ValueError(f"id range [{lo}, {lo} + {span}) is empty or negative")
+    return lo, span
+
+
 def fused_step_wide_cuda(
     ids: torch.Tensor,
     scores: torch.Tensor,
@@ -541,62 +693,15 @@ def fused_step_wide_cuda(
     negative padding. Without them the wrapper reads the range off the
     tensors (:func:`wide_id_range`, one device sync). Raises on anything
     else — there is no other route on the card."""
-    P, C = ids.shape
-    M = queries.shape[1]
-    K = cand.shape[1]
-    _check_state(ids, scores, valid, accessed, in_capacity, weights, mode, torch.int64)
-    check_tensor(queries, "queries", torch.int64, (P, M))
-    check_tensor(cand, "cand", torch.int64, (P, K))
-    for name, t in (
-        ("active_score", active_score),
-        ("do_replace", do_replace),
-        ("active_probe", active_probe),
-    ):
+    state = (ids, scores, valid, accessed, in_capacity, weights)
+    P = _check_step(state, queries, cand, cand_weights, mode, torch.int64)
+    gates = (active_score, do_replace, active_probe)
+    for name, t in zip(("active_score", "do_replace", "active_probe"), gates):
         check_tensor(t, name, torch.bool, (P,))
-    if weights is not None:
-        if cand_weights is None:
-            raise ValueError("weights need cand_weights on the card")
-        check_tensor(cand_weights, "cand_weights", torch.float32, (P, K))
-    if id_lo is None or num_ids is None:
-        id_lo, num_ids = wide_id_range(
-            torch.where(valid, ids, torch.full_like(ids, -1)), queries, cand
-        )
-    lo, span = int(id_lo), int(num_ids)
-    if lo < 0 or span < 1:
-        raise ValueError(f"id range [{lo}, {lo} + {span}) is empty or negative")
+    lo, span = _id_range(True, state, queries, cand, id_lo, num_ids)
     dev = ids.device
-    fn = native.bind("fused_step", "rudder_fused_step_wide", _STEP_WIDE_ARGS)
-
     with torch.cuda.device(dev):
-        ids2 = torch.empty_like(ids)
-        s2 = torch.empty_like(scores)
-        valid2 = torch.empty_like(valid)
-        acc3 = torch.empty_like(accessed)
-        w2 = torch.empty_like(weights) if weights is not None else None
-        hit = torch.empty((P, M), dtype=torch.bool, device=dev)
-        hit_slot = torch.empty((P, M), dtype=torch.int32, device=dev)
-        placed = torch.empty((P, K), dtype=torch.bool, device=dev)
-        slot_pos = torch.empty((P, C), dtype=torch.int32, device=dev)
-        n_placed = torch.empty((P,), dtype=torch.int32, device=dev)
-        n_valid = torch.empty((P,), dtype=torch.int32, device=dev)
-        rank_slot = torch.empty((P, C), dtype=torch.int32, device=dev)
-        srt, slot_of, cand_first, *rows = _wide_index(ids, valid, cand, span)
-        cw = cand_weights if weights is not None else None
-        err = fn(
-            P, C, M, K, lo, span, int(srt),
-            ptr(ids), ptr(scores), ptr(valid), ptr(accessed), ptr(in_capacity),
-            ptr(weights), ptr(queries), ptr(cand), ptr(cw),
-            ptr(active_score), ptr(do_replace), ptr(active_probe),
-            ptr(ids2), ptr(s2), ptr(valid2), ptr(acc3), ptr(w2),
-            ptr(hit), ptr(hit_slot), ptr(placed), ptr(slot_pos),
-            ptr(n_placed), ptr(n_valid),
-            ptr(slot_of), ptr(cand_first), ptr(rank_slot),
-            *(ptr(t) for t in rows),
-            *_constants(increment, decay, threshold, score_cap, initial_score, mode, dev),
-        )
-        native.check(err, "fused_step_wide")
+        consts = _constants(increment, decay, threshold, score_cap, initial_score, mode, dev)
+        outs = _fused_step(False, state, queries, cand, cand_weights, gates, lo, span, consts)
         native.LAUNCHES["fused_step_wide"] += 1
-    return (
-        ids2, s2, valid2, acc3, w2, hit, hit_slot, placed, slot_pos,
-        n_placed, n_valid,
-    )
+    return tuple(outs)

@@ -164,11 +164,11 @@ def check(err: int, what: str) -> None:
 def check_tensor(t, name: str, dtype, shape: tuple) -> None:
     """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` and
     ``shape``: what every kernel of the port takes."""
-    if t.device.type != "cuda":
+    if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != shape:
+    if t.shape != shape:
         raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")

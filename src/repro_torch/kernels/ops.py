@@ -26,6 +26,7 @@ __all__ = [
     "fused_frontier_step_wide_batch",
     "fused_step_batch",
     "fused_step_wide_batch",
+    "fused_step_readback_batch",
     "pack_readback",
     "gather_rows",
     "gather_rows_batch",
@@ -363,6 +364,61 @@ def fused_step_wide_batch(
     from .fused_step import fused_step_wide_cuda
 
     return fused_step_wide_cuda(*args, id_lo=id_lo, num_ids=num_ids, **constants)
+
+
+@telemetry.profiled("fused_step_readback_batch")
+def fused_step_readback_batch(
+    ids,
+    scores,
+    valid,
+    accessed,
+    in_capacity,
+    weights,
+    queries,
+    cand,
+    cand_weights,
+    gates,
+    *,
+    num_ids: int,
+    id_lo: int | None = None,
+    increment: float = 1.0,
+    decay: float = 0.95,
+    threshold: float = 0.95,
+    score_cap: float = 4.0,
+    mode: str = "accumulate",
+    initial_score: float = 1.0,
+):
+    """The engine's form of the fused step (:func:`fused_step_batch` and
+    its wide twin): ``gates`` is the ``(P,)`` int32 word of each PE's gate
+    bits, ``active_score | do_replace << 1 | active_probe << 2``, as the
+    engine uploads it, and the five host-facing outputs come back as the
+    one :func:`pack_readback` block. Returns ``(ids, scores, valid,
+    accessed, weights, packed)``.
+
+    int32 ids run the narrow step (ids in ``[0, num_ids)``), int64 ids
+    the wide one (ids in ``[id_lo, id_lo + num_ids)``; with ``id_lo``
+    None the kernel reads the range off the tensors). Routed by
+    ``ids.device``: the CPU unpacks the bits and runs
+    :func:`repro_torch.kernels.ref.fused_step` and
+    :func:`repro_torch.kernels.ref.pack_readback`; CUDA launches the Hopper
+    kernel, which writes ``packed`` itself
+    (:func:`repro_torch.kernels.fused_step.fused_step_readback_cuda`)."""
+    if ids.shape[1] == 0:
+        raise ValueError("fused_step_readback_batch needs C >= 1 buffer slots")
+    constants = _constants(increment, decay, threshold, score_cap, mode, initial_score)
+    if _route("fused_step_readback", ids) == "cpu":
+        bits = [(gates & bit) != 0 for bit in (1, 2, 4)]
+        out = ref.fused_step(
+            ids, scores, valid, accessed, in_capacity, weights, queries, cand,
+            cand_weights, *bits, **constants,
+        )
+        return (*out[:5], ref.pack_readback(*out[5:9], out[10]))
+    from .fused_step import fused_step_readback_cuda
+
+    return fused_step_readback_cuda(
+        ids, scores, valid, accessed, in_capacity, weights, queries, cand,
+        cand_weights, gates, num_ids=num_ids, id_lo=id_lo, **constants,
+    )
 
 
 @telemetry.profiled("pack_readback")

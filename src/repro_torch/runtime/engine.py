@@ -16,9 +16,10 @@ drives: the same ``(P, C)`` state (and, with a feature store, the
 device and advanced one launch per training step — the single-launch
 frontier step over the raw frontier
 (:func:`repro_torch.kernels.ops.fused_frontier_step_batch`), or, for
-ragged seed blocks, the fused step over host-deduped query sets
-(:func:`repro_torch.kernels.ops.fused_step_batch`); the Hopper kernels on
-a CUDA device, the plain versions on the CPU. Semantics and streams are
+ragged seed blocks, the fused step over host-deduped query sets in its
+engine form, the uploaded gate words in and the packed readback out
+(:func:`repro_torch.kernels.ops.fused_step_readback_batch`); the Hopper
+kernels on a CUDA device, the plain versions on the CPU. Semantics and streams are
 bit-identical to the reference's ``DeviceEngine``, in its narrow int32 id
 mode and in its wide mode (int64 ids here, where the reference carries
 ``(hi, lo)`` int32 word planes).
@@ -682,7 +683,20 @@ class DeviceEngine:
             if self._weights is not None
             else None
         )
-        args = (
+        _launch_sp = tel.begin("device.launch", plane="device")
+        lo, span = (
+            (self._id_lo, self._id_bound - self._id_lo)
+            if self.wide
+            else (None, self._id_bound)
+        )
+        (
+            self._ids,
+            self._scores,
+            self._valid,
+            self._accessed,
+            w2,
+            packed_d,
+        ) = ops.fused_step_readback_batch(
             self._ids,
             self._scores,
             self._valid,
@@ -692,43 +706,16 @@ class DeviceEngine:
             q_d,
             c_d,
             cw_d,
-            (g_d & 1) != 0,
-            (g_d & 2) != 0,
-            (g_d & 4) != 0,
+            g_d,
+            id_lo=lo,
+            num_ids=span,
+            **self.policy.kernel_constants(),
         )
-
-        _launch_sp = tel.begin("device.launch", plane="device")
-        if self.wide:
-            out = ops.fused_step_wide_batch(
-                *args,
-                id_lo=self._id_lo,
-                num_ids=self._id_bound - self._id_lo,
-                **self.policy.kernel_constants(),
-            )
-        else:
-            out = ops.fused_step_batch(
-                *args, num_ids=self._id_bound, **self.policy.kernel_constants()
-            )
-        (
-            self._ids,
-            self._scores,
-            self._valid,
-            self._accessed,
-            w2,
-            hit_d,
-            hit_slot_d,
-            placed_d,
-            slot_pos_d,
-            _n_placed,
-            n_valid_d,
-        ) = out
         tel.end(_launch_sp)
         if w2 is not None:
             self._weights = w2
         with tel.span("device.readback", plane="device"):
-            packed = ops.pack_readback(
-                hit_d, hit_slot_d, placed_d, slot_pos_d, n_valid_d
-            ).cpu().numpy()
+            packed = packed_d.cpu().numpy()
         self._count("d2h", packed.nbytes)
         C = self.max_capacity
         hit = packed[:, :M] != 0

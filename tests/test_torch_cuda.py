@@ -22,6 +22,7 @@ committed golden trace re-recorded on the card.
 """
 
 import itertools
+import json
 
 import numpy as np
 import pytest
@@ -185,6 +186,208 @@ def test_fused_step_wide_kernel_matches_plain(card, sc, budget, monkeypatch):
     torch.cuda.synchronize()
     assert native.LAUNCHES["fused_step_wide"] == before + 1
     assert all(_equal(a, b) for a, b in zip(got, want))
+
+
+STEP_SETS = [(s, False) for s in STEP_SCENARIOS] + [(s, True) for s in WIDE_STEPS]
+STEP_IDS = [s.name for s in STEP_SCENARIOS] + [s.name for s in WIDE_STEPS]
+
+
+def _plain_readback(args, words, constants):
+    """The engine's form composed of plain versions: the gate bits, the
+    step, ``pack_readback``."""
+    bits = [(words & bit) != 0 for bit in (1, 2, 4)]
+    out = ref.fused_step(*args, *bits, **constants)
+    return (*out[:5], ref.pack_readback(*out[5:9], out[10]))
+
+
+def _assert_maps_clean():
+    from repro_torch.kernels import fused_step as fs
+
+    torch.cuda.synchronize()
+    for slot_of, cand_first in fs._MAPS.values():
+        assert bool((slot_of == -1).all()) and bool((cand_first == 0).all())
+
+
+@pytest.mark.parametrize("budget", [None, 0], ids=["auto", "sorted"])
+@pytest.mark.parametrize("sc,wide", STEP_SETS, ids=STEP_IDS)
+def test_fused_step_readback_matches_plain(card, sc, wide, budget, monkeypatch):
+    """The engine's form (gate words in, the packed readback written by the
+    kernel) bit-identical to the plain composition, for gate words covering
+    all 8 bit patterns on every PE; the kept maps clean after each launch."""
+    from repro_torch.kernels import fused_step as fs
+
+    if budget is not None:
+        monkeypatch.setattr(fs, "MAP_BUDGET_BYTES", budget)
+    args = _on(card, sc)[:9]
+    P = sc.ids.shape[0]
+    name = "fused_step_wide" if wide else "fused_step"
+    kw = dict(id_lo=sc.id_lo, num_ids=sc.num_ids) if wide else dict(num_ids=sc.num_ids)
+    for shift in range(8):
+        words = ((torch.arange(P) + shift) % 8).to(torch.int32).to(card)
+        before = native.LAUNCHES[name]
+        got = ops.fused_step_readback_batch(*args, words, **kw, **sc.constants)
+        want = _plain_readback(args, words, sc.constants)
+        torch.cuda.synchronize()
+        assert native.LAUNCHES[name] == before + 1
+        assert all(_equal(a, b) for a, b in zip(got, want)), shift
+        _assert_maps_clean()
+
+
+def test_kept_maps_stay_clean(card):
+    """A sequence of launches on one stream: every gate off, zero
+    candidates, a full buffer with stale slots to refill, both forms, and
+    wide launches whose span grows from one to the next. After each the
+    outputs equal the plain version's and the kept maps are all -1 / 0;
+    the maps are allocated once per size."""
+    from repro_torch.kernels import fused_step as fs
+
+    fs._MAPS.clear()
+    sc = next(s for s in STEP_SCENARIOS if s.name == "rudder-w")
+    base = _on(card, sc)
+    P, C = sc.ids.shape
+    rng = np.random.default_rng(5)
+    full = list(base)
+    full[0] = torch.from_numpy(np.stack([
+        rng.choice(sc.num_ids, size=C, replace=False) for _ in range(P)
+    ]).astype(np.int32)).to(card)
+    full[1] = torch.from_numpy(rng.uniform(0.5, 1.5, (P, C)).astype(np.float32)).to(card)
+    full[2] = torch.ones((P, C), dtype=torch.bool, device=card)
+    full[4] = torch.ones((P, C), dtype=torch.bool, device=card)
+    no_cand = list(base)
+    no_cand[7] = torch.full_like(base[7], -1)
+    on = torch.full((P,), 7, dtype=torch.int32, device=card)
+    off = torch.zeros((P,), dtype=torch.int32, device=card)
+    seen = set()
+    for args, words in ((base, off), (no_cand, on), (full, on), (base, on)):
+        for packed in (True, False):
+            bits = [(words & bit) != 0 for bit in (1, 2, 4)]
+            if packed:
+                got = fs.fused_step_readback_cuda(
+                    *args[:9], words, num_ids=sc.num_ids, **sc.constants)
+                want = _plain_readback(args[:9], words, sc.constants)
+            else:
+                got = fs.fused_step_cuda(*args[:9], *bits, num_ids=sc.num_ids, **sc.constants)
+                want = ref.fused_step(*args[:9], *bits, **sc.constants)
+            assert all(_equal(a, b) for a, b in zip(got, want))
+            _assert_maps_clean()
+            seen.update(m[0].data_ptr() for m in fs._MAPS.values())
+    assert len(seen) == 1, "a narrow launch of one size reallocated its maps"
+    assert int(_plain_readback(full[:9], on, sc.constants)[5][:, -1].sum()) == P * C
+    wsc = next(s for s in WIDE_STEPS if s.name.startswith("rudder-w@"))
+    wargs = _on(card, wsc)[:9]
+    for span in (wsc.num_ids, 4 * wsc.num_ids, 64 * wsc.num_ids):
+        got = fs.fused_step_readback_cuda(
+            *wargs, on, id_lo=wsc.id_lo, num_ids=span, **wsc.constants)
+        assert all(_equal(a, b) for a, b in zip(got, _plain_readback(wargs, on, wsc.constants)))
+        _assert_maps_clean()
+        assert fs._MAPS[(card.index, torch.cuda.current_stream(card).cuda_stream)][0].numel() >= P * span
+
+
+def _unique_row(rng, n, m):
+    """``m`` distinct ids below ``n`` in ascending order, -1 padded."""
+    q = np.unique(rng.choice(n, m))
+    return np.pad(q, (0, m - len(q)), constant_values=-1)
+
+
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+def test_fused_step_slices_of_several_tiles(card, wide):
+    """A launch whose blocks hold several tiles of slots and candidates
+    (C and K past 8 blocks x 4096), so the state round re-reads its flags
+    between passes: the engine's form equals the plain version, and the
+    maps are clean after it."""
+    from repro_torch.kernels import fused_step as fs
+
+    P, C, M, K, N = 2, 40_000, 30_000, 45_000, 200_000
+    rng = np.random.default_rng(11)
+    base = scenarios.BASE if wide else 0
+    idt = np.int64 if wide else np.int32
+    ids = np.stack([rng.choice(N, C, replace=False) for _ in range(P)])
+    valid = rng.random((P, C)) < 0.9
+    host = [
+        np.where(valid, ids, -1),
+        rng.uniform(0.5, 2.0, (P, C)).astype(np.float32),
+        valid,
+        rng.random((P, C)) < 0.3,
+        rng.random((P, C)) < 0.95,
+        None,
+        np.stack([_unique_row(rng, N, M) for _ in range(P)]),
+        np.stack([np.concatenate([rng.choice(ids[p], K // 10), rng.choice(N, K - K // 10)])
+                  for p in range(P)]),
+        None,
+    ]
+    args = [None if a is None else torch.from_numpy(
+        np.where(a >= 0, a + base, a).astype(idt) if i in (0, 6, 7) else a).to(card)
+        for i, a in enumerate(host)]
+    words = torch.tensor([7, 5], dtype=torch.int32, device=card)
+    span = dict(id_lo=base, num_ids=N) if wide else dict(num_ids=N)
+    got = fs.fused_step_readback_cuda(*args, words, **span, **STEP_SCENARIOS[0].constants)
+    want = _plain_readback(args, words, STEP_SCENARIOS[0].constants)
+    assert all(_equal(a, b) for a, b in zip(got, want))
+    assert int(want[5][:, 2 * M : 2 * M + K].sum()) > 0  # something placed
+    _assert_maps_clean()
+
+
+def _device_ops_per_call(call, reps, path):
+    """The device operations each of ``reps`` profiled calls of ``call``
+    put on the card: its ``record_function`` range's runtime calls,
+    matched to the trace's kernels, memsets and copies by correlation id
+    (the chrome trace, which holds operations the event list can miss)."""
+    with torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA,
+    ]) as prof:
+        for i in range(reps):
+            with torch.profiler.record_function(f"call_{i}"):
+                call()
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"] if e.get("ph") == "X"]
+    ranges = [e for e in events if str(e.get("name", "")).startswith("call_")
+              and e.get("cat") in ("user_annotation", "cpu_op")]
+    call_of = {
+        e["args"]["correlation"]: r["name"]
+        for e in events if e.get("cat") in ("cuda_runtime", "cuda_driver")
+        and "correlation" in (e.get("args") or {})
+        for r in ranges if r["ts"] <= e["ts"] <= r["ts"] + r["dur"]
+    }
+    ops = {r["name"]: [] for r in ranges}
+    for e in events:
+        corr = (e.get("args") or {}).get("correlation")
+        if e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy") and corr in call_of:
+            ops[call_of[corr]].append(e["name"])
+    return list(ops.values())
+
+
+@pytest.mark.parametrize("form", ["reference", "readback"])
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+def test_fused_step_direct_route_is_one_device_op(card, wide, form, tmp_path):
+    """Direct-route calls of each fused-step wrapper, profiled (after a
+    call that builds the library and allocates the maps): one device
+    operation a call, the kernel, and no fill, zero, memset or sort. The
+    profiler can miss a call's only kernel, so no call may show anything
+    else and at least one must show it."""
+    from repro_torch.kernels import fused_step as fs
+
+    sc = next(s for s in (WIDE_STEPS if wide else STEP_SCENARIOS)
+              if s.name.startswith("rudder-w"))
+    args = _on(card, sc)
+    span = dict(id_lo=sc.id_lo, num_ids=sc.num_ids) if wide else dict(num_ids=sc.num_ids)
+    if form == "readback":
+        words = torch.full((sc.ids.shape[0],), 7, dtype=torch.int32, device=card)
+
+        def call():
+            return fs.fused_step_readback_cuda(*args[:9], words, **span, **sc.constants)
+    else:
+        wrapper = fs.fused_step_wide_cuda if wide else fs.fused_step_cuda
+
+        def call():
+            return wrapper(*args, **span, **sc.constants)
+    call()
+    torch.cuda.synchronize()
+    per_call = _device_ops_per_call(call, 5, tmp_path / "trace.json")
+    assert all(len(names) <= 1 for names in per_call), per_call
+    assert any(names for names in per_call), per_call
+    assert all("fused_step_kernel" in n for names in per_call for n in names), per_call
+    _assert_maps_clean()
 
 
 @pytest.mark.parametrize("readback_every", [1, 4])
