@@ -20,8 +20,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    and ``score_policy_update_batch``, ``score_update_batch`` and
    ``score_update`` on the scoring set (every policy, weights on and off);
    ``gather_mean`` and ``segment_sum_equal`` on theirs (float32 and
-   bfloat16, K in {1, 3, 10, 25}, F in {1, 3, 64, 100, 128, 600}, int32
-   and int64 indices, B = 0 and S = 0); and ``mla_flash_decode`` to
+   bfloat16, K in {1, 3, 10, 25} and at the loops' unroll edges, F in
+   {1, 3, 64, 100, 128, 600}, int32 and int64 indices, every lane-group
+   width, a gather past one pass of its grid, views off the 16-byte grid,
+   B = 0 and S = 0); and ``mla_flash_decode`` to
    allclose (1e-4 float32, 3e-2 bfloat16) on the reference test's three
    shapes, phase 9's, H 72, r 32 with rr 4, r 512 with rr 128 and r 512
    with rr 672, inputs from a numpy seed with near-uniform and with peaked
@@ -39,14 +41,20 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    then ``fused_frontier_step`` and both aggregation kernels against their
    plain versions on the captured inputs of the run's own launches (full
    shape), and all timed, the frontier step also by its device operations
-   a call (torch.profiler) and its wrapper's host time;
+   a call (torch.profiler) and its wrapper's host time; both aggregation
+   kernels (and ``fanout_mean``, the sum with ``1 / k`` in its epilogue)
+   by their kernel alone (torch.profiler), device operations a call and
+   wrapper host time, and the gather's L2 floor
+   (``scripts/aggregation_ab.py``) beside its bound;
 3b. the ragged path: the papers preset at ``scale=10`` (550k nodes, 1%
    train nodes, so every PE's seed block is shorter than the batch of
    2000), the same trainer with a ``FeatureStore(use_kernel=True)`` on the
    card, 8 epochs of one step each, both neighbour means on
    ``segment_sum_equal`` over the store's rows; ``fused_step``,
    ``gather_rows_batch`` and ``segment_sum_equal`` against their plain
-   versions on the run's captured launches, all timed; the fused step in
+   versions on the run's captured launches, all timed (``segment_sum_equal``
+   on ``x_n2`` also alone, by its device operations and host time); the
+   fused step in
    both of its forms (the engine's, gate words in and the packed readback
    out, and the reference's eleven outputs), each with its device
    operations a call (torch.profiler) and its wrapper's host time, and
@@ -67,13 +75,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    the feature store: each ``exact_digest`` equals the golden's;
 6. the wide raw loop: phase 3's graph rebased to id_base ``2**31 + 1000``,
    phase 3's run through ``fused_frontier_step_wide`` only: every stream,
-   stat and buffer state equal to phase 3's (ids shifted), the kernel
-   bit-exact on every launch of the run, timed as in phase 3, stage times
-   beside phase 3's;
+   stat and buffer state equal to phase 3's (ids shifted), the kernel and
+   both aggregation kernels bit-exact on every launch of the run, timed as
+   in phase 3, stage times beside phase 3's;
 6b. the wide ragged loop with the store: phase 3b's graph rebased, phase
    3b's run through ``fused_step_wide`` and ``gather_rows_batch``: streams,
    ``feat_sums``, bytes, state and payload equal to phase 3b's; the fused
-   step checked, timed and its maps checked as in phase 3b;
+   step checked, timed and its maps checked as in phase 3b, and
+   ``segment_sum_equal`` bit-exact on every launch of the run;
 7. the readback cadence: phase 3's graph, narrow and rebased, the ``fixed``
    controller at ``readback_every=4`` against ``readback_every=1``: equal
    logs, one counter pull per 4 launches, the readback time per step;
@@ -82,7 +91,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    one ``frontier_unique_batch`` launch (the sampler's dedup) and one
    ``score_policy_update_batch`` launch (the engine's scoring round) per
    step, every stream, stat and the buffer state equal to phase 3's (ids
-   shifted), each kernel bit-exact on every launch of the run, both timed;
+   shifted), each kernel (and both aggregation kernels) bit-exact on
+   every launch of the run, both timed;
 8b. the staged loop on the host: ``device=False`` on phase 3's graph and
    run, equal to phase 3;
 9. DeepSeek-V3's serving path at full width: ``serve_batch`` on
@@ -102,8 +112,12 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 9c. card vs CPU: the dense smoke config in float32 served on both devices
    from the same weights: greedy tokens identical, logits allclose 1e-4;
 10. a ``kernels`` JSON line (the fused step's rows time the engine's form,
-   the reference form's times beside them), and as the last line the
-   device JSON line.
+   the reference form's times beside them; the aggregation rows add their
+   kernel alone, device operations a call, host ms, the gather's L2
+   floor, ``fanout_mean``'s and ``x_n2``'s numbers and the median
+   in-run device ms of phases 3, 3b, 6, 6b and 8), and as the last line
+   the device JSON line. The aggregation kernels' in-run time (CUDA events
+   around each dispatcher call) prints on phases 3, 3b, 6, 6b and 8.
 
 Each path's launch counts are zeroed just before it runs and read just
 after (the serving path launches ``mla_flash_decode`` only); the device loops (phases 3, 3b, 6, 6b, 7) launch neither of the
@@ -598,13 +612,50 @@ def check_captured(what, clock, max_err) -> int:
         ("gather_mean", gm.gather_mean_cuda, ref.gather_mean),
         ("segment_sum_equal", ss.segment_sum_equal_cuda, ref.segment_sum_equal),
     ):
-        for i, (args, _kw) in enumerate(clock.launches[name]):
-            got, want = kernel(*args), plain(*args)
+        for i, (args, kw) in enumerate(clock.launches[name]):
+            got, want = kernel(*args, **kw), plain(*args, **kw)
             max_err[name] = max(
                 max_err[name], compare_outputs(got, want, ["out"], f"{what} {name} {i}")
             )
             n += 1
     return n
+
+
+def aggregation_in_run(tag, clock) -> dict:
+    """Median device ms per launch of each aggregation kernel a run's
+    ``clock`` captured (CUDA events around each dispatcher call, the host
+    time between them included), printed."""
+    import numpy as np
+
+    med = {name: round(float(np.median(clock.device_ms(name))), 4)
+           for name in AGGREGATION_KERNELS if clock.events[name]}
+    print(f"{tag}: aggregation device ms per launch (CUDA events), median: "
+          + json.dumps(med))
+    return med
+
+
+def gather_l2_floor(table, idx, flush) -> dict:
+    """The gather's L2 floor on these inputs, by ``scripts/aggregation_ab.py``
+    (the distinct rows read once from DRAM, the re-reads at the rate of an
+    L2-resident read; it builds its read probe with nvcc)."""
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import aggregation_ab
+
+    return aggregation_ab.l2_floor(table, idx, flush)
+
+
+def call_numbers(tag, what, fn, kernel) -> dict:
+    """``fn`` 's kernel ``kernel`` alone (torch.profiler, 10 calls), its
+    device operations a call and its host ms, printed; returns them for the
+    ``kernels`` line."""
+    alone = kernel_device_ms(fn, (kernel,), reps=10)[kernel]
+    ops = device_ops_a_call(fn)
+    host = host_ms(fn)
+    print(f"{tag}: {what}: kernel alone (torch.profiler) "
+          + (f"{alone:.4f} ms" if alone else "not measured")
+          + f"; {ops}; wrapper host {host:.4f} ms")
+    return {"kernel_alone_ms": alone, "device_ops_a_call": int(ops.split()[0]),
+            "host_ms": host}
 
 
 class LaunchCapture:
@@ -908,6 +959,7 @@ def main() -> int:
 
     from repro_torch import telemetry
     from repro_torch.gnn import DistributedTrainer
+    from repro_torch.gnn.sage import fanout_mean
     from repro_torch.graph import generate, partition_graph
     from repro_torch.kernels import frontier_unique as fu
     from repro_torch.kernels import fused_step as fs
@@ -1085,7 +1137,7 @@ def main() -> int:
 
     mean_cases = scenarios.gather_mean_scenarios()
     for sc in mean_cases:
-        table, idx = typed(sc.table, sc.dtype), torch.from_numpy(sc.idx).to(dev)
+        table, idx = sc.tensors(dev)
         got = gm.gather_mean_cuda(table, idx)
         want = ref.gather_mean(table, idx)
         torch.cuda.synchronize()
@@ -1095,14 +1147,15 @@ def main() -> int:
         )
     sum_cases = scenarios.segment_sum_scenarios()
     for sc in sum_cases:
-        data = typed(sc.data, sc.dtype)
-        got = ss.segment_sum_equal_cuda(data, sc.k)
-        want = ref.segment_sum_equal(data, sc.k)
-        torch.cuda.synchronize()
-        max_err["segment_sum_equal"] = max(
-            max_err["segment_sum_equal"],
-            compare_outputs(got, want, ["out"], f"segment_sum_equal {sc.name}"),
-        )
+        data = sc.tensor(dev)
+        for scale in (None, 1.0 / sc.k):  # the sum, and the fanout mean
+            got = ss.segment_sum_equal_cuda(data, sc.k, scale)
+            want = ref.segment_sum_equal(data, sc.k, scale)
+            torch.cuda.synchronize()
+            max_err["segment_sum_equal"] = max(
+                max_err["segment_sum_equal"],
+                compare_outputs(got, want, ["out"], f"segment_sum_equal {sc.name} scale={scale}"),
+            )
     # The MLA decode on the reference test's shapes and the edge shapes,
     # float32 and bfloat16, inputs from a numpy seed, with the reference
     # test's near-uniform scores and with peaked ones; pos at 0, mid-tile,
@@ -1160,7 +1213,8 @@ def main() -> int:
         f"score_policy_update_batch, score_update_batch and score_update (per row) "
         f"on {len(score_cases)} ({', '.join(s.name for s in score_cases)}); "
         f"gather_mean on {len(mean_cases)} ({', '.join(s.name for s in mean_cases)}); "
-        f"segment_sum_equal on {len(sum_cases)} ({', '.join(s.name for s in sum_cases)}); "
+        f"segment_sum_equal on {len(sum_cases)}, with and without 1 / k in its epilogue "
+        f"({', '.join(s.name for s in sum_cases)}); "
         f"and to allclose (1e-4 float32, 3e-2 bfloat16): mla_flash_decode on "
         f"{mla_cases} cases ({len(MLA_SHAPES)} shapes x 2 dtypes x near-uniform and peaked "
         f"scores (bfloat16 peaked also max |diff| <= {MLA_REL} x max |plain|) x pos at 0, "
@@ -1242,10 +1296,7 @@ def main() -> int:
     print(f"phase 3: kernel == plain, bit-exact, on all {len(captured)} "
           f"launches of the run (Mt = {Mt}) and all {n_agg} gather_mean and "
           f"segment_sum_equal launches")
-    print("phase 3: aggregation device ms per launch (CUDA events), median: " + json.dumps({
-        name: round(float(np.median(clock.device_ms(name))), 4)
-        for name in AGGREGATION_KERNELS
-    }))
+    in_run = {"phase 3": aggregation_in_run("phase 3", clock)}
 
     args, kw = captured[len(captured) // 2]
     k_ms, p_ms, _, raw = time_pair(
@@ -1258,6 +1309,7 @@ def main() -> int:
     nops = frontier_ops(args)
     b_ms, b_by = bound(nbytes, nops)
     timings = {"fused_frontier_step": (k_ms, p_ms, None, b_ms, b_by)}
+    extras = {}  # the kernels line's further keys, by kernel
     print(
         f"phase 3: fused_frontier_step at P={args[0].shape[0]}, Mt={Mt}, "
         f"C={args[0].shape[1]}, K={args[8].shape[1]}: kernel {raw[0]:.4f}/{raw[1]:.4f} ms, "
@@ -1296,6 +1348,17 @@ def main() -> int:
     )
     print("phase 3: gather_mean device time per launch by kernel (torch.profiler): "
           + profile_rows(lambda: gm.gather_mean_cuda(table, idx)))
+    extras["gather_mean"] = call_numbers(
+        "phase 3", "gather_mean", lambda: gm.gather_mean_cuda(table, idx), "gather_mean_kernel")
+    floor = gather_l2_floor(table, idx, flush)
+    extras["gather_mean"]["l2_floor_ms"] = floor["l2_floor_ms"]
+    print(f"phase 3: gather_mean's L2 floor {floor['l2_floor_ms']:.4f} ms beside its bound "
+          f"{b_ms:.4f} ms: {floor['distinct_bytes']} distinct bytes read once from DRAM in "
+          f"{floor['dram_read_ms']:.4f} ms, {floor['reread_bytes']} re-read bytes at the "
+          f"L2-resident rate {floor['l2_read_rate'] / 1e12:.3f} TB/s; kernel alone at "
+          + (f"{b_ms / extras['gather_mean']['kernel_alone_ms']:.1%} of the bound and "
+             f"{floor['l2_floor_ms'] / extras['gather_mean']['kernel_alone_ms']:.1%} of the "
+             "floor" if extras["gather_mean"]["kernel_alone_ms"] else "not measured"))
     (data, k), _ = clock.launches["segment_sum_equal"][0]
     seg_shape = (data.shape[0] // k, k, data.shape[1])
     k_ms, p_ms, l_ms, raw = time_pair(
@@ -1316,6 +1379,13 @@ def main() -> int:
     )
     print("phase 3: segment_sum_equal device time per launch by kernel (torch.profiler): "
           + profile_rows(lambda: ss.segment_sum_equal_cuda(data, k)))
+    extras["segment_sum_equal"] = call_numbers(
+        "phase 3", "segment_sum_equal on x_n1", lambda: ss.segment_sum_equal_cuda(data, k),
+        "segment_sum_kernel")
+    x_n1 = data.view(seg_shape)
+    extras["segment_sum_equal"]["fanout_mean"] = call_numbers(
+        "phase 3", "fanout_mean on x_n1 (the sum with 1 / k in its epilogue)",
+        lambda: fanout_mean(x_n1), "segment_sum_kernel")
     # Phases 6 and 7 rebase this graph and compare with this run.
     g_main, main, mt_main = g, (trainer, result), Mt
     stages_main = stage_medians(clock)
@@ -1393,7 +1463,6 @@ def main() -> int:
         "train": clock.ms("train"),
     }, steps, wall)
 
-    extras = {}  # the kernels line's further keys, by kernel
     timings["fused_step"], extras["fused_step"] = check_fused_step(
         "phase 3b", step_caps, False, flush, max_err)
     gather_caps = clock.launches["gather_rows_batch"]
@@ -1426,6 +1495,12 @@ def main() -> int:
         f"bound {b_ms:.4f} ms ({b_by}); device ms per launch over the run (CUDA "
         f"events), median {float(np.median(clock.device_ms('segment_sum_equal'))):.4f}"
     )
+    extras["segment_sum_equal"]["x_n2"] = {
+        "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
+        **call_numbers("phase 3b", "segment_sum_equal on x_n2",
+                       lambda: ss.segment_sum_equal_cuda(data, k), "segment_sum_kernel"),
+    }
+    in_run["phase 3b"] = aggregation_in_run("phase 3b", clock)
     del data, outs
 
     # The largest gather of the run (the training step's feature rows).
@@ -1601,7 +1676,8 @@ def main() -> int:
     print(f"phase 6: products scale={MAIN_SCALE} rebased to id_base {WIDE_BASE} "
           f"(ids {WIDE_BASE}..{WIDE_BASE + g_main.num_nodes - 1}), phase 3's run; "
           f"set-up {time.perf_counter() - t0:.1f} s")
-    clock = StageClock(["fused_frontier_step_wide_batch"])
+    clock = StageClock(["fused_frontier_step_wide_batch", *AGGREGATION_KERNELS],
+                       by_ref=[trainer.features])
     native.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1645,7 +1721,10 @@ def main() -> int:
             max_err["fused_frontier_step_wide"],
             compare_outputs(got, want, FRONTIER_OUT, f"wide launch {i}"),
         )
-    print(f"phase 6: kernel == plain, bit-exact, on all {len(captured)} launches of the run")
+    n_agg = check_captured("phase 6", clock, max_err)
+    print(f"phase 6: kernel == plain, bit-exact, on all {len(captured)} launches of the run "
+          f"and all {n_agg} gather_mean and segment_sum_equal launches")
+    in_run["phase 6"] = aggregation_in_run("phase 6", clock)
     args, kw = captured[len(captured) // 2]
     k_ms, p_ms, _, raw = time_pair(
         lambda: fs.fused_frontier_step_wide_cuda(*args, **kw),
@@ -1678,7 +1757,7 @@ def main() -> int:
     steps = trainer.epochs * trainer.mb_per_epoch
     print(f"phase 6b: papers scale={RAGGED_SCALE} rebased to id_base {WIDE_BASE}, "
           f"phase 3b's run; set-up {time.perf_counter() - t0:.1f} s")
-    clock = StageClock(["fused_step_readback_batch", "gather_rows_batch"])
+    clock = StageClock(["fused_step_readback_batch", "gather_rows_batch", *AGGREGATION_KERNELS])
     native.reset_launches()
     store.kernel_gathers = 0
     torch.cuda.synchronize()
@@ -1716,6 +1795,10 @@ def main() -> int:
     step_caps = clock.launches["fused_step_readback_batch"]
     timings["fused_step_wide"], extras["fused_step_wide"] = check_fused_step(
         "phase 6b", step_caps, True, flush, max_err)
+    n_agg = check_captured("phase 6b", clock, max_err)
+    print(f"phase 6b: kernel == plain, bit-exact, on all {n_agg} segment_sum_equal "
+          f"launches of the run")
+    in_run["phase 6b"] = aggregation_in_run("phase 6b", clock)
     del trainer, result, clock, step_caps, store, parts, papers, g_papers
 
     # -- 7. the readback cadence ------------------------------------------ #
@@ -1771,7 +1854,8 @@ def main() -> int:
     print(f"phase 8: products scale={MAIN_SCALE} rebased to id_base WIDE_ID_MAX = "
           f"{ops.WIDE_ID_MAX} (ids past the wide-id bound), phase 3's run on "
           f"device={DEVICE!r}; set-up {time.perf_counter() - t0:.1f} s")
-    clock = StageClock(["frontier_unique_batch", "score_policy_update_batch"])
+    clock = StageClock(["frontier_unique_batch", "score_policy_update_batch",
+                        *AGGREGATION_KERNELS], by_ref=[trainer.features])
     native.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1835,9 +1919,11 @@ def main() -> int:
             max_err["score_policy_update_batch"],
             compare_outputs(got, want, SCORE_OUT, f"phase 8 score {i}"),
         )
+    n_agg = check_captured("phase 8", clock, max_err)
     print(f"phase 8: kernel == plain, bit-exact, on all {len(unique_caps)} "
           f"frontier_unique_batch and {len(score_caps)} score_policy_update_batch "
-          f"launches of the run")
+          f"launches of the run and all {n_agg} gather_mean and segment_sum_equal launches")
+    in_run["phase 8"] = aggregation_in_run("phase 8", clock)
 
     # The kernels at the run's shapes, each against its plain version: the
     # bound reads the keys and flags (the scores, marks and weights) once
@@ -2226,6 +2312,9 @@ def main() -> int:
             f"{SERVE['prompt_len'] + SERVE['gen_len']} steps); timed at decode_32k (phase 9b)",
         ),
     }
+    for name in AGGREGATION_KERNELS:  # each phase's in-run median, CUDA events
+        extras[name]["in_run_ms"] = {tag: med[name] for tag, med in in_run.items()
+                                     if name in med}
     kernels = []
     for name in native.KERNELS:
         k_ms, p_ms, l_ms, b_ms, b_by = timings[name]

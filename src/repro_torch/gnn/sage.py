@@ -96,14 +96,14 @@ class GraphSAGE(nn.Module):
 
 def fanout_mean(x: torch.Tensor) -> torch.Tensor:
     """Mean of ``x (..., k, F)`` over its fanout axis ``k``:
-    ``segment_sum_equal`` of the rows times the float32 ``1 / k``, which
-    rounds as the plain ``gather_mean`` does (so, for float32 features,
-    a mean taken from the rows equals one gathered from the table bit for
+    ``segment_sum_equal`` of the rows times the float32 ``1 / k``, in one
+    launch on the card (the scale rides in the kernel's epilogue, so no
+    tensor is built from a Python scalar and the stream never waits). It
+    rounds as the plain ``gather_mean`` does (so, for float32 features, a
+    mean taken from the rows equals one gathered from the table bit for
     bit)."""
     *lead, k, feat = x.shape
-    sums = ops.segment_sum_equal(x.reshape(-1, feat), k)
-    inv = torch.tensor(1.0 / k, dtype=torch.float32, device=sums.device)
-    return (sums * inv).reshape(*lead, feat)
+    return ops.segment_sum_equal(x.reshape(-1, feat), k, scale=1.0 / k).reshape(*lead, feat)
 
 
 def init_sage(

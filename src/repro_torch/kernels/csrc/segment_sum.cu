@@ -4,24 +4,33 @@
 // pallas_call body _make_kernel: a (SEG_TILE, K, F_TILE) block summed over
 // its K rows in VMEM). Computes, for every segment s of S,
 //   out[s, :] = sum_{j < k} data[s * k + j, :]
-// accumulated in float32 in row order, rounded to the data's dtype
-// (float32, or bfloat16 round-to-nearest-even). The GraphSAGE step's fanout
-// means are this sum times 1 / k. Spec:
-// repro_torch/kernels/ref.py::segment_sum_equal, which this matches bit for
-// bit.
+// accumulated in float32 in row order and rounded to the data's dtype
+// (float32, or bfloat16 round-to-nearest-even); with a scale, that rounded
+// sum times the float32 scale, in float32, rounded to the dtype again (one
+// rounding in float32): the GraphSAGE fanout mean (scale 1 / k) in one
+// launch. Spec: repro_torch/kernels/ref.py::segment_sum_equal, which this
+// matches bit for bit.
 //
-// What bounds it on this card: bytes, the (S * k, F) input read once and the
-// (S, F) output written once; one add per element read.
+// What bounds it on this card: DRAM bytes, the (S * k, F) input read once
+// and the (S, F) output written once; one add per element read. Phase 3b's
+// layer-2 mean (x_n2, 186.5 MB) is bound at 0.0557 ms; phase 3's layer-1
+// mean (x_n1, 8.8 MB) sits in L2 and takes about the launch's own latency.
 //
-// What the design does about it: one thread per (segment, column), or per
-// (segment, four columns) with 16-byte loads when the data is float32 with
-// F % 4 == 0 and 16-byte aligned. Neighbouring threads take neighbouring
-// columns, so each of the k row reads is coalesced, and the sum stays in a
-// register: the sequential loop over k replaces the Pallas kernel's
-// sequential grid, and nothing carries between blocks. A grid-stride loop
-// over S * F keeps a fixed grid busy whatever S is. No padding to the TPU's
-// SEG_TILE or F_TILE. __fadd_rn and -fmad=false keep every rounding where
-// the plain version has it.
+// What the design does about it. One thread per (segment, 16-byte column)
+// pair: neighbouring threads take neighbouring columns, so each of the k
+// row reads is coalesced, and the sum stays in registers: the loop over k
+// replaces the Pallas kernel's sequential grid. A segment's k rows are one
+// contiguous run of k * F elements; the loads do not depend on the adds,
+// and the loop is unrolled 8 deep so that they are in flight together (at
+// x_n2 the kernel reads at 89-92% of the DRAM rate; 16 deep was slower).
+// The adds stay in row order. 16-byte loads and stores: float4 for float32
+// with F % 4 == 0, eight bfloat16 with F % 8 == 0, when data and output
+// are 16-byte aligned; one element a load otherwise. The optional scale in
+// the epilogue makes the fanout mean one launch, where it was the sum, a
+// host-to-device copy of 1 / k (which waited on the stream) and a
+// multiply. No padding to the TPU's SEG_TILE or F_TILE. __fadd_rn /
+// __fmul_rn and -fmad=false keep every rounding where the plain version
+// has it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -30,83 +39,67 @@
 
 namespace {
 
-using rudder::load_f;
-using rudder::store_f;
+using rudder::Vec;
 
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 16;
 
-// Scalar path: any element type, any F.
-template <typename T>
+template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
-    segment_sum_kernel(int64_t S, int k, int F, const T* __restrict__ data,
-                       T* __restrict__ out) {
-  const int64_t total = S * F;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += stride) {
-    const int64_t s = i / F;
-    const int c = (int)(i - s * F);
-    const T* row = data + s * k * F + c;
-    float acc = load_f(row);
-    for (int j = 1; j < k; ++j) acc = __fadd_rn(acc, load_f(row + (int64_t)j * F));
-    store_f(out + i, acc);
+    segment_sum_kernel(int64_t S, int k, int W, bool scaled, float scale,
+                       const T* __restrict__ data, T* __restrict__ out) {
+  using Io = Vec<T, V>;
+  const int64_t item = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (item >= S * W) return;
+  const int64_t s = item / W;
+  const int F = W * V;
+  const int offset = (int)(item - s * W) * V;  // the column
+  const T* rows = data + s * k * F + offset;
+  typename Io::Raw r = Io::load(rows);
+  float acc[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) acc[e] = Io::get(r, e);
+#pragma unroll 8
+  for (int j = 1; j < k; ++j) {
+    r = Io::load(rows + (int64_t)j * F);
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[e] = __fadd_rn(acc[e], Io::get(r, e));
   }
+  if (scaled) {
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[e] = __fmul_rn(rudder::round_to(data, acc[e]), scale);
+  }
+  Io::store(out + s * F + offset, acc);
 }
 
-// float32 with F % 4 == 0 and aligned rows: four columns per thread.
-__global__ void __launch_bounds__(kThreads)
-    segment_sum_vec_kernel(int64_t S, int k, int F,
-                           const float* __restrict__ data,
-                           float* __restrict__ out) {
-  const int F4 = F / 4;
-  const int64_t total = S * F4;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const float4* d4 = reinterpret_cast<const float4*>(data);
-  float4* o4 = reinterpret_cast<float4*>(out);
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += stride) {
-    const int64_t s = i / F4;
-    const int c = (int)(i - s * F4);
-    const float4* row = d4 + s * k * F4 + c;
-    float4 acc = __ldg(row);
-    for (int j = 1; j < k; ++j) {
-      const float4 r = __ldg(row + (int64_t)j * F4);
-      acc.x = __fadd_rn(acc.x, r.x);
-      acc.y = __fadd_rn(acc.y, r.y);
-      acc.z = __fadd_rn(acc.z, r.z);
-      acc.w = __fadd_rn(acc.w, r.w);
-    }
-    o4[i] = acc;
-  }
-}
-
-int grid_for(int64_t items) {
-  const int64_t want = (items + kThreads - 1) / kThreads;
-  return (int)(want < kMaxBlocks ? want : kMaxBlocks);
+template <typename T, int V>
+int launch(int64_t S, int k, int F, bool scaled, float scale, const void* data,
+           void* out, cudaStream_t s) {
+  const int W = F / V;
+  const int64_t blocks = (S * W + kThreads - 1) / kThreads;
+  segment_sum_kernel<T, V><<<(unsigned)blocks, kThreads, 0, s>>>(
+      S, k, W, scaled, scale, static_cast<const T*>(data), static_cast<T*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // out (S, F) = data (S * k, F) summed over every k consecutive rows, on
-// `stream`. `bf16` selects bfloat16 data and output (else float32).
-// Pointers are device pointers of contiguous tensors. Returns the
-// cudaError_t of the launch, or 0 when there is nothing to launch.
-extern "C" int rudder_segment_sum(int64_t S, int k, int F, int bf16,
+// `stream`. `flags` bit 0: bfloat16 data and output (else float32); bit 1:
+// multiply each rounded sum by `scale` (float32) and round again. Pointers
+// are device pointers of contiguous tensors. Returns the cudaError_t of the
+// launch, or 0 when there is nothing to launch.
+extern "C" int rudder_segment_sum(int64_t S, int k, int F, float scale, int flags,
                                   const void* data, void* out, void* stream) {
   if (S <= 0 || k <= 0 || F <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    segment_sum_kernel<__nv_bfloat16><<<grid_for(S * F), kThreads, 0, s>>>(
-        S, k, F, static_cast<const __nv_bfloat16*>(data),
-        static_cast<__nv_bfloat16*>(out));
-  } else if (F % 4 == 0 && reinterpret_cast<uintptr_t>(data) % 16 == 0 &&
-             reinterpret_cast<uintptr_t>(out) % 16 == 0) {
-    segment_sum_vec_kernel<<<grid_for(S * (F / 4)), kThreads, 0, s>>>(
-        S, k, F, static_cast<const float*>(data), static_cast<float*>(out));
-  } else {
-    segment_sum_kernel<float><<<grid_for(S * F), kThreads, 0, s>>>(
-        S, k, F, static_cast<const float*>(data), static_cast<float*>(out));
+  const bool scaled = flags & 2;
+  const bool wide = reinterpret_cast<uintptr_t>(data) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (flags & 1) {
+    return wide && F % 8 == 0
+               ? launch<__nv_bfloat16, 8>(S, k, F, scaled, scale, data, out, s)
+               : launch<__nv_bfloat16, 1>(S, k, F, scaled, scale, data, out, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return wide && F % 4 == 0 ? launch<float, 4>(S, k, F, scaled, scale, data, out, s)
+                            : launch<float, 1>(S, k, F, scaled, scale, data, out, s);
 }

@@ -16,17 +16,16 @@ returns the empty output without a launch and counts none.
 from __future__ import annotations
 
 import ctypes
+import functools
 
-import numpy as np
 import torch
 
 from . import native
-from .native import check_tensor, ptr
 
 _ARGS = [
     ctypes.c_int64, ctypes.c_int, ctypes.c_int,  # B, K, F
     ctypes.c_float,                              # inv_k
-    ctypes.c_int, ctypes.c_int,                  # bf16, idx64
+    ctypes.c_int,                                # flags: bf16 | idx64 << 1
     ctypes.c_void_p, ctypes.c_void_p,            # table, idx
     ctypes.c_void_p,                             # out
     ctypes.c_void_p,                             # stream
@@ -34,6 +33,12 @@ _ARGS = [
 
 DTYPES = (torch.float32, torch.bfloat16)
 INDEX_DTYPES = (torch.int32, torch.int64)
+
+
+@functools.cache
+def _entry():
+    """The bound C entry, resolved once per process (at its first launch)."""
+    return native.bind("gather_mean", "rudder_gather_mean", _ARGS)
 
 
 def gather_mean_cuda(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
@@ -50,24 +55,17 @@ def gather_mean_cuda(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor
             f"need a float32 or bfloat16 table and int32 or int64 indices, got "
             f"{table.dtype} and {indices.dtype}"
         )
-    N, F = table.shape
     B, K = indices.shape
     if K < 1:
         raise ValueError("gather_mean needs K >= 1 neighbours per row")
-    check_tensor(table, "table", table.dtype, (N, F))
-    check_tensor(indices, "indices", indices.dtype, (B, K))
-    out = torch.empty((B, F), dtype=table.dtype, device=table.device)
+    device = native.check_inputs(table=table, indices=indices)
+    F = table.shape[1]
+    out = table.new_empty((B, F))
     if B == 0 or F == 0:
         return out
-    fn = native.bind("gather_mean", "rudder_gather_mean", _ARGS)
-    inv_k = float(np.float32(1.0 / K))
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        native.check(
-            fn(B, K, F, inv_k, int(table.dtype == torch.bfloat16),
-               int(indices.dtype == torch.int64), ptr(table), ptr(indices),
-               ptr(out), stream),
-            "gather_mean",
-        )
+    flags = (table.dtype == torch.bfloat16) | (indices.dtype == torch.int64) << 1
+    # ctypes rounds the double 1 / K to the nearest float32, as np.float32 does.
+    native.launch(_entry(), device, "gather_mean", B, K, F, 1.0 / K, flags,
+                  table.data_ptr(), indices.data_ptr(), out.data_ptr())
     native.LAUNCHES["gather_mean"] += 1
     return out

@@ -22,6 +22,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
@@ -177,3 +179,38 @@ def check_tensor(t, name: str, dtype, shape: tuple) -> None:
 def ptr(t):
     """The device pointer of tensor ``t`` for a C entry (None for None)."""
     return None if t is None else t.data_ptr()
+
+
+def check_inputs(**tensors):
+    """Raise unless every tensor is a contiguous CUDA tensor and all lie on
+    one device (dtype and shape are the caller's checks); returns that
+    device. One pass for a wrapper's inputs, cheaper on the host than a
+    :func:`check_tensor` each."""
+    device = None
+    for name, t in tensors.items():
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if device is None:
+            device = t.device
+        elif t.device != device:
+            raise ValueError(f"{name} is on {t.device}, the other inputs on {device}")
+    return device
+
+
+def launch(fn, device, what: str, *args) -> None:
+    """Call the bound C entry ``fn`` with ``args`` and PyTorch's current
+    stream on ``device`` last, raising on a nonzero ``cudaError_t``. The
+    ``torch.cuda.device`` guard is entered only when ``device`` is not the
+    current device (the launch goes to the caller's current device). The
+    device and stream come from the raw getters that ``torch.cuda``'s own
+    ``current_device`` and ``current_stream`` wrap, without building a
+    ``Stream`` object a call."""
+    index = device.index
+    if index == torch._C._cuda_getDevice():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    check(err, what)

@@ -612,18 +612,21 @@ def gather_mean(table, indices):
 
 
 @telemetry.profiled("segment_sum_equal")
-def segment_sum_equal(data, k: int):
+def segment_sum_equal(data, k: int, *, scale: float | None = None):
     """Sum of every ``k`` consecutive rows: ``data (S*k, F)`` float32 or
-    bfloat16 → ``(S, F)`` in the data's dtype. Forward-only
-    (``ValueError`` on data that requires a gradient). CPU tensors:
-    :func:`repro_torch.kernels.ref.segment_sum_equal`; CUDA: the Hopper
-    kernel (:func:`repro_torch.kernels.segment_sum.segment_sum_equal_cuda`)."""
+    bfloat16 → ``(S, F)`` in the data's dtype; with ``scale``, each
+    rounded sum times the float32 ``scale`` in the same launch (the fanout
+    mean; roundings as :func:`repro_torch.kernels.ref.segment_sum_equal`
+    states). Forward-only (``ValueError`` on data that requires a
+    gradient). CPU tensors: :func:`repro_torch.kernels.ref.segment_sum_equal`;
+    CUDA: the Hopper kernel
+    (:func:`repro_torch.kernels.segment_sum.segment_sum_equal_cuda`)."""
     _no_grad_input("segment_sum_equal", data)
     if _route("segment_sum_equal", data) == "cpu":
-        return ref.segment_sum_equal(data, int(k))
+        return ref.segment_sum_equal(data, int(k), scale)
     from .segment_sum import segment_sum_equal_cuda
 
-    return segment_sum_equal_cuda(data.contiguous(), int(k))
+    return segment_sum_equal_cuda(data.contiguous(), int(k), scale)
 
 
 @telemetry.profiled("mla_flash_decode")

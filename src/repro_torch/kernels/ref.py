@@ -860,11 +860,20 @@ def gather_mean(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     return (acc * _f32(1.0 / K, acc)).to(table.dtype)
 
 
-def segment_sum_equal(data: torch.Tensor, k: int) -> torch.Tensor:
+def segment_sum_equal(
+    data: torch.Tensor, k: int, scale: float | None = None
+) -> torch.Tensor:
     """``data (S*k, F)`` float32 or bfloat16, ``k`` rows per segment →
     ``(S, F)`` in the data's dtype: every k consecutive rows summed, in
-    row order, into a float32 accumulator. The spec of
-    ``csrc/segment_sum.cu``."""
+    row order, into a float32 accumulator, rounded to the data's dtype.
+    The spec of ``csrc/segment_sum.cu``.
+
+    With ``scale`` (the fanout mean's ``1 / k``): that rounded sum times
+    the float32 value of ``scale``, the product taken in float32 and
+    rounded to the data's dtype. In float32 that is one rounding after the
+    float32 sum; in bfloat16 it is ``bf16(fl32(float(bf16(sum)) *
+    fl32(scale)))``, on every device (the scale is never rounded to
+    bfloat16 first)."""
     E, F = data.shape
     if k < 1 or E % k:
         raise ValueError(f"segment_sum_equal needs k >= 1 dividing {E} rows, got {k}")
@@ -872,7 +881,10 @@ def segment_sum_equal(data: torch.Tensor, k: int) -> torch.Tensor:
     acc = seg[:, 0].to(torch.float32)
     for j in range(1, k):
         acc = acc + seg[:, j].to(torch.float32)
-    return acc.to(data.dtype)
+    sums = acc.to(data.dtype)
+    if scale is None:
+        return sums
+    return (sums.to(torch.float32) * _f32(scale, sums)).to(data.dtype)
 
 
 #: The mask value of the reference's attention (XLA's ``-inf`` stand-in).

@@ -39,9 +39,13 @@ from a seed; the constants are those of the scoring policy.
   the kernel's block.
 * :func:`gather_mean_scenarios` (``gather_mean``) and
   :func:`segment_sum_scenarios` (``segment_sum_equal``): float32 and
-  bfloat16 data, ``K`` in {1, 3, 10, 25}, ``F`` in {1, 3, 64, 100, 128,
-  600}, int32 and int64 indices, repeated indices and an index on the
-  table's last row, ``B == 0`` and ``S == 0``.
+  bfloat16 data, ``K`` in {1, 3, 10, 25} and at the loops' unroll
+  factors :data:`UNROLL_EDGES` and one either side, ``F`` in {1, 3, 64,
+  100, 128, 600}, int32 and int64 indices, repeated indices and an index
+  on the table's last row, ``B == 0`` and ``S == 0``, partial last blocks,
+  a gather past one pass of its grid, every lane-group width of the
+  gather, the 16-byte and the one-element paths of both dtypes, and views
+  whose base pointer is off the 16-byte grid.
 * :func:`mla_inputs` (``mla_flash_decode``): queries and caches of any
   shape, N(0, 0.3²) as the reference's test draws them (scores spread by
   about 0.1: a near-uniform softmax), or with the queries scaled so that
@@ -54,6 +58,7 @@ from __future__ import annotations
 from dataclasses import dataclass, replace
 
 import numpy as np
+import torch
 
 from ..core import scoring
 from .ops import WIDE_ID_MAX
@@ -537,33 +542,84 @@ def score_scenarios() -> list[ScoreScenario]:
 
 
 # --------------------------------------------------------------------------- #
+#: Unroll factors of the aggregation kernels' neighbour loops: the 4 that
+#: nvcc gives a loop of runtime length, and the 8 of
+#: ``scripts/aggregation_ab.py``'s batched variants. The sets hold ``K``
+#: at each and one either side.
+UNROLL_EDGES = (4, 8)
+#: Thread slots of one pass of ``gather_mean.cu``'s grid (its ``kMaxBlocks
+#: * kThreads``): a group of G lanes per destination covers ``GATHER_SPAN
+#: / G`` destinations a pass.
+GATHER_SPAN = 132 * 16 * 256
+
+
+def typed(a: np.ndarray, dtype: str, device="cpu", offset: int = 0) -> torch.Tensor:
+    """``a`` as a contiguous tensor of ``dtype`` ("float32" or "bfloat16")
+    on ``device``; with ``offset``, a view that starts ``offset`` elements
+    into a larger buffer, so that its base pointer is off the 16-byte grid
+    (what a row or element slice of a larger tensor hands a kernel)."""
+    t = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    if dtype == "bfloat16":
+        t = t.to(torch.bfloat16)
+    if offset:
+        buf = torch.zeros(t.numel() + offset, dtype=t.dtype, device=device)
+        buf[offset:] = t.reshape(-1)
+        t = buf[offset:].view(t.shape)
+    return t
+
+
 @dataclass
 class GatherMeanScenario:
     name: str
     table: np.ndarray  # (N, F) float32; cast to ``dtype`` at use
     idx: np.ndarray    # (B, K) int32 or int64 in [0, N)
     dtype: str         # "float32" or "bfloat16"
+    offset: int = 0    # the table's elements into its buffer (see typed)
+
+    def tensors(self, device="cpu") -> tuple[torch.Tensor, torch.Tensor]:
+        """``(table, indices)`` on ``device``."""
+        return (typed(self.table, self.dtype, device, self.offset),
+                torch.from_numpy(self.idx).to(device))
 
 
 def gather_mean_scenarios() -> list[GatherMeanScenario]:
     """The seeded set of ``gather_mean``: every ``K`` of {1, 3, 10, 25} and
-    ``F`` of {1, 3, 64, 100, 128, 600} (odd widths take the kernel's 4-byte
-    path, float32 ``F % 4 == 0`` its 16-byte one), float32 and bfloat16
-    tables, int32 and int64 indices, repeated indices, the table's last
-    row in every set, and ``B == 0``."""
+    of :data:`UNROLL_EDGES` and one either side, ``F`` of {1, 3, 64, 100,
+    128, 600} (float32 with ``F % 4 == 0`` and bfloat16 with ``F % 8 ==
+    0`` take the kernel's 16-byte path, other widths and misaligned tables
+    its one-element path), float32 and bfloat16 tables, int32 and int64
+    indices, repeated indices, the table's last row in every set, and
+    ``B == 0``. The kernel's edges: groups of 1, 4, 8, 16 and 32 lanes a
+    destination (the row's 16-byte columns, or elements, rounded up to a
+    power of two) and rows wider than 32 of them (``F = 600``); ``B`` not
+    a multiple of a block's destinations (``B = 103`` at 8 a block), and
+    past one pass of the grid (``B = 17,000`` at 32 lanes a destination:
+    ``GATHER_SPAN / 32`` = 16,896 a pass); tables of 2,000 and 5,000
+    rows; and tables whose base pointer is off the 16-byte grid (offsets
+    1 and 3)."""
     out = []
-    N = 90
-    for i, (F, K, B, idx64, bf16, repeat) in enumerate([
-        (1, 3, 37, False, False, False),
-        (3, 10, 20, True, False, True),
-        (64, 25, 16, False, True, False),
-        (100, 10, 50, True, False, False),
-        (128, 25, 9, False, False, True),
-        (600, 1, 7, True, True, False),
-        (128, 1, 5, False, True, True),
-        (3, 25, 11, True, True, False),
-        (600, 3, 4, False, False, False),
-        (100, 25, 0, False, False, False),
+    u4, u8 = UNROLL_EDGES
+    for i, (F, K, B, N, idx64, bf16, repeat, offset) in enumerate([
+        (1, 3, 37, 90, False, False, False, 0),
+        (3, 10, 20, 90, True, False, True, 0),
+        (64, 25, 16, 90, False, True, False, 0),
+        (100, 10, 50, 90, True, False, False, 0),
+        (128, 25, 9, 90, False, False, True, 0),
+        (600, 1, 7, 90, True, True, False, 0),
+        (128, 1, 5, 90, False, True, True, 0),
+        (3, 25, 11, 90, True, True, False, 0),
+        (600, 3, 4, 90, False, False, False, 0),
+        (100, 25, 0, 90, False, False, False, 0),
+        (100, 25, 103, 2000, False, False, False, 0),
+        (64, u4 + 1, 300, 5000, True, True, False, 0),
+        (64, u4, 41, 500, True, False, True, 0),
+        (128, u4 - 1, 17000, 90, False, False, False, 0),
+        (600, u8, 40, 90, True, False, False, 0),
+        (100, u8 - 1, 60, 90, True, True, False, 0),
+        (100, u8 + 1, 33, 90, False, False, False, 1),
+        (64, 25, 20, 90, True, True, False, 3),
+        (1, 3, 1500, 90, True, False, False, 0),
+        (3, 25, 700, 90, False, True, False, 0),
     ]):
         rng = np.random.default_rng(800 + i)
         table = rng.standard_normal((N, F)).astype(np.float32)
@@ -573,9 +629,9 @@ def gather_mean_scenarios() -> list[GatherMeanScenario]:
             if repeat:
                 idx[:, K // 2 :] = idx[:, :1]
         dtype = "bfloat16" if bf16 else "float32"
-        name = (f"F{F}-K{K}-B{B}-{'i64' if idx64 else 'i32'}-{dtype}"
-                f"{'-rep' if repeat else ''}")
-        out.append(GatherMeanScenario(name, table, idx, dtype))
+        name = (f"F{F}-K{K}-B{B}-N{N}-{'i64' if idx64 else 'i32'}-{dtype}"
+                f"{'-rep' if repeat else ''}{f'-off{offset}' if offset else ''}")
+        out.append(GatherMeanScenario(name, table, idx, dtype, offset))
     return out
 
 
@@ -585,31 +641,51 @@ class SegmentSumScenario:
     data: np.ndarray  # (S * k, F) float32; cast to ``dtype`` at use
     k: int
     dtype: str        # "float32" or "bfloat16"
+    offset: int = 0   # the data's elements into its buffer (see typed)
+
+    def tensor(self, device="cpu") -> torch.Tensor:
+        return typed(self.data, self.dtype, device, self.offset)
 
 
 def segment_sum_scenarios() -> list[SegmentSumScenario]:
     """The seeded set of ``segment_sum_equal``: every ``k`` of {1, 3, 10,
-    25} and ``F`` of {1, 3, 64, 100, 128, 600}, float32 and bfloat16 data,
-    repeated rows, and ``S == 0``."""
+    25} and of :data:`UNROLL_EDGES` and one either side, ``F`` of {1, 3,
+    64, 100, 128, 600}, float32 and bfloat16 data (the kernel's 16-byte
+    path at float32 ``F % 4 == 0`` and bfloat16 ``F % 8 == 0``, its
+    one-element path otherwise), repeated rows, ``S == 0``, launches of
+    many blocks whose last block is partial (``S * F / V`` threads, not a
+    multiple of the kernel's 256), and data views whose base pointer is
+    off the 16-byte grid (offsets 1 and 3)."""
     out = []
-    for i, (F, k, S, bf16) in enumerate([
-        (1, 3, 37, False),
-        (3, 10, 20, False),
-        (64, 25, 16, True),
-        (100, 10, 50, False),
-        (128, 25, 9, False),
-        (600, 1, 7, True),
-        (100, 1, 5, False),
-        (3, 3, 11, True),
-        (600, 25, 4, False),
-        (128, 25, 0, False),
+    u4, u8 = UNROLL_EDGES
+    for i, (F, k, S, bf16, offset) in enumerate([
+        (1, 3, 37, False, 0),
+        (3, 10, 20, False, 0),
+        (64, 25, 16, True, 0),
+        (100, 10, 50, False, 0),
+        (128, 25, 9, False, 0),
+        (600, 1, 7, True, 0),
+        (100, 1, 5, False, 0),
+        (3, 3, 11, True, 0),
+        (600, 25, 4, False, 0),
+        (128, 25, 0, False, 0),
+        (100, u4 - 1, 103, False, 0),
+        (100, u4, 103, False, 0),
+        (100, u4 + 1, 517, False, 0),
+        (64, u8 + 1, 300, True, 0),
+        (128, u8, 41, True, 0),
+        (100, u8 - 1, 60, True, 0),
+        (100, 10, 33, False, 1),
+        (64, 25, 20, True, 3),
+        (1, u8, 1500, False, 0),
     ]):
         rng = np.random.default_rng(900 + i)
         data = rng.standard_normal((S * k, F)).astype(np.float32)
         if S > 1:
             data[k : 2 * k] = data[:k]  # a repeated segment
         dtype = "bfloat16" if bf16 else "float32"
-        out.append(SegmentSumScenario(f"F{F}-k{k}-S{S}-{dtype}", data, k, dtype))
+        name = f"F{F}-k{k}-S{S}-{dtype}{f'-off{offset}' if offset else ''}"
+        out.append(SegmentSumScenario(name, data, k, dtype, offset))
     return out
 
 

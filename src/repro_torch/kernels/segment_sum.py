@@ -3,8 +3,11 @@
 
 Port of the reference's Pallas ``segment_sum_equal`` (every k
 consecutive rows of a segment-sorted block summed: the GraphSAGE fanout
-sum). Plain version: :func:`repro_torch.kernels.ref.segment_sum_equal`,
-which it matches bit for bit (both add the k rows in order in float32).
+sum), with an optional float32 ``scale`` applied to the rounded sums in
+the same launch (the fanout mean, ``scale = 1 / k``). Plain version:
+:func:`repro_torch.kernels.ref.segment_sum_equal`, which it matches bit
+for bit (both add the k rows in order in float32, and round the scaled
+form alike).
 
 The data is float32 or bfloat16. An empty launch (``S == 0`` or ``F ==
 0``) has nothing to compute: the wrapper returns the empty output
@@ -14,15 +17,16 @@ without a launch and counts none.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import native
-from .native import check_tensor, ptr
 
 _ARGS = [
     ctypes.c_int64, ctypes.c_int, ctypes.c_int,  # S, k, F
-    ctypes.c_int,                                # bf16
+    ctypes.c_float,                              # scale
+    ctypes.c_int,                                # flags: bf16 | scaled << 1
     ctypes.c_void_p, ctypes.c_void_p,            # data, out
     ctypes.c_void_p,                             # stream
 ]
@@ -30,9 +34,19 @@ _ARGS = [
 DTYPES = (torch.float32, torch.bfloat16)
 
 
-def segment_sum_equal_cuda(data: torch.Tensor, k: int) -> torch.Tensor:
+@functools.cache
+def _entry():
+    """The bound C entry, resolved once per process (at its first launch)."""
+    return native.bind("segment_sum", "rudder_segment_sum", _ARGS)
+
+
+def segment_sum_equal_cuda(
+    data: torch.Tensor, k: int, scale: float | None = None
+) -> torch.Tensor:
     """``data (S*k, F)`` float32 or bfloat16, ``k >= 1`` rows per segment
-    → ``(S, F)`` in the data's dtype, one launch."""
+    → ``(S, F)`` in the data's dtype, one launch; with ``scale``, each
+    rounded sum times the float32 ``scale``, rounded again (see
+    :func:`repro_torch.kernels.ref.segment_sum_equal`)."""
     if data.dim() != 2:
         raise ValueError(f"need data (S*k, F), got {tuple(data.shape)}")
     if data.dtype not in DTYPES:
@@ -41,17 +55,14 @@ def segment_sum_equal_cuda(data: torch.Tensor, k: int) -> torch.Tensor:
     k = int(k)
     if k < 1 or E % k:
         raise ValueError(f"segment_sum_equal needs k >= 1 dividing {E} rows, got {k}")
-    check_tensor(data, "data", data.dtype, (E, F))
+    device = native.check_inputs(data=data)
     S = E // k
-    out = torch.empty((S, F), dtype=data.dtype, device=data.device)
+    out = data.new_empty((S, F))
     if S == 0 or F == 0:
         return out
-    fn = native.bind("segment_sum", "rudder_segment_sum", _ARGS)
-    with torch.cuda.device(data.device):
-        stream = torch.cuda.current_stream(data.device).cuda_stream
-        native.check(
-            fn(S, k, F, int(data.dtype == torch.bfloat16), ptr(data), ptr(out), stream),
-            "segment_sum_equal",
-        )
+    flags = (data.dtype == torch.bfloat16) | (scale is not None) << 1
+    native.launch(_entry(), device, "segment_sum_equal", S, k, F,
+                  0.0 if scale is None else scale, flags, data.data_ptr(),
+                  out.data_ptr())
     native.LAUNCHES["segment_sum_equal"] += 1
     return out

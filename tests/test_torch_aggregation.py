@@ -55,9 +55,8 @@ GATHER_MEANS = scenarios.gather_mean_scenarios()
 SEGMENT_SUMS = scenarios.segment_sum_scenarios()
 
 
-def _torch(a, dtype):
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    return t.to(torch.bfloat16) if dtype == "bfloat16" else t
+def _torch(a, dtype, offset=0):
+    return scenarios.typed(a, dtype, offset=offset)
 
 
 def _jax(a, dtype):
@@ -71,9 +70,9 @@ def _f32(x):
     return np.asarray(jnp.asarray(x).astype(jnp.float32))
 
 
-def _check_gather_mean(table, idx, dtype):
+def _check_gather_mean(table, idx, dtype, offset=0):
     before = dict(native.LAUNCHES)
-    got = ops.gather_mean(_torch(table, dtype), torch.from_numpy(idx))
+    got = ops.gather_mean(_torch(table, dtype, offset), torch.from_numpy(idx))
     assert native.LAUNCHES == before  # the CPU route launches nothing
     assert got.shape == (idx.shape[0], table.shape[1])
     assert got.dtype == (torch.bfloat16 if dtype == "bfloat16" else torch.float32)
@@ -89,9 +88,9 @@ def _check_gather_mean(table, idx, dtype):
         np.testing.assert_array_equal(_f32(got), _f32(want))
 
 
-def _check_segment_sum(data, k, dtype):
+def _check_segment_sum(data, k, dtype, offset=0):
     before = dict(native.LAUNCHES)
-    got = ops.segment_sum_equal(_torch(data, dtype), k)
+    got = ops.segment_sum_equal(_torch(data, dtype, offset), k)
     assert native.LAUNCHES == before
     S = data.shape[0] // k
     assert got.shape == (S, data.shape[1])
@@ -111,26 +110,61 @@ def _check_segment_sum(data, k, dtype):
 
 @pytest.mark.parametrize("sc", GATHER_MEANS, ids=[s.name for s in GATHER_MEANS])
 def test_gather_mean_matches_pallas_and_oracle(sc):
-    _check_gather_mean(sc.table, sc.idx, sc.dtype)
+    _check_gather_mean(sc.table, sc.idx, sc.dtype, sc.offset)
 
 
 @pytest.mark.parametrize("sc", SEGMENT_SUMS, ids=[s.name for s in SEGMENT_SUMS])
 def test_segment_sum_matches_pallas_and_oracle(sc):
-    _check_segment_sum(sc.data, sc.k, sc.dtype)
+    _check_segment_sum(sc.data, sc.k, sc.dtype, sc.offset)
+
+
+def _width(dtype, F, offset):
+    """Units a row of width F takes in the kernels: F / V on their 16-byte
+    path (V = 4 float32, 8 bfloat16; F % V == 0, aligned), else F."""
+    v = 8 if dtype == "bfloat16" else 4
+    return F // v if F % v == 0 and not offset else F
+
+
+def _lanes(sc):
+    """Lanes of one ``gather_mean.cu`` group on this set: the row's units
+    rounded up to a power of two, at most 32."""
+    W = _width(sc.dtype, sc.table.shape[1], sc.offset)
+    return min(32, 1 << (W - 1).bit_length())
 
 
 def test_scenarios_cover_the_contract():
+    edges = {k + d for k in scenarios.UNROLL_EDGES for d in (-1, 0, 1)}
     for sets, k_of, f_of in (
         (GATHER_MEANS, lambda s: s.idx.shape[1], lambda s: s.table.shape[1]),
         (SEGMENT_SUMS, lambda s: s.k, lambda s: s.data.shape[1]),
     ):
-        assert {k_of(s) for s in sets} == {1, 3, 10, 25}
+        assert {k_of(s) for s in sets} == {1, 3, 10, 25} | edges
         assert {f_of(s) for s in sets} == {1, 3, 64, 100, 128, 600}
         assert {s.dtype for s in sets} == {"float32", "bfloat16"}
+        # Both paths of both dtypes: 16 bytes a load, and one element.
+        paths = {(s.dtype, _width(s.dtype, f_of(s), s.offset) < f_of(s)) for s in sets}
+        assert paths == {(d, v) for d in ("float32", "bfloat16") for v in (True, False)}
+        # A base pointer off the 16-byte grid, in both dtypes.
+        assert {s.dtype for s in sets if s.offset * (2 if s.dtype == "bfloat16" else 4) % 16} \
+            == {"float32", "bfloat16"}
+    # The segment sum: several 256-thread blocks, the last one partial.
+    threads = [s.data.shape[0] // s.k * _width(s.dtype, s.data.shape[1], s.offset)
+               for s in SEGMENT_SUMS]
+    assert any(n > 256 and n % 256 for n in threads)
+    # The gather: every lane-group width, a row wider than 32 units, a
+    # block's 256 / G destinations not dividing B, and B past one pass.
+    live = [s for s in GATHER_MEANS if s.idx.size]
+    assert {_lanes(s) for s in live} >= {1, 4, 8, 16, 32}
+    assert any(_width(s.dtype, s.table.shape[1], s.offset) > 32 for s in live)
+    assert any(s.idx.shape[0] > 256 // _lanes(s) and s.idx.shape[0] % (256 // _lanes(s))
+               for s in live)
+    assert any(s.idx.shape[0] * _lanes(s) > scenarios.GATHER_SPAN for s in live)
     assert {s.idx.dtype for s in GATHER_MEANS} == {np.dtype(np.int32), np.dtype(np.int64)}
+    for dtype in ("float32", "bfloat16"):
+        assert {s.idx.dtype for s in GATHER_MEANS if s.dtype == dtype} == {
+            np.dtype(np.int32), np.dtype(np.int64)}
     assert any(s.idx.shape[0] == 0 for s in GATHER_MEANS)
     assert any(s.data.shape[0] == 0 for s in SEGMENT_SUMS)
-    live = [s for s in GATHER_MEANS if s.idx.size]
     assert all((s.idx == s.table.shape[0] - 1).any() for s in live)
     assert any(len(np.unique(s.idx[0])) < s.idx.shape[1] for s in live)
 
@@ -154,6 +188,32 @@ def test_gather_mean_sweep(b, k, f, dtype):
 def test_segment_sum_sweep(s, k, f):
     rng = np.random.default_rng(s * 1000 + k * 10 + f)
     _check_segment_sum(rng.standard_normal((s * k, f)).astype(np.float32), k, "float32")
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.parametrize("sc", SEGMENT_SUMS, ids=[s.name for s in SEGMENT_SUMS])
+def test_scaled_segment_sum_is_the_fanout_mean(sc):
+    """The scaled form (``scale = 1 / k``, what ``fanout_mean`` asks for)
+    against the fanout mean's formula from before the scale moved into the
+    kernel, ``segment_sum_equal(x, k) * torch.tensor(1 / k)``: bit for bit
+    in float32. In bfloat16, bit for bit against the rounding
+    ``ref.segment_sum_equal`` states, bf16(fl32(float(bf16(sum)) * fl32(1 /
+    k))), computed here in numpy, which the old formula also gives on the
+    CPU."""
+    data = sc.tensor()
+    k = sc.k
+    sums = ref.segment_sum_equal(data, k)
+    got = ops.segment_sum_equal(data, k, scale=1.0 / k)
+    old = sums * torch.tensor(1.0 / k, dtype=torch.float32)
+    stated = torch.from_numpy(_f32(sums) * np.float32(1.0 / k)).to(data.dtype)
+    assert got.dtype == data.dtype and got.shape == sums.shape
+    assert torch.equal(_bits(got), _bits(stated))
+    assert torch.equal(_bits(got), _bits(old))
+    mean = fanout_mean(data.reshape(-1, k, data.shape[1]))
+    assert torch.equal(_bits(mean), _bits(got))
 
 
 @pytest.mark.parametrize(

@@ -10,7 +10,8 @@ sets; ``fused_frontier_step_wide`` and ``fused_step_wide`` over the wide
 sets, in both index modes of the kernels; ``frontier_unique_batch`` in
 both instantiations and the three score entries over theirs;
 ``gather_mean`` and ``segment_sum_equal`` over theirs, float32 and
-bfloat16; ``mla_flash_decode`` to allclose over the reference test's
+bfloat16, the sum also with a scale in its epilogue, and ``fanout_mean``
+as one device operation a call; ``mla_flash_decode`` to allclose over the reference test's
 shapes, the full-width serve shape and the tensor-core kernel's edge
 shapes up to the widest row, at the tile and split edges, on
 near-uniform and on peaked scores, on caches whose rows past pos are
@@ -474,11 +475,6 @@ GATHER_MEANS = scenarios.gather_mean_scenarios()
 SEGMENT_SUMS = scenarios.segment_sum_scenarios()
 
 
-def _typed(a, dtype, card):
-    t = torch.from_numpy(np.ascontiguousarray(a)).to(card)
-    return t.to(torch.bfloat16) if dtype == "bfloat16" else t
-
-
 def _same_bits(a, b):
     if a.dtype == torch.bfloat16:
         a, b = a.view(torch.int16), b.view(torch.int16)
@@ -487,8 +483,7 @@ def _same_bits(a, b):
 
 @pytest.mark.parametrize("sc", GATHER_MEANS, ids=[s.name for s in GATHER_MEANS])
 def test_gather_mean_kernel_matches_plain(card, sc):
-    table = _typed(sc.table, sc.dtype, card)
-    idx = torch.from_numpy(sc.idx).to(card)
+    table, idx = sc.tensors(card)
     before = native.LAUNCHES["gather_mean"]
     got = ops.gather_mean(table, idx)
     want = ref.gather_mean(table, idx)
@@ -500,7 +495,7 @@ def test_gather_mean_kernel_matches_plain(card, sc):
 
 @pytest.mark.parametrize("sc", SEGMENT_SUMS, ids=[s.name for s in SEGMENT_SUMS])
 def test_segment_sum_kernel_matches_plain(card, sc):
-    data = _typed(sc.data, sc.dtype, card)
+    data = sc.tensor(card)
     before = native.LAUNCHES["segment_sum_equal"]
     got = ops.segment_sum_equal(data, sc.k)
     want = ref.segment_sum_equal(data, sc.k)
@@ -508,6 +503,39 @@ def test_segment_sum_kernel_matches_plain(card, sc):
     assert native.LAUNCHES["segment_sum_equal"] == before + (1 if sc.data.shape[0] else 0)
     assert got.dtype == want.dtype and got.shape == want.shape
     assert _same_bits(got, want)
+
+
+@pytest.mark.parametrize("sc", SEGMENT_SUMS, ids=[s.name for s in SEGMENT_SUMS])
+def test_segment_sum_scaled_kernel_matches_plain(card, sc):
+    """The scaled form (the fanout mean's ``1 / k``, and a scale that is no
+    reciprocal) bit for bit against its plain version, which states the
+    roundings of both dtypes."""
+    data = sc.tensor(card)
+    for scale in (1.0 / sc.k, 0.3):
+        got = ops.segment_sum_equal(data, sc.k, scale=scale)
+        want = ref.segment_sum_equal(data, sc.k, scale)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype and got.shape == want.shape
+        assert _same_bits(got, want)
+
+
+def test_fanout_mean_is_one_device_op(card, tmp_path):
+    """``fanout_mean`` on the card: one device operation a call, the
+    segment-sum kernel with the scale in its epilogue; no host-to-device
+    copy of ``1 / k`` (which waited on the stream) and no second launch
+    for the multiply. Its float32 mean equals the plain version's."""
+    from repro_torch.gnn.sage import fanout_mean
+
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((2000, 10, 100)).astype(np.float32)).to(card)
+    want = ref.segment_sum_equal(x.reshape(-1, 100), 10, 0.1).reshape(2000, 100)
+    got = fanout_mean(x)
+    torch.cuda.synchronize()
+    assert _same_bits(got, want)
+    per_call = _device_ops_per_call(lambda: fanout_mean(x), 5, tmp_path / "trace.json")
+    assert all(len(names) <= 1 for names in per_call), per_call
+    assert any(names for names in per_call), per_call
+    assert all("segment_sum_kernel" in n for names in per_call for n in names), per_call
 
 
 def test_telemetry_session_on_the_card(card):
