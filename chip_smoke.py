@@ -88,13 +88,21 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    logs, one counter pull per 4 launches, the readback time per step;
 8. the staged fall-back at full width: phase 3's graph rebased to
    ``WIDE_ID_MAX`` and phase 3's run on ``device="cuda"``: one warning,
-   one ``frontier_unique_batch`` launch (the sampler's dedup) and one
-   ``score_policy_update_batch`` launch (the engine's scoring round) per
-   step, every stream, stat and the buffer state equal to phase 3's (ids
-   shifted), each kernel (and both aggregation kernels) bit-exact on
-   every launch of the run, both timed;
+   one ``frontier_unique_batch`` launch (the sampler's dedup, in its
+   compact form: the raw block sorted on the card, the ids compacted
+   there) and one ``score_policy_update_batch`` launch (the engine's
+   scoring round) per step, every stream, stat and the buffer state equal
+   to phase 3's (ids shifted), each kernel (and both aggregation kernels)
+   bit-exact on every launch of the run; the sampler hook's split
+   (``scripts/staged_hooks_ab.py``'s ``hook_split``: expansion, upload,
+   sort, kernel, readback, host split); both forms of the dedup (the
+   path's compact form and the reference's mask form) and the scoring
+   round timed, each also by its kernel alone warm and cold, device
+   operations a call and wrapper host ms, and the three entries no
+   trainer path launches on their phase-2 sets;
 8b. the staged loop on the host: ``device=False`` on phase 3's graph and
-   run, equal to phase 3;
+   run, equal to phase 3; then phase 8's ``sample`` and ``fetch.commit``
+   medians beside 8b's and phase 3's in one line;
 9. DeepSeek-V3's serving path at full width: ``serve_batch`` on
    ``CONFIG.with_overrides(num_layers=3)`` (the checkpoint's three dense
    layers, 128 heads, vocabulary 129,280, bf16, random weights from a
@@ -115,7 +123,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    the reference form's times beside them; the aggregation rows add their
    kernel alone, device operations a call, host ms, the gather's L2
    floor, ``fanout_mean``'s and ``x_n2``'s numbers and the median
-   in-run device ms of phases 3, 3b, 6, 6b and 8), and as the last line
+   in-run device ms of phases 3, 3b, 6, 6b and 8; the staged rows their
+   kernel alone, device operations and host ms, ``frontier_unique_batch``
+   timing the path's compact form with the mask form and the hook's
+   split beside it), and as the last line
    the device JSON line. The aggregation kernels' in-run time (CUDA events
    around each dispatcher call) prints on phases 3, 3b, 6, 6b and 8.
 
@@ -238,6 +249,7 @@ STEP_OUT = (
 )
 READBACK_OUT = ("ids2", "scores2", "valid2", "accessed3", "weights2", "packed")
 UNIQUE_OUT = ("first", "remote", "unique_count", "remote_count")
+COMPACT_OUT = ("uniq", "rem", "unique_count", "remote_count")
 SCORE_OUT = ("new", "stale")
 
 
@@ -619,6 +631,23 @@ def check_captured(what, clock, max_err) -> int:
             )
             n += 1
     return n
+
+
+def check_compact(keys, part_of, what) -> float:
+    """The sampler's compact form of the frontier dedup on ``keys`` (and
+    ``part_of``) against its plain version, bit for bit: the kernel's used
+    prefixes of its id buffers equal the plain version's ids."""
+    import torch
+
+    from repro_torch.kernels import frontier_unique as fu
+    from repro_torch.kernels import ref
+
+    want = ref.frontier_unique_compact(keys, part_of)
+    uniq, rem, ucount, rcount = fu.frontier_unique_compact_cuda(keys, part_of)
+    torch.cuda.synchronize()
+    got = (uniq[: want[0].shape[0]], None if rem is None else rem[: want[1].shape[0]],
+           ucount, rcount)
+    return compare_outputs(got, want, COMPACT_OUT, what)
 
 
 def aggregation_in_run(tag, clock) -> dict:
@@ -1112,6 +1141,11 @@ def main() -> int:
         max_err[name] = max(
             max_err[name], compare_outputs(got, want, UNIQUE_OUT, f"{name} {sc.name}")
         )
+        # The sampler's form, without part_of and with the set's.
+        for part_of in [None] + ([sc.part_of] if sc.part_of is not None else []):
+            pdev = None if part_of is None else to_device((part_of,), dev)[0]
+            max_err[name] = max(max_err[name], check_compact(
+                keys, pdev, f"{name} compact {sc.name}"))
     score_cases = scenarios.score_scenarios()
     for sc in score_cases:
         s_, a_, w_ = to_device((sc.scores, sc.accessed, sc.weights), dev)
@@ -1209,7 +1243,9 @@ def main() -> int:
         f"3 per base also with a store table), fused_step_wide on {len(wide_steps)} "
         f"({', '.join(s.name for s in wide_steps)}), each in both index modes "
         f"(direct maps and sorted); frontier_unique_batch and its int64 twin on "
-        f"{len(unique_cases)} sets ({', '.join(s.name for s in unique_cases)}); "
+        f"{len(unique_cases)} sets ({', '.join(s.name for s in unique_cases)}), in the "
+        f"reference's mask form and the sampler's compact form (without part_of, and with "
+        f"the set's where it has one); "
         f"score_policy_update_batch, score_update_batch and score_update (per row) "
         f"on {len(score_cases)} ({', '.join(s.name for s in score_cases)}); "
         f"gather_mean on {len(mean_cases)} ({', '.join(s.name for s in mean_cases)}); "
@@ -1903,13 +1939,12 @@ def main() -> int:
         "train": clock.ms("train"),
     }
     print_stages("phase 8", staged_stages, steps, wall)
+    if not all(kw.get("compact") and kw.get("part_of") is not None for _, kw in unique_caps):
+        raise AssertionError("phase 8: the sampler's dedup did not take the compact form")
     for i, (args, kw) in enumerate(unique_caps):
-        got = fu.frontier_unique_batch_cuda(*args)
-        want = ref.frontier_unique_batch(*args)
-        torch.cuda.synchronize()
         max_err["frontier_unique_batch"] = max(
             max_err["frontier_unique_batch"],
-            compare_outputs(got, want, UNIQUE_OUT, f"phase 8 dedup {i}"),
+            check_compact(args[0], kw["part_of"], f"phase 8 dedup {i}"),
         )
     for i, (args, kw) in enumerate(score_caps):
         got = su.score_policy_update_batch_cuda(*args, **kw)
@@ -1921,64 +1956,92 @@ def main() -> int:
         )
     n_agg = check_captured("phase 8", clock, max_err)
     print(f"phase 8: kernel == plain, bit-exact, on all {len(unique_caps)} "
-          f"frontier_unique_batch and {len(score_caps)} score_policy_update_batch "
-          f"launches of the run and all {n_agg} gather_mean and segment_sum_equal launches")
+          f"frontier_unique_batch (the sampler's compact form) and {len(score_caps)} "
+          f"score_policy_update_batch launches of the run and all {n_agg} gather_mean and "
+          "segment_sum_equal launches")
     in_run["phase 8"] = aggregation_in_run("phase 8", clock)
 
-    # The kernels at the run's shapes, each against its plain version: the
-    # bound reads the keys and flags (the scores, marks and weights) once
-    # and writes the two masks and counts (the new scores and counts) once.
-    args, _ = unique_caps[len(unique_caps) // 2]
-    keys, flags = args
-    k_ms, p_ms, _, raw = time_pair(
-        lambda: fu.frontier_unique_batch_cuda(keys, flags),
-        lambda: ref.frontier_unique_batch(keys, flags),
-        flush,
-    )
-    outs = fu.frontier_unique_batch_cuda(keys, flags)
-    nbytes = tensor_bytes(args, outs)
+    # The sampler hook's split, its steps one at a time on the run's plane
+    # (no telemetry session, so no input capture).
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import staged_hooks_ab
+
+    blocks = [parts.local_train_nodes(p)[:RUN["batch_size"]] for p in range(4)]
+    split = staged_hooks_ab.hook_split(trainer.sampler_plane, blocks, parts.part_of)
+    print("phase 8: the sampler hook's split, median ms (host: expansion, enqueue of "
+          "upload + sort + kernel, readback, host split; device by CUDA events: upload, "
+          "sort, kernel): " + json.dumps(split))
+    extras["frontier_unique_batch"] = {"hook_split": split}
+
+    # The kernels at the run's shapes, each against its plain version. The
+    # path's form is the sampler's (compact): it reads the keys and
+    # part_of once and writes the used ids and the counts; the reference's
+    # mask form (flags from part_of) reads keys and flags and writes two
+    # masks. The scoring round reads scores and marks (and weights) and
+    # writes the new scores and counts.
+    args, kw = unique_caps[len(unique_caps) // 2]
+    keys, pdev = args[0], kw["part_of"]
+    flags = pdev[keys.long()] != torch.arange(keys.shape[0], device=dev)[:, None]
+    out = fu.frontier_unique_compact_cuda(keys, pdev)
+    used = int(out[2].sum()) + int(out[3].sum())
+    forms = {
+        "compact_form": (
+            lambda: fu.frontier_unique_compact_cuda(keys, pdev),
+            lambda: ref.frontier_unique_compact(keys, pdev),
+            keys.numel() * 4 + pdev.numel() * 4 + 4 * used + 8 * keys.shape[0]),
+        "mask_form": (
+            lambda: fu.frontier_unique_batch_cuda(keys, flags),
+            lambda: ref.frontier_unique_batch(keys, flags),
+            tensor_bytes((keys, flags), fu.frontier_unique_batch_cuda(keys, flags))),
+    }
     nops = 4 * keys.numel()  # compare, and, two count adds per position
-    b_ms, b_by = bound(nbytes, nops)
-    timings["frontier_unique_batch"] = (k_ms, p_ms, None, b_ms, b_by)
-    print(
-        f"phase 8: frontier_unique_batch at P={keys.shape[0]}, M={keys.shape[1]} int32: "
-        f"kernel {raw[0]:.4f}/{raw[1]:.4f} ms, plain {raw[2]:.4f}/{raw[3]:.4f} ms; "
-        f"{nbytes} bytes, {nops} ops; bound {b_ms:.4f} ms ({b_by})"
-    )
-    print("phase 8: frontier_unique_batch device time per launch by kernel "
-          "(torch.profiler): "
-          + profile_rows(lambda: fu.frontier_unique_batch_cuda(keys, flags)))
+    for form, (kern, plain, nbytes) in forms.items():
+        k_ms, p_ms, _, raw = time_pair(kern, plain, flush)
+        b_ms, b_by = bound(nbytes, nops)
+        row = call_numbers("phase 8", f"frontier_unique_batch ({form})", kern,
+                           "frontier_unique_kernel")
+        row["kernel_alone_cold_ms"] = staged_hooks_ab.kernel_alone(
+            kern, "frontier_unique_kernel", flush=flush)
+        row.update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bytes=nbytes)
+        extras["frontier_unique_batch"][form] = row
+        if form == "compact_form":
+            timings["frontier_unique_batch"] = (k_ms, p_ms, None, b_ms, b_by)
+        print(
+            f"phase 8: frontier_unique_batch ({form}) at P={keys.shape[0]}, "
+            f"M={keys.shape[1]} int32: kernel {raw[0]:.4f}/{raw[1]:.4f} ms, plain "
+            f"{raw[2]:.4f}/{raw[3]:.4f} ms; {nbytes} bytes, {nops} ops; bound {b_ms:.4f} ms "
+            f"({b_by}); kernel alone cold "
+            + (f"{row['kernel_alone_cold_ms']:.4f} ms" if row["kernel_alone_cold_ms"]
+               else "not measured"))
     args, kw = score_caps[len(score_caps) // 2]
+    score_call = lambda: su.score_policy_update_batch_cuda(*args, **kw)  # noqa: E731
     k_ms, p_ms, _, raw = time_pair(
-        lambda: su.score_policy_update_batch_cuda(*args, **kw),
-        lambda: ref.score_policy_update_batch(*args, **kw),
-        flush,
-    )
-    outs = su.score_policy_update_batch_cuda(*args, **kw)
+        score_call, lambda: ref.score_policy_update_batch(*args, **kw), flush)
+    outs = score_call()
     nbytes = tensor_bytes(args, outs)
     nops = 3 * args[0].numel()  # gain, add or multiply, compare per slot
     b_ms, b_by = bound(nbytes, nops)
     timings["score_policy_update_batch"] = (k_ms, p_ms, None, b_ms, b_by)
+    extras["score_policy_update_batch"] = call_numbers(
+        "phase 8", "score_policy_update_batch", score_call, "score_update_kernel")
+    extras["score_policy_update_batch"]["kernel_alone_cold_ms"] = staged_hooks_ab.kernel_alone(
+        score_call, "score_update_kernel", flush=flush)
     print(
         f"phase 8: score_policy_update_batch at P={args[0].shape[0]}, N={args[0].shape[1]} "
         f"({kw['mode']}, weights {'on' if args[2] is not None else 'off'}): kernel "
         f"{raw[0]:.4f}/{raw[1]:.4f} ms, plain {raw[2]:.4f}/{raw[3]:.4f} ms; "
-        f"{nbytes} bytes, {nops} ops; bound {b_ms:.4f} ms ({b_by})"
+        f"{nbytes} bytes, {nops} ops; bound {b_ms:.6f} ms ({b_by})"
     )
-    print("phase 8: score_policy_update_batch device time per launch by kernel "
-          "(torch.profiler): "
-          + profile_rows(lambda: su.score_policy_update_batch_cuda(*args, **kw)))
     # The three entries no trainer path launches, on their largest phase-2
     # sets: the int64 dedup, and the fixed-policy rounds on the long row.
     keys, flags = max(wide_unique.values(), key=lambda kf: kf[0].numel())
+    wide_call = lambda: fu.frontier_unique_batch_wide_cuda(keys, flags)  # noqa: E731
     k_ms, p_ms, _, raw = time_pair(
-        lambda: fu.frontier_unique_batch_wide_cuda(keys, flags),
-        lambda: ref.frontier_unique_batch(keys, flags),
-        flush,
-    )
-    outs = fu.frontier_unique_batch_wide_cuda(keys, flags)
-    b_ms, b_by = bound(tensor_bytes((keys, flags), outs), 4 * keys.numel())
+        wide_call, lambda: ref.frontier_unique_batch(keys, flags), flush)
+    b_ms, b_by = bound(tensor_bytes((keys, flags), wide_call()), 4 * keys.numel())
     timings["frontier_unique_batch_wide"] = (k_ms, p_ms, None, b_ms, b_by)
+    extras["frontier_unique_batch_wide"] = call_numbers(
+        "phase 8", "frontier_unique_batch_wide", wide_call, "frontier_unique_kernel")
     print(f"phase 8: frontier_unique_batch_wide at P={keys.shape[0]}, M={keys.shape[1]} "
           f"int64 (phase-2 set): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; "
           f"bound {b_ms:.6f} ms ({b_by})")
@@ -1994,6 +2057,8 @@ def main() -> int:
         outs = kern(*ins)
         b_ms, b_by = bound(tensor_bytes(ins, outs), 3 * ins[0].numel())
         timings[name] = (k_ms, p_ms, None, b_ms, b_by)
+        extras[name] = call_numbers("phase 8", name, lambda: kern(*ins),
+                                    "score_update_kernel")
         print(f"phase 8: {name} at {tuple(ins[0].shape)} (phase-2 set "
               f"{long_row.name}): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; "
               f"bound {b_ms:.6f} ms ({b_by})")
@@ -2031,6 +2096,11 @@ def main() -> int:
         "staged_host": {k: round(v, 3) for k, v in host_medians.items()},
         "device_raw": {k: round(v, 3) for k, v in stages_main.items()},
     }))
+    print(f"phase 8 / 8b / 3: sample {staged_medians['sample']:.3f} / "
+          f"{host_medians['sample']:.3f} / {stages_main['sample_host']:.3f} ms, "
+          f"fetch.commit {staged_medians['fetch.commit']:.3f} / "
+          f"{host_medians['fetch.commit']:.3f} / - ms (medians per step; phase 3's "
+          "sample is the raw loop's expansion, which dedups in its launch)")
     del trainer, result, clock, parts, g_main, main
 
     # -- 9. DeepSeek-V3's serving path at full width ------------------------ #

@@ -122,10 +122,13 @@ class SamplerPlane:
       fanout expansion runs on the shared CSR as ``(P, B, f1)`` /
       ``(P, B*f1, f2)`` blocks;
     * the per-trainer ``np.unique`` + remote filter is one fused pass:
-      row-sort all P frontiers, then a single first-occurrence +
-      remote-membership mask (numpy, or, with ``use_kernels``, the
-      fused kernel ``kernels.ops.frontier_unique_batch`` on ``device``:
-      the Hopper kernel on a card, its plain version on the CPU).
+      row-sort all P frontiers, then a single first-occurrence mask and
+      one extraction, the remote filter over the unique ids only (numpy);
+      or, with ``use_kernels``, the same on ``device`` (see
+      :meth:`_dedup_on_device`): the raw block goes up once, is row-sorted
+      there and deduplicated by the sampler's form of
+      ``kernels.ops.frontier_unique_batch`` (the Hopper kernel on a card,
+      its plain version on the CPU), and only the compacted ids come back.
 
     Bit-identical to P sequential ``NeighborSampler.sample`` calls on
     the shared RNG: the uniform blocks are pre-drawn PE-major in the
@@ -154,28 +157,97 @@ class SamplerPlane:
 
             self.device = resolve_device(device)
         self._scalar = NeighborSampler(graph, self.fanouts)
+        # The kernel route's kept host buffers (pinned on a card) and the
+        # partition map on the device, uploaded once per map.
+        self._host: dict[str, torch.Tensor] = {}
+        self._part_of = (None, None)
 
-    def _dedup(
-        self, sorted_keys: np.ndarray, is_remote: np.ndarray | None
-    ) -> tuple[np.ndarray, np.ndarray | None]:
-        if self.use_kernels:
-            from ..kernels import ops
-
-            # The sorted keys and flags go to the device, the two masks
-            # come back; ops.frontier_unique_batch owns the int32 / int64
-            # routing of the keys.
-            rem = (
-                np.zeros(sorted_keys.shape, dtype=bool)
-                if is_remote is None
-                else is_remote
+    def _host_buffer(self, name: str, n: int, dtype) -> torch.Tensor:
+        """The plane's kept host buffer ``name``, its first ``n`` elements:
+        pinned on a card (so copies to and from it need no staging),
+        grown when too small."""
+        buf = self._host.get(name)
+        if buf is None or buf.numel() < n or buf.dtype != dtype:
+            buf = torch.empty(
+                max(n, 1), dtype=dtype, pin_memory=self.device.type == "cuda"
             )
-            keys = torch.from_numpy(np.ascontiguousarray(sorted_keys)).to(self.device)
-            flags = torch.from_numpy(np.ascontiguousarray(rem)).to(self.device)
-            first, remote, _, _ = ops.frontier_unique_batch(keys, flags)
-            first = first.cpu().numpy()
-            remote = remote.cpu().numpy() if is_remote is not None else None
-            return first, remote
-        return frontier_dedup(sorted_keys, is_remote)
+            self._host[name] = buf
+        return buf[:n]
+
+    def _part_of_on_device(self, part_of: np.ndarray) -> torch.Tensor:
+        """``part_of`` as int32 on the kernel route's device, uploaded when
+        the plane first sees this map."""
+        held, dev = self._part_of
+        if held is not part_of:
+            dev = torch.from_numpy(part_of.astype(np.int32)).to(self.device)
+            self._part_of = (part_of, dev)
+        return dev
+
+    def _dedup_on_device(
+        self, stage: torch.Tensor, part_of: np.ndarray | None
+    ) -> tuple[list[np.ndarray], list[np.ndarray] | None]:
+        """The kernel route of :meth:`sample_all`'s dedup: the raw ``(P,
+        Mt)`` frontier in ``stage`` (the plane's host buffer) goes up in
+        one copy, is row-sorted on the device (``torch.sort``) and
+        deduplicated by ``ops.frontier_unique_batch(..., compact=True)``,
+        which also tests remoteness against ``part_of`` held on the
+        device; :meth:`_pull_ids` brings back the counts and the used ids,
+        and :meth:`_split_ids` shifts them to global ids and splits them
+        per PE. Returns the per-PE unique ids and remote ids (int64,
+        sorted), as the numpy route's."""
+        from ..kernels import ops
+
+        keys = stage.to(self.device, non_blocking=True)
+        sorted_keys = torch.sort(keys, dim=1, stable=True).values
+        pdev = None if part_of is None else self._part_of_on_device(part_of)
+        pulled = self._pull_ids(*ops.frontier_unique_batch(
+            sorted_keys, part_of=pdev, compact=True
+        ))
+        return self._split_ids(*pulled)
+
+    def _pull_ids(self, uniq, rem, ucount, rcount):
+        """The compact form's outputs on the host: ``(counts (2, P), unique
+        ids, remote ids or None)``, numpy views of the plane's kept
+        buffers. On a card: the counts in one copy and one wait, then the
+        used prefixes of the two id arrays and one more wait."""
+        P = ucount.shape[0]
+        if self.device.type != "cuda":
+            counts = torch.stack([ucount, rcount]).numpy()
+            return counts, uniq.numpy(), None if rem is None else rem.numpy()
+        # The kernel's two counts are the rows of one (2, P) block.
+        if rcount.data_ptr() != ucount.data_ptr() + 4 * P:
+            raise RuntimeError("frontier_unique_compact's counts are not one block")
+        counts = self._host_buffer("counts", 2 * P, torch.int32)
+        counts.copy_(ucount.as_strided((2 * P,), (1,)), non_blocking=True)
+        stream = torch.cuda.current_stream(self.device)
+        stream.synchronize()
+        counts = counts.numpy().reshape(2, P)
+        pulled = [counts]
+        for name, ids, n in (("uniq", uniq, counts[0].sum()), ("rem", rem, counts[1].sum())):
+            if ids is None:
+                pulled.append(None)
+                continue
+            host = self._host_buffer(name, int(n), ids.dtype)
+            host.copy_(ids[: int(n)], non_blocking=True)
+            pulled.append(host)
+        stream.synchronize()
+        return pulled[0], pulled[1].numpy(), None if pulled[2] is None else pulled[2].numpy()
+
+    def _split_ids(self, counts, flat_u, flat_r):
+        """Per-PE int64 global ids from :meth:`_pull_ids`' flat ids: copies
+        out of the kept buffers (which the next call reuses), shifted by
+        ``graph.id_base``, split at the counts' bounds."""
+        base = np.int64(self.graph.id_base)
+        out = []
+        for flat, n in ((flat_u, counts[0]), (flat_r, counts[1])):
+            if flat is None:
+                out.append(None)
+                continue
+            flat = flat.astype(np.int64)
+            if base:
+                flat += base
+            out.append(np.split(flat, np.cumsum(n)[:-1]))
+        return out[0], out[1]
 
     # ------------------------------------------------------------------ #
     def _layer_sizes(self, batch: int) -> list[tuple[int, int]]:
@@ -188,7 +260,7 @@ class SamplerPlane:
 
     # ------------------------------------------------------------------ #
     def _expand_blocks(
-        self, seeds: list[np.ndarray], rng: np.random.Generator
+        self, seeds: list[np.ndarray], rng: np.random.Generator, out=None
     ) -> tuple[np.ndarray, list[np.ndarray], np.ndarray]:
         """Batched fanout expansion for P equal-size seed blocks.
 
@@ -198,7 +270,8 @@ class SamplerPlane:
         draws would) and expands all P frontiers on the shared CSR.
         Returns ``(seed_mat (P, B), layers, touched (P, Mt))`` where
         ``touched`` is the raw concatenated frontier — seeds plus every
-        sampled neighbor, unsorted and with duplicates.
+        sampled neighbor, unsorted and with duplicates — written into
+        ``out`` (a ``(P, Mt)`` array of an integer dtype) when given.
         """
         P = len(seeds)
         B = len(seeds[0])
@@ -221,7 +294,8 @@ class SamplerPlane:
             layers.append(nbrs)
             frontier = nbrs.reshape(P, -1)
         touched = np.concatenate(
-            [seed_mat] + [nb.reshape(P, -1) for nb in layers], axis=1
+            [seed_mat] + [nb.reshape(P, -1) for nb in layers], axis=1,
+            out=out, casting="same_kind",
         )                                                        # (P, Mt)
         return seed_mat, layers, touched
 
@@ -285,42 +359,38 @@ class SamplerPlane:
         if P == 0 or len(lengths) != 1:
             return self._sample_ragged(seeds, rng, part_of)
         g = self.graph
-        seed_mat, layers, touched = self._expand_blocks(seeds, rng)
-
-        # Fused unique + remote across all P frontiers: one row-sort,
-        # one first-occurrence/remote mask, one ragged extraction. The
-        # sort runs in int32 when ids fit (half the bandwidth of the
-        # int64 ``np.unique`` the scalar path pays per PE).
-        if g.num_nodes <= np.iinfo(np.int32).max:
-            touched = touched.astype(np.int32)
-        sorted_keys = np.sort(touched, axis=1)
-        if self.use_kernels and part_of is not None:
-            is_remote = (
-                part_of[sorted_keys] != np.arange(P, dtype=part_of.dtype)[:, None]
-            )
-            first, remote_mask = self._dedup(sorted_keys, is_remote)
+        # Ids run in int32 when they fit (half the bandwidth of the int64
+        # ``np.unique`` the scalar path pays per PE).
+        narrow = g.num_nodes <= np.iinfo(np.int32).max
+        if self.use_kernels:
+            # The expansion writes the raw block straight into the plane's
+            # upload buffer; sort, dedup and the remote test run on the
+            # device.
+            Mt = sum(n * f for n, f in self._layer_sizes(len(seeds[0]))) + len(seeds[0])
+            stage = self._host_buffer(
+                "touched", P * Mt, torch.int32 if narrow else torch.int64
+            ).view(P, Mt)
+            seed_mat, layers, _ = self._expand_blocks(seeds, rng, out=stage.numpy())
+            uniq, remote = self._dedup_on_device(stage, part_of)
         else:
-            first, _ = self._dedup(sorted_keys, None)
-            remote_mask = None
-        counts = first.sum(axis=1)
-        bounds = np.cumsum(counts)[:-1]
-        flat_uniq = sorted_keys.ravel()[first.ravel()].astype(np.int64)
-        # ``sorted_keys`` are local CSR indices (part_of lookups below
-        # stay local); the emitted unique/remote sets are global ids.
-        base = np.int64(g.id_base)
-        uniq = np.split(flat_uniq + base if g.id_base else flat_uniq, bounds)
-        remote = None
-        if part_of is not None:
-            if remote_mask is not None:  # kernel route: the masks came fused
-                rcounts = remote_mask.sum(axis=1)
-                rem_ids = sorted_keys.ravel()[remote_mask.ravel()].astype(np.int64)
-                remote = np.split(
-                    rem_ids + base if g.id_base else rem_ids,
-                    np.cumsum(rcounts)[:-1],
-                )
-            else:
-                # Numpy route: filter remoteness post-dedup — the gather
-                # touches only the unique ids, not the full (P, M) block.
+            seed_mat, layers, touched = self._expand_blocks(seeds, rng)
+            # Fused unique + remote across all P frontiers: one row-sort,
+            # one first-occurrence mask, one ragged extraction.
+            if narrow:
+                touched = touched.astype(np.int32)
+            sorted_keys = np.sort(touched, axis=1)
+            first, _ = frontier_dedup(sorted_keys, None)
+            counts = first.sum(axis=1)
+            bounds = np.cumsum(counts)[:-1]
+            flat_uniq = sorted_keys.ravel()[first.ravel()].astype(np.int64)
+            # ``sorted_keys`` are local CSR indices (part_of lookups below
+            # stay local); the emitted unique/remote sets are global ids.
+            base = np.int64(g.id_base)
+            uniq = np.split(flat_uniq + base if g.id_base else flat_uniq, bounds)
+            remote = None
+            if part_of is not None:
+                # Filter remoteness post-dedup — the gather touches only the
+                # unique ids, not the full (P, M) block.
                 rows = np.repeat(np.arange(P, dtype=part_of.dtype), counts)
                 rem_flat = part_of[flat_uniq] != rows
                 remote = [u[m] for u, m in zip(uniq, np.split(rem_flat, bounds))]

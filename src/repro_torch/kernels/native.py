@@ -199,9 +199,9 @@ def check_inputs(**tensors):
     return device
 
 
-def launch(fn, device, what: str, *args) -> None:
+def launch_status(fn, device, *args) -> int:
     """Call the bound C entry ``fn`` with ``args`` and PyTorch's current
-    stream on ``device`` last, raising on a nonzero ``cudaError_t``. The
+    stream on ``device`` last; returns its ``cudaError_t``. The
     ``torch.cuda.device`` guard is entered only when ``device`` is not the
     current device (the launch goes to the caller's current device). The
     device and stream come from the raw getters that ``torch.cuda``'s own
@@ -209,8 +209,11 @@ def launch(fn, device, what: str, *args) -> None:
     ``Stream`` object a call."""
     index = device.index
     if index == torch._C._cuda_getDevice():
-        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
-    else:
-        with torch.cuda.device(index):
-            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
-    check(err, what)
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+
+
+def launch(fn, device, what: str, *args) -> None:
+    """:func:`launch_status`, raising on a nonzero ``cudaError_t``."""
+    check(launch_status(fn, device, *args), what)

@@ -456,20 +456,35 @@ def gather_rows_batch(tables, indices):
 
 
 @telemetry.profiled("frontier_unique_batch")
-def frontier_unique_batch(sorted_keys, is_remote):
+def frontier_unique_batch(sorted_keys, is_remote=None, *, part_of=None, compact=False):
     """Fused frontier dedup of the sampler plane: row-sorted keys ``(P,
     M)`` (int32 or int64, keys >= 0) and remote flags ``(P, M)`` (bool or
     int) → ``(first (P, M) bool, remote (P, M) bool, unique_count (P,)
     int32, remote_count (P,) int32)``.
+
+    With ``compact=True``, the sampler's form: no flags; the remote test
+    is ``part_of[key] != row`` (``part_of`` a 1-D tensor indexed by the
+    keys, or None: nothing remote), and the masks give way to the
+    compacted ids in flat row order → ``(uniq, rem, unique_count,
+    remote_count)``, where the first ``unique_count.sum()`` entries of
+    ``uniq`` are ``keys.ravel()[first.ravel()]`` and the first
+    ``remote_count.sum()`` of ``rem`` are ``keys.ravel()[remote.ravel()]``
+    (``rem`` None without ``part_of``), in the keys' route dtype. The
+    plain version returns exactly those entries, the kernel buffers of
+    ``P * M`` (it cannot know the counts before it runs).
 
     The reference's contract on ids: int64 keys up to
     :data:`INT32_ID_MAX` run the narrow kernel as int32, larger ones the
     int64 kernel (``frontier_unique_batch_wide``; the reference's
     ``(hi, lo)`` word-plane twin), and keys past :data:`WIDE_ID_MAX`
     raise ``ValueError``; the outputs' types are the same on every route.
-    CPU tensors: :func:`repro_torch.kernels.ref.frontier_unique_batch`;
-    CUDA: the Hopper kernel
-    (:mod:`repro_torch.kernels.frontier_unique`)."""
+    CPU tensors: :func:`repro_torch.kernels.ref.frontier_unique_batch`
+    (:func:`~repro_torch.kernels.ref.frontier_unique_compact`); CUDA: the
+    Hopper kernel (:mod:`repro_torch.kernels.frontier_unique`)."""
+    if compact and is_remote is not None:
+        raise ValueError("the compact form takes part_of, not remote flags")
+    if not compact and (is_remote is None or part_of is not None):
+        raise ValueError("the mask form takes remote flags, not part_of")
     wide = False
     if sorted_keys.dtype != torch.int32:
         top = _max_id(sorted_keys)
@@ -481,9 +496,18 @@ def frontier_unique_batch(sorted_keys, is_remote):
                 )
             wide = True
         sorted_keys = sorted_keys.to(torch.int64 if wide else torch.int32)
+    cpu = _route("frontier_unique_batch", sorted_keys) == "cpu"
+    if compact:
+        if part_of is not None:
+            part_of = part_of.to(torch.int32).contiguous()
+        if cpu:
+            return ref.frontier_unique_compact(sorted_keys, part_of)
+        from .frontier_unique import frontier_unique_compact_cuda
+
+        return frontier_unique_compact_cuda(sorted_keys.contiguous(), part_of)
     if is_remote.dtype != torch.bool:
         is_remote = is_remote != 0
-    if _route("frontier_unique_batch", sorted_keys) == "cpu":
+    if cpu:
         return ref.frontier_unique_batch(sorted_keys, is_remote)
     from .frontier_unique import (
         frontier_unique_batch_cuda,

@@ -796,6 +796,30 @@ def frontier_unique_batch(sorted_keys: torch.Tensor, is_remote: torch.Tensor):
     )
 
 
+def frontier_unique_compact(sorted_keys: torch.Tensor, part_of: torch.Tensor | None = None):
+    """The sampler's form of the frontier dedup: row-sorted keys ``(P, M)``
+    (int32 or int64, each an index of ``part_of``) and ``part_of`` (or
+    None) → ``(uniq, rem, unique_count (P,) int32, remote_count (P,)
+    int32)``: :func:`frontier_unique_batch` with ``is_remote[p, i] =
+    part_of[key[p, i]] != p`` (nothing remote without ``part_of``), then
+    the two mask selections in flat row order, ``uniq =
+    keys.ravel()[first.ravel()]`` and ``rem = keys.ravel()[remote.ravel()]``
+    (None without ``part_of``), in the keys' dtype. The spec of the
+    compact entries of ``csrc/frontier_unique.cu``, whose buffers hold
+    these ids in their first ``count.sum()`` entries."""
+    P, M = sorted_keys.shape
+    if part_of is None:
+        is_remote = torch.zeros((P, M), dtype=torch.bool, device=sorted_keys.device)
+    else:
+        rows = torch.arange(P, device=sorted_keys.device)[:, None]
+        is_remote = part_of[sorted_keys.long()] != rows
+    first, remote, ucount, rcount = frontier_unique_batch(sorted_keys, is_remote)
+    flat = sorted_keys.reshape(-1)
+    uniq = flat[first.reshape(-1)]
+    rem = None if part_of is None else flat[remote.reshape(-1)]
+    return uniq, rem, ucount, rcount
+
+
 def score_policy_update_batch(
     scores: torch.Tensor,
     accessed: torch.Tensor,

@@ -447,6 +447,9 @@ class FrontierUniqueScenario:
     name: str
     keys: np.ndarray       # (P, M) int32 or int64, each row ascending, >= 0
     is_remote: np.ndarray  # (P, M) bool
+    #: The sampler's form's partition map (int32, indexed by the keys,
+    #: values in [0, P]), or None where the keys are too large to index one.
+    part_of: np.ndarray | None = None
 
 
 def frontier_unique_scenarios() -> list[FrontierUniqueScenario]:
@@ -456,15 +459,24 @@ def frontier_unique_scenarios() -> list[FrontierUniqueScenario]:
     kernel's block (1, 257, 1000), and int64 keys within ``INT32_ID_MAX``
     (which the dispatcher narrows), past it, across a ``2**32`` word
     boundary of the reference's ``(hi, lo)`` split, and up to
-    ``WIDE_ID_MAX`` (which take the int64 kernel)."""
+    ``WIDE_ID_MAX`` (which take the int64 kernel). Added with the
+    kernel's 16 positions a thread and 4,096 a block: rows shorter than
+    16 (5, so a thread's positions cross several rows), of exactly 16 and
+    of 17, and a block of 40 tiles whose rows end inside tiles (the
+    sampler's form's look-back past one step of 32 tiles). Sets whose keys
+    stay below 2^17 carry a seeded ``part_of`` for the sampler's form."""
     out = []
     rng = np.random.default_rng(600)
 
     def add(name, keys, p_remote=0.5):
         keys = np.sort(keys, axis=1)
-        out.append(FrontierUniqueScenario(
-            name, keys, rng.random(keys.shape) < p_remote,
-        ))
+        flags = rng.random(keys.shape) < p_remote
+        part_of = None
+        if keys.max(initial=0) < 2**17:
+            part_of = rng.integers(
+                0, keys.shape[0] + 1, size=int(keys.max(initial=0)) + 1
+            ).astype(np.int32)
+        out.append(FrontierUniqueScenario(name, keys, flags, part_of))
 
     add("M0", np.zeros((3, 0), dtype=np.int32))
     add("all-dup", np.full((3, 300), 7, dtype=np.int32))
@@ -476,6 +488,10 @@ def frontier_unique_scenarios() -> list[FrontierUniqueScenario]:
     add("M1", rng.integers(0, 9, size=(2, 1)).astype(np.int32))
     add("M257", rng.integers(0, 100, size=(3, 257)).astype(np.int32))
     add("one-pe", rng.integers(0, 60, size=(1, 513)).astype(np.int32))
+    add("M5", rng.integers(0, 6, size=(9, 5)).astype(np.int32))
+    add("M16", rng.integers(0, 20, size=(3, 16)).astype(np.int32))
+    add("M17", rng.integers(0, 30, size=(5, 17)).astype(np.int32))
+    add("tiles", rng.integers(0, 60_000, size=(4, 40_000)).astype(np.int32))
     add("int64-narrow", rng.integers(0, 2**31 - 1, size=(3, 400)).astype(np.int64))
     for name, base in (
         ("int64-base", BASE),

@@ -9,7 +9,10 @@ version: :func:`repro_torch.kernels.ref.score_policy_update_batch`,
 which they match bit for bit (the kernel rounds as the plain version
 does; see the note in the source).
 
-The constants cross the ctypes boundary as ``float``, which rounds a
+A call is one device operation, the kernel: a cluster of blocks a row
+whose stale counts meet in distributed shared memory, so it writes every
+output in full and needs no zero-filled count and no scratch. The
+constants cross the ctypes boundary as ``float``, which rounds a
 Python float exactly as ``np.float32`` does. An empty buffer (``P * N ==
 0``) has nothing to score: the wrappers return without a launch and
 count none.
@@ -18,6 +21,7 @@ count none.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -34,9 +38,14 @@ _ARGS = [
     ctypes.c_void_p, ctypes.c_void_p,               # out, stale
     ctypes.c_float, ctypes.c_float,                 # increment, decay
     ctypes.c_float, ctypes.c_float,                 # threshold, score_cap
-    ctypes.c_int,                                   # mode
+    ctypes.c_int, ctypes.c_int,                     # mode, vec
     ctypes.c_void_p,                                # stream
 ]
+
+@functools.cache
+def _entry():
+    """The bound C entry, resolved once per process (at its first launch)."""
+    return native.bind("score_update", "rudder_score_update", _ARGS)
 
 
 def _launch(name, scores, accessed, weights, increment, decay, threshold,
@@ -52,18 +61,19 @@ def _launch(name, scores, accessed, weights, increment, decay, threshold,
         check_tensor(weights, "weights", torch.float32, (P, N))
     dev = scores.device
     out = torch.empty((P, N), dtype=torch.float32, device=dev)
-    stale = torch.zeros((P,), dtype=torch.int32, device=dev)
+    stale = torch.empty((P,), dtype=torch.int32, device=dev)
     if P * N == 0:
+        stale.zero_()
         return out, stale
-    fn = native.bind("score_update", "rudder_score_update", _ARGS)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        native.check(
-            fn(P, N, ptr(scores), ptr(accessed), ptr(weights), ptr(out),
-               ptr(stale), float(increment), float(decay), float(threshold),
-               float(score_cap), _MODES[mode], stream),
-            name,
-        )
+    vec = int(
+        scores.data_ptr() % 16 == 0 and accessed.data_ptr() % 4 == 0
+        and (weights is None or weights.data_ptr() % 16 == 0)
+    )
+    native.launch(
+        _entry(), dev, name, P, N, scores.data_ptr(), accessed.data_ptr(), ptr(weights),
+        out.data_ptr(), stale.data_ptr(), float(increment), float(decay),
+        float(threshold), float(score_cap), _MODES[mode], vec,
+    )
     native.LAUNCHES[name] += 1
     return out, stale
 

@@ -128,6 +128,9 @@ class PrefetchEngine:
         self.id_base = int(id_base)
         self.use_kernels = use_kernels
         self.device = resolve_device(device) if use_kernels else None
+        # The kernel route's kept host blocks: the packed upload and the
+        # readback (pinned on a card).
+        self._stage = None
         self.ids = np.full((P, C), -1, dtype=np.int64)
         self.scores = np.zeros((P, C), dtype=np.float32)
         self.weights = np.ones((P, C), dtype=np.float32)
@@ -266,26 +269,61 @@ class PrefetchEngine:
             return
         weights = self.weights if self.policy.use_weights else None
         if self.use_kernels:
-            from ..kernels import ops
-
-            kc = self.policy.kernel_constants()
-            kc.pop("initial_score")  # the scoring pass never places slots
-
-            def upload(a):
-                return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
-            new, _ = ops.score_policy_update_batch(
-                upload(self.scores),
-                upload(self.accessed),
-                None if weights is None else upload(weights),
-                **kc,
-            )
-            new = new.cpu().numpy()
+            new = self._score_on_device(weights)
         else:
             new = self.policy.update(self.scores, self.accessed, weights)
         mask = active[:, None] & self.valid
         self.scores = np.where(mask, new, self.scores).astype(np.float32)
         self.accessed[active] = False
+
+    def _score_on_device(self, weights: np.ndarray | None) -> np.ndarray:
+        """The kernel route of :meth:`end_round`'s scoring pass: scores,
+        access marks and (when the policy uses them) weights packed into
+        one host block the engine keeps (pinned on a card), uploaded in
+        one copy; ``ops.score_policy_update_batch`` on the device; the new
+        scores read back in one copy and one wait. Returns the new scores
+        ``(P, C)`` float32 (the kept readback buffer: the caller merges
+        them into a fresh array before the next round)."""
+        from ..kernels import ops
+
+        P, C = self.scores.shape
+        n = P * C
+        # Byte offsets of the three parts, each on a 16-byte boundary so
+        # that the kernel's vector loads apply.
+        at_w = -(-4 * n // 16) * 16
+        at_a = at_w + (at_w if weights is not None else 0)
+        nbytes = at_a + n
+        pinned = self.device.type == "cuda"
+        if (self._stage is None or self._stage[0].numel() < nbytes
+                or self._stage[1].numel() < 4 * n):
+            self._stage = (
+                torch.empty(nbytes, dtype=torch.uint8, pin_memory=pinned),
+                torch.empty(4 * n, dtype=torch.uint8, pin_memory=pinned),
+            )
+        stage, back = self._stage
+        host = stage.numpy()
+        host[: 4 * n].view(np.float32)[:] = self.scores.ravel()
+        if weights is not None:
+            host[at_w : at_w + 4 * n].view(np.float32)[:] = weights.ravel()
+        host[at_a:nbytes].view(bool)[:] = self.accessed.ravel()
+        dev = stage[:nbytes].to(self.device, non_blocking=True)
+
+        def part(at, dtype, size):
+            return dev[at : at + size * dtype.itemsize].view(dtype).view(P, C)
+
+        kc = self.policy.kernel_constants()
+        kc.pop("initial_score")  # the scoring pass never places slots
+        new, _ = ops.score_policy_update_batch(
+            part(0, torch.float32, n),
+            part(at_a, torch.bool, n),
+            None if weights is None else part(at_w, torch.float32, n),
+            **kc,
+        )
+        out = back.view(torch.float32)[:n].view(P, C)
+        out.copy_(new, non_blocking=True)
+        if pinned:
+            torch.cuda.current_stream(self.device).synchronize()
+        return out.numpy()
 
     # ------------------------------------------------------------------ #
     # insertion / replacement

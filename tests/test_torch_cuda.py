@@ -8,7 +8,10 @@ same CUDA tensors (``fused_frontier_step``, ``fused_step``,
 ``gather_rows_batch`` and ``gather_rows`` over their seeded scenario
 sets; ``fused_frontier_step_wide`` and ``fused_step_wide`` over the wide
 sets, in both index modes of the kernels; ``frontier_unique_batch`` in
-both instantiations and the three score entries over theirs;
+both instantiations and both forms (the reference's masks and the
+sampler's compacted ids) and the three score entries over theirs, and
+at phase 8's shapes (one block per row, several, off the 16-byte grid),
+each as one device operation a call with its kept scratch clean after;
 ``gather_mean`` and ``segment_sum_equal`` over theirs, float32 and
 bfloat16, the sum also with a scale in its epilogue, and ``fanout_mean``
 as one device operation a call; ``mla_flash_decode`` to allclose over the reference test's
@@ -446,6 +449,141 @@ def test_score_kernels_match_plain(card, sc):
         got, ref.score_policy_update_batch(s, a, w, **sc.constants)))
     assert all(_equal(x, y) for x, y in zip(got_b, ref.score_update_batch(s, a)))
     assert all(_equal(x, y) for x, y in zip(got_1, ref.score_update(s[0], a[0])))
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose data starts 4 bytes past a 16-byte
+    boundary (the kernels' element-at-a-time path)."""
+    flat = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    step = max(1, 4 // t.element_size())
+    out = flat[step:step + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 != 0
+    return out
+
+
+def _assert_scratch_clean():
+    from repro_torch.kernels import frontier_unique as fu
+
+    torch.cuda.synchronize()
+    for ctl, tiles in fu._SCRATCH.values():
+        assert not ctl.any() and not tiles.any()
+
+
+def _phase8_block(card, seed=8):
+    """Phase 8's dedup input from a seed: (4, 522,000) int32 local ids of
+    a 240,000-node graph, row-sorted, and a 4-way partition map."""
+    rng = np.random.default_rng(seed)
+    keys = np.sort(rng.integers(0, 240_000, size=(4, 522_000)), axis=1).astype(np.int32)
+    part_of = rng.integers(0, 4, size=240_000).astype(np.int32)
+    return torch.from_numpy(keys).to(card), torch.from_numpy(part_of).to(card)
+
+
+def _assert_compact_equal(got, want, P):
+    uniq, rem, ucount, rcount = got
+    w_uniq, w_rem, w_ucount, w_rcount = want
+    assert _equal(ucount, w_ucount) and _equal(rcount, w_rcount)
+    assert ucount.dtype == rcount.dtype == torch.int32 and ucount.shape == (P,)
+    assert uniq.dtype == w_uniq.dtype and uniq.shape[0] >= w_uniq.shape[0]
+    assert _equal(uniq[: w_uniq.shape[0]], w_uniq)
+    if w_rem is None:
+        assert rem is None and not rcount.any()
+    else:
+        assert _equal(rem[: w_rem.shape[0]], w_rem)
+
+
+@pytest.mark.parametrize("sc", FRONTIER_UNIQUE, ids=[s.name for s in FRONTIER_UNIQUE])
+def test_frontier_unique_compact_kernel_matches_plain(card, sc):
+    """The sampler's form on every set, with the set's ``part_of`` and
+    without, bit for bit against its plain version; one launch a call
+    under the keys' route; the scratch clean after."""
+    keys = torch.from_numpy(sc.keys).to(card)
+    wide = sc.keys.dtype == np.int64 and not ops.int32_id_eligible(sc.keys.max(initial=0))
+    name = "frontier_unique_batch_wide" if wide else "frontier_unique_batch"
+    plain_keys = keys if wide else keys.to(torch.int32)
+    maps = [None] + ([torch.from_numpy(sc.part_of).to(card)] if sc.part_of is not None else [])
+    for part_of in maps:
+        before = native.LAUNCHES[name]
+        got = ops.frontier_unique_batch(keys, part_of=part_of, compact=True)
+        torch.cuda.synchronize()
+        assert native.LAUNCHES[name] == before + int(sc.keys.size > 0)
+        _assert_compact_equal(got, ref.frontier_unique_compact(plain_keys, part_of),
+                              sc.keys.shape[0])
+    _assert_scratch_clean()
+
+
+def test_frontier_unique_at_phase8_shape(card):
+    """Both forms at phase 8's shape, twice in a row (the kept scratch
+    reused), and on keys and flags off the 16-byte grid."""
+    from repro_torch.kernels import frontier_unique as fu
+
+    keys, part_of = _phase8_block(card)
+    flags = part_of[keys.long()] != torch.arange(4, device=card)[:, None]
+    want = ref.frontier_unique_batch(keys, flags)
+    want_c = ref.frontier_unique_compact(keys, part_of)
+    for k, f in ((keys, flags), (keys, flags), (_misaligned(keys), _misaligned(flags))):
+        got = fu.frontier_unique_batch_cuda(k, f)
+        torch.cuda.synchronize()
+        assert all(_equal(a, b) for a, b in zip(got, want))
+        _assert_compact_equal(fu.frontier_unique_compact_cuda(k, part_of), want_c, 4)
+    _assert_scratch_clean()
+
+
+@pytest.mark.parametrize("N", [1, 5, 12_603, 12_600, 16_384, 40_001], ids=str)
+@pytest.mark.parametrize("weighted", [False, True], ids=["u", "w"])
+def test_score_kernel_at_staged_shapes(card, N, weighted):
+    """The scoring round at the staged shape (P = 4, N = C), rows off the
+    16-byte grid, rows shorter than the cluster and longer than one pass
+    of its blocks, aligned and not: bit for bit against the plain
+    version."""
+    from repro_torch.kernels import score_update as su
+
+    sc = scenarios.make_score_scenario(f"staged-{N}", N, "degree" if weighted else "rudder",
+                                       weighted, P=4, N=N)
+    s, a = torch.from_numpy(sc.scores).to(card), torch.from_numpy(sc.accessed).to(card)
+    w = None if sc.weights is None else torch.from_numpy(sc.weights).to(card)
+    want = ref.score_policy_update_batch(s, a, w, **sc.constants)
+    for args in ((s, a, w), (_misaligned(s), _misaligned(a),
+                             None if w is None else _misaligned(w))):
+        got = su.score_policy_update_batch_cuda(*args, **sc.constants)
+        torch.cuda.synchronize()
+        assert all(_equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.parametrize("form", ["mask", "compact", "score"])
+def test_staged_kernels_are_one_device_op(card, form, tmp_path):
+    """One device operation a call, the kernel, and no fill, memset or
+    copy, at phase 8's shapes (after a call that builds the library and
+    allocates the scratch). The profiler can miss a call's only kernel, so
+    no call may show anything else and at least one must show it."""
+    from repro_torch.kernels import frontier_unique as fu
+    from repro_torch.kernels import score_update as su
+
+    keys, part_of = _phase8_block(card)
+    if form == "mask":
+        flags = part_of[keys.long()] != torch.arange(4, device=card)[:, None]
+
+        def call():
+            return fu.frontier_unique_batch_cuda(keys, flags)
+        kernel = "frontier_unique_kernel"
+    elif form == "compact":
+        def call():
+            return fu.frontier_unique_compact_cuda(keys, part_of)
+        kernel = "frontier_unique_kernel"
+    else:
+        sc = scenarios.make_score_scenario("staged", 9, "rudder", False, P=4, N=12_603)
+        s, a = torch.from_numpy(sc.scores).to(card), torch.from_numpy(sc.accessed).to(card)
+
+        def call():
+            return su.score_policy_update_batch_cuda(s, a, None, **sc.constants)
+        kernel = "score_update_kernel"
+    call()
+    torch.cuda.synchronize()
+    per_call = _device_ops_per_call(call, 5, tmp_path / "trace.json")
+    assert all(len(names) <= 1 for names in per_call), per_call
+    assert any(names for names in per_call), per_call
+    assert all(kernel in n for names in per_call for n in names), per_call
+    _assert_scratch_clean()
 
 
 def test_staged_fallback_on_the_card_matches_cpu(card):

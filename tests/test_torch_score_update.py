@@ -11,12 +11,21 @@ seeded set ``chip_smoke.py`` also runs on the card: every policy of
 mode), weighted and unweighted, with scores that land on the stale
 threshold after the round. Scores are compared as their int32 bit
 patterns, stale counts exactly. The dispatcher refuses a policy whose
-padding lane would read stale, as the reference does.
+padding lane would read stale, as the reference does. The ``@given``
+twins of the reference's ``test_score_update_property`` and
+``test_score_policy_update_batch_property`` run the port's dispatchers
+with the reference's strategies and example counts against its jnp
+oracles (bit for bit) and the numpy ``ScoringPolicy`` (the reference's
+``rtol=1e-6, atol=1e-7``). The engine's kernel route packs its inputs
+into one kept block; rows off the 16-byte grid are held here too.
 """
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
@@ -129,3 +138,85 @@ def test_unknown_mode_raises_and_cpu_launches_nothing():
     ops.score_update_batch(s, a)
     ops.score_update(s[0], a[0])
     assert native.LAUNCHES == before
+
+
+@given(
+    n=st.integers(1, 300),
+    p=st.floats(0.0, 1.0),
+    seed=st.integers(0, 100),
+)
+@settings(max_examples=20, deadline=None)
+def test_score_update_property(n, p, seed):
+    """Twin of the reference's property: the port's ``score_update`` ==
+    the reference's oracle for arbitrary buffer sizes and access rates."""
+    scores = np.array(jax.random.uniform(jax.random.PRNGKey(seed), (n,), maxval=3.0))
+    accessed = np.array(jax.random.bernoulli(jax.random.PRNGKey(seed + 1), p, (n,)))
+    out, stale = _port(ops.score_update, scores, accessed)
+    want, want_stale = jref.score_update(jnp.asarray(scores), jnp.asarray(accessed))
+    np.testing.assert_array_equal(_bits(out), _bits(want))
+    assert int(stale) == int(want_stale)
+
+
+@given(
+    P=st.integers(1, 4),
+    N=st.integers(1, 150),
+    mode=st.sampled_from(["accumulate", "reset", "capped"]),
+    weighted=st.booleans(),
+    p_access=st.floats(0.0, 1.0),
+    seed=st.integers(0, 10_000),
+)
+@settings(max_examples=30, deadline=None)
+def test_score_policy_update_batch_property(P, N, mode, weighted, p_access, seed):
+    """Twin of the reference's property: the port's dispatcher == the jnp
+    oracle == the numpy ``ScoringPolicy`` for random shapes, access
+    rates, policy modes and optional per-slot weights."""
+    rng = np.random.default_rng(seed)
+    scores = rng.uniform(0.0, 4.0, size=(P, N)).astype(np.float32)
+    accessed = rng.random((P, N)) < p_access
+    weights = (
+        rng.uniform(0.5, 2.0, size=(P, N)).astype(np.float32) if weighted else None
+    )
+    out, stale = _port(ops.score_policy_update_batch, scores, accessed, weights, mode=mode)
+    want, want_stale = jref.score_policy_update_batch(
+        jnp.asarray(scores), jnp.asarray(accessed),
+        None if weights is None else jnp.asarray(weights), mode=mode,
+    )
+    np.testing.assert_array_equal(_bits(out), _bits(want))
+    np.testing.assert_array_equal(stale, np.asarray(want_stale))
+    policy = scoring.ScoringPolicy(name="prop", mode=mode, use_weights=weighted)
+    np_new = policy.update(scores, accessed, weights)
+    np.testing.assert_allclose(out, np_new, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("caps", [[96, 64], [97, 63, 5], [1]], ids=["even", "odd", "one"])
+@pytest.mark.parametrize("policy", ["rudder", "degree"])
+def test_engine_packed_round_matches_numpy(caps, policy):
+    """``PrefetchEngine(use_kernels=True, device="cpu")``'s packed round
+    (scores, marks and weights in one kept block, at 16-byte offsets)
+    against the numpy round, over capacities whose rows are off the
+    16-byte grid and several rounds reusing the block."""
+    from repro_torch.runtime import PrefetchEngine
+
+    rng = np.random.default_rng(11)
+    weights = scoring.degree_weights(rng.integers(0, 500, size=1000))
+    a = PrefetchEngine(caps, policy=policy, node_weights=weights)
+    b = PrefetchEngine(caps, policy=policy, node_weights=weights,
+                       use_kernels=True, device="cpu")
+    ids = rng.choice(1000, size=sum(caps), replace=False)
+    at = 0
+    for p, c in enumerate(caps):
+        for eng in (a, b):
+            eng.insert(p, ids[at:at + c])
+        at += c
+    active = np.ones(len(caps), dtype=bool)
+    active[-1] = len(caps) == 1
+    blocks = []
+    for _ in range(3):
+        marks = rng.random(a.accessed.shape) < 0.3
+        for eng in (a, b):
+            eng.accessed[:] = marks
+            eng.end_round(active)
+        blocks.append(b._stage[0].data_ptr())
+        np.testing.assert_array_equal(a.scores.view(np.int32), b.scores.view(np.int32))
+        np.testing.assert_array_equal(a.accessed, b.accessed)
+    assert len(set(blocks)) == 1

@@ -11,9 +11,11 @@ whose ids pass ``WIDE_ID_MAX``. Checked here:
   and the reference's ``PrefetchEngine(use_kernels=True)`` (interpret
   Pallas) over every policy, as ``tests/test_policies.py`` holds the
   reference's two routes;
-* ``SamplerPlane(use_kernels=True, device="cpu")`` (the dedup through
+* ``SamplerPlane(use_kernels=True, device="cpu")`` (the raw block
+  sorted on the device and deduplicated by the sampler's form of
   ``ops.frontier_unique_batch``) against the reference's kernel route and
-  the port's numpy route;
+  the port's numpy route, with and without ``part_of``, at an
+  ``id_base``;
 * ``DistributedTrainer(device=False)`` against the reference's
   ``device=False`` for the four variants, async and sync, the event time
   engine, one topology and the feature store, with GraphSAGE training
@@ -147,6 +149,54 @@ def test_sampler_kernel_route_matches_numpy_and_reference(parts, monkeypatch):
     assert rem is None and spy.calls == 2
     for a, b in zip(mb0, mbs):
         np.testing.assert_array_equal(a.unique_nodes, b.unique_nodes)
+
+
+@pytest.mark.parametrize("with_part_of", [True, False], ids=["part_of", "no-part_of"])
+@pytest.mark.parametrize("base", [0, 2**31 + 1000], ids=["narrow", "id_base"])
+def test_sampler_device_dedup_matches_numpy_and_reference(parts, base, with_part_of,
+                                                          monkeypatch):
+    """The kernel route's device dedup (upload of the raw block, sort and
+    the compact form on ``device="cpu"``, the split on the host) on a graph
+    at an ``id_base``, with and without ``part_of``: the same unique and
+    remote sets, int64 and global, as the numpy route and the reference's
+    plane over three batches; the kept host buffers are reused and the
+    partition map is converted once; the host never sorts."""
+    spy = _Spy(monkeypatch, "frontier_unique_batch")
+    ref_parts, port_parts = parts
+    ref_g, port_g = ref_parts.graph.rebase(base), port_parts.graph.rebase(base)
+    part_of = port_parts.part_of if with_part_of else None
+    kernel = SamplerPlane(port_g, (4, 6), use_kernels=True, device="cpu")
+    planes = (SamplerPlane(port_g, (4, 6)), kernel,
+              JSamplerPlane(ref_g, (4, 6), use_kernels=True))
+    rngs = [np.random.default_rng(5) for _ in planes]
+    buffers = set()
+    for step in range(3):
+        blocks = [port_parts.local_train_nodes(p)[step * 9:(step + 1) * 9] for p in range(4)]
+        blocks = [b[: min(len(x) for x in blocks)] for b in blocks]
+        np_sort = np.sort
+        monkeypatch.setattr(np, "sort", lambda *a, **k: pytest.fail("host sort"))
+        got = kernel.sample_all(blocks, rngs[1], part_of=part_of)
+        monkeypatch.setattr(np, "sort", np_sort)
+        runs = [plane.sample_all(blocks, rng, part_of=part_of)
+                for plane, rng in ((planes[0], rngs[0]), (planes[2], rngs[2]))]
+        buffers.add(kernel._host["touched"].data_ptr())
+        (mb0, rem0), (mb2, rem2) = runs
+        mb1, rem1 = got
+        for mbs, rem in ((mb1, rem1), (mb2, rem2)):
+            for a, b in zip(mb0, mbs):
+                assert b.unique_nodes.dtype == np.int64
+                np.testing.assert_array_equal(a.unique_nodes, b.unique_nodes)
+            if part_of is None:
+                assert rem is None
+            else:
+                for a, b in zip(rem0, rem):
+                    assert b.dtype == np.int64
+                    np.testing.assert_array_equal(a, b)
+        if base:
+            assert min(int(u.min()) for u in (m.unique_nodes for m in mb1)) >= base
+    assert spy.calls == 3 and len(buffers) == 1
+    if with_part_of:
+        assert kernel._part_of[0] is part_of
 
 
 def test_kernel_routes_on_cuda_without_a_card_raise(monkeypatch, parts):
