@@ -119,6 +119,31 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    by torch.profiler and the share of the bound reached;
 9c. card vs CPU: the dense smoke config in float32 served on both devices
    from the same weights: greedy tokens identical, logits allclose 1e-4;
+11. the legacy runtime (``runtime="legacy"``, the per-PE host loop, its
+   GraphSAGE step on the card): phase 3's graph and run, every stream,
+   ``epoch_times`` and the accuracy equal to phase 3's, the buffers' stats
+   summing to its ``engine.stats``, the losses bit-identical (or, if not,
+   allclose, and said so), only ``gather_mean`` and ``segment_sum_equal``
+   launched (P * steps + 1 each), every launch bit-exact; phase 3b's graph
+   and run with a ``FeatureStore(use_kernel=True)``: the store streams
+   equal to phase 3b's, every ``gather_rows_batch`` launch counted (the
+   store's kernel gathers) and bit-exact; the scale-1 legacy run with
+   ``telemetry=True``: spans on PEs {-1, 0, 1, 2, 3} and phase 4b's
+   digest; the legacy stage times beside phase 3's (phase 5 also
+   re-records the 8 goldens on the legacy runtime);
+12. the classifier plane: ``collect_traces`` on phase 3's graph on the
+   card, ``X`` and ``y`` equal to the CPU's; all six classifiers fitted on
+   the card and the CPU from the same initial arrays (tree models
+   identical, logits allclose 1e-5, every decision identical; a flipped
+   decision prints its logits); a rudder run with the fitted ``mlp`` as
+   every PE's decider at phase 3's configuration on the raw device loop
+   and on the legacy runtime, equal streams, the raw loop's
+   ``fused_frontier_step`` bit-exact on every launch; the decision rate and
+   the host µs per ``decide`` call on the card and the CPU;
+13. the presets ``products_25pct_rudder`` and ``products_massivegnn`` at
+   their scale on the card, equal to the CPU's; ``run_sweep(default_grid())``
+   (16 cells) on the card, rows equal to the CPU's, ``validate_rows``
+   empty, the prefetch-step launches counted and each bit-exact;
 10. a ``kernels`` JSON line (the fused step's rows time the engine's form,
    the reference form's times beside them; the aggregation rows add their
    kernel alone, device operations a call, host ms, the gather's L2
@@ -126,7 +151,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    in-run device ms of phases 3, 3b, 6, 6b and 8; the staged rows their
    kernel alone, device operations and host ms, ``frontier_unique_batch``
    timing the path's compact form with the mask form and the hook's
-   split beside it), and as the last line
+   split beside it; rows 11-13 the legacy runs' launches, rows 1-2 the
+   launches of phases 12 and 13), and as the last line
    the device JSON line. The aggregation kernels' in-run time (CUDA events
    around each dispatcher call) prints on phases 3, 3b, 6, 6b and 8.
 
@@ -871,6 +897,8 @@ def compare_runs(what, a_tr, a_run, b_tr, b_run, store: bool, base: int = 0):
     np.testing.assert_allclose(a_run.losses, b_run.losses, rtol=LOSS_RTOL, atol=LOSS_ATOL)
     if store and a_run.total_bytes_measured != a_run.total_bytes_modeled:
         raise AssertionError(f"{what}: measured bytes != modeled bytes")
+    if not a_run.losses:
+        return 0.0
     return float(np.max(np.abs(np.subtract(a_run.losses, b_run.losses))))
 
 
@@ -902,6 +930,133 @@ def assert_maps_clean(what) -> int:
     return sum(m[0].numel() for m in fs._MAPS.values())
 
 
+def fused_step_forms(args, kw, wide):
+    """The fused step's two forms on one captured launch, each beside its
+    plain version: (engine kernel, engine plain, reference kernel,
+    reference plain), as callables."""
+    from repro_torch.kernels import fused_step as fs
+    from repro_torch.kernels import ref
+
+    ref_wrapper = fs.fused_step_wide_cuda if wide else fs.fused_step_cuda
+    bits = [(args[9] & bit) != 0 for bit in (1, 2, 4)]
+    plain_kw = {k: v for k, v in kw.items() if k not in ("id_lo", "num_ids")}
+    ref_kw = kw if wide else {k: v for k, v in kw.items() if k != "id_lo"}
+    return (
+        lambda: fs.fused_step_readback_cuda(*args, **kw),
+        lambda: plain_readback(args, plain_kw),
+        lambda: ref_wrapper(*args[:9], *bits, **ref_kw),
+        lambda: ref.fused_step(*args[:9], *bits, **plain_kw),
+    )
+
+
+def check_step_launches(tag, caps, wide, max_err) -> int:
+    """Every captured launch of the fused step (engine form, as the engine
+    calls it, and the reference's form) bit-exact against its plain
+    version; returns the count."""
+    import torch
+
+    name = "fused_step_wide" if wide else "fused_step"
+    for i, (args, kw) in enumerate(caps):
+        k_rb, p_rb, k_ref, p_ref = fused_step_forms(args, kw, wide)
+        for got, want, names, form in ((k_rb(), p_rb(), READBACK_OUT, "engine"),
+                                       (k_ref(), p_ref(), STEP_OUT, "reference")):
+            torch.cuda.synchronize()
+            max_err[name] = max(max_err[name], compare_outputs(
+                got, want, names, f"{tag} {name} {i} ({form} form)"))
+    return len(caps)
+
+
+def check_frontier_launches(tag, caps, wide, max_err) -> int:
+    """Every captured ``fused_frontier_step`` (or, ``wide``, its int64
+    twin's) launch bit-exact against its plain version; returns the
+    count."""
+    import torch
+
+    from repro_torch.kernels import fused_step as fs
+    from repro_torch.kernels import ref
+
+    name = "fused_frontier_step_wide" if wide else "fused_frontier_step"
+    kernel = fs.fused_frontier_step_wide_cuda if wide else fs.fused_frontier_step_cuda
+    plain = ref.fused_frontier_step_wide if wide else ref.fused_frontier_step
+    for i, (args, kw) in enumerate(caps):
+        got, want = kernel(*args, **kw), plain(*args, **kw)
+        torch.cuda.synchronize()
+        max_err[name] = max(
+            max_err[name], compare_outputs(got, want, FRONTIER_OUT, f"{tag} {name} {i}"))
+    return len(caps)
+
+
+def check_prefetch_launches(tag, clock, max_err) -> dict:
+    """Both narrow prefetch-step kernels (rows 1 and 2) bit-exact on every
+    launch a run's ``clock`` captured; returns the counts held."""
+    held = {
+        "fused_frontier_step": check_frontier_launches(
+            tag, clock.launches["fused_frontier_step_batch"], False, max_err),
+        "fused_step": check_step_launches(
+            tag, clock.launches["fused_step_readback_batch"], False, max_err),
+    }
+    if held["fused_step"]:
+        assert_maps_clean(f"{tag}: after the checks")
+    return held
+
+
+def compare_legacy(what, tr, run, want, want_stats, store: bool):
+    """A legacy run (``tr``, ``run``) against a vectorized one (its
+    result ``want`` and ``engine.stats`` ``want_stats``): every stream (and
+    the store streams), ``epoch_times`` and the accuracy identical, the
+    legacy buffers' stats summing to the engine's; the losses bit-identical
+    or, if not, allclose. Returns (losses bit-identical, max |diff|)."""
+    import numpy as np
+
+    streams = STREAMS + (STORE_STREAMS if store else ())
+    for p, (a, b) in enumerate(zip(run.logs, want.logs)):
+        for f in streams:
+            if getattr(a, f) != getattr(b, f):
+                raise AssertionError(f"{what}: PE {p} stream {f} differs")
+    if run.epoch_times != want.epoch_times:
+        raise AssertionError(f"{what}: epoch_times differ")
+    for f in STATS:
+        got = np.array([getattr(buf.stats, f) for buf in tr.buffers])
+        if not np.array_equal(got, want_stats[f]):
+            raise AssertionError(f"{what}: buffer stats {f} {got} != engine {want_stats[f]}")
+    same = run.losses == want.losses and run.accuracy == want.accuracy
+    if not same:
+        np.testing.assert_allclose(run.losses, want.losses, rtol=LOSS_RTOL, atol=LOSS_ATOL)
+    diff = float(np.max(np.abs(np.subtract(run.losses, want.losses)))) if run.losses else 0.0
+    return same, diff
+
+
+def legacy_stages(clock) -> dict:
+    """Median ms per step of the legacy loop's stages: the step, its four
+    ``pe_step`` spans summed, the store's gathers, the training step."""
+    import numpy as np
+
+    return {
+        k: round(float(np.median(v)), 3) for k, v in {
+            "step": clock.ms("step"),
+            "pe_step_sum": clock.per_step("pe_step"),
+            "store.gather_sum": clock.per_step("store.gather"),
+            "train": clock.ms("train"),
+        }.items() if len(v) and any(v)
+    }
+
+
+def only_kernels(what, launches, allowed) -> None:
+    """Raise if a run launched a kernel outside ``allowed``."""
+    bad = {k: v for k, v in launches.items() if v and k not in allowed}
+    if bad:
+        raise AssertionError(f"{what}: launched {bad}")
+
+
+def decide_us(clf, X, reps: int = 3) -> float:
+    """Host µs per ``clf.decide`` call over the rows of ``X``."""
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for x in X:
+            clf.decide(x)
+    return 1e6 * (time.perf_counter() - t0) / (reps * len(X))
+
+
 def check_fused_step(tag, caps, wide, flush, max_err):
     """A ragged run's fused step (phases 3b and 6b): every captured launch
     in the engine's form (``fused_step_readback_cuda``: gate words in, the
@@ -912,40 +1067,16 @@ def check_fused_step(tag, caps, wide, flush, max_err):
     device operations a call, wrapper host ms and the kernel alone.
     Returns the ``kernels`` line's timing tuple (the engine's form) and the
     reference form's numbers beside it."""
-    import torch
-
-    from repro_torch.kernels import fused_step as fs
-    from repro_torch.kernels import ref
-
     name = "fused_step_wide" if wide else "fused_step"
     entries = assert_maps_clean(f"{tag}: after the run")
-    ref_wrapper = fs.fused_step_wide_cuda if wide else fs.fused_step_cuda
-
-    def forms(args, kw):
-        bits = [(args[9] & bit) != 0 for bit in (1, 2, 4)]
-        plain_kw = {k: v for k, v in kw.items() if k not in ("id_lo", "num_ids")}
-        ref_kw = kw if wide else {k: v for k, v in kw.items() if k != "id_lo"}
-        return (
-            lambda: fs.fused_step_readback_cuda(*args, **kw),
-            lambda: plain_readback(args, plain_kw),
-            lambda: ref_wrapper(*args[:9], *bits, **ref_kw),
-            lambda: ref.fused_step(*args[:9], *bits, **plain_kw),
-        )
-
-    for i, (args, kw) in enumerate(caps):
-        k_rb, p_rb, k_ref, p_ref = forms(args, kw)
-        for got, want, names, form in ((k_rb(), p_rb(), READBACK_OUT, "engine"),
-                                       (k_ref(), p_ref(), STEP_OUT, "reference")):
-            torch.cuda.synchronize()
-            max_err[name] = max(max_err[name], compare_outputs(
-                got, want, names, f"{tag} {name} {i} ({form} form)"))
+    check_step_launches(tag, caps, wide, max_err)
     assert_maps_clean(f"{tag}: after the checks")
     print(f"{tag}: kernel == plain, bit-exact, on all {len(caps)} {name} launches of "
           f"the run, in both forms; the kept maps ({entries} entries each) clean after "
           f"the run and the checks")
 
     args, kw = max(caps, key=lambda c: c[0][6].shape[1] + c[0][7].shape[1])
-    k_rb, p_rb, k_ref, p_ref = forms(args, kw)
+    k_rb, p_rb, k_ref, p_ref = fused_step_forms(args, kw, wide)
     k_ms, p_ms, _, raw = time_pair(k_rb, p_rb, flush)
     r_ms, rp_ms, _, raw_ref = time_pair(k_ref, p_ref, flush)
     nbytes = tensor_bytes(args, k_rb())
@@ -1320,14 +1451,7 @@ def main() -> int:
         "train": clock.ms("train"),
     }, steps, wall)
 
-    for i, (args, kw) in enumerate(captured):
-        got = fs.fused_frontier_step_cuda(*args, **kw)
-        want = ref.fused_frontier_step(*args, **kw)
-        torch.cuda.synchronize()
-        max_err["fused_frontier_step"] = max(
-            max_err["fused_frontier_step"],
-            compare_outputs(got, want, FRONTIER_OUT, f"launch {i}"),
-        )
+    check_frontier_launches("phase 3", captured, False, max_err)
     n_agg = check_captured("phase 3", clock, max_err)
     print(f"phase 3: kernel == plain, bit-exact, on all {len(captured)} "
           f"launches of the run (Mt = {Mt}) and all {n_agg} gather_mean and "
@@ -1425,6 +1549,9 @@ def main() -> int:
     # Phases 6 and 7 rebase this graph and compare with this run.
     g_main, main, mt_main = g, (trainer, result), Mt
     stages_main = stage_medians(clock)
+    # Phases 11 and 12 run phase 3's graph again and compare with this run.
+    parts_main, result_main = parts, result
+    stats_main = {f: getattr(trainer.engine.stats, f).copy() for f in STATS}
     del trainer, result, clock, captured, g, parts, table, idx, data, outs
 
     # -- 3b. the ragged path, with the feature store ----------------------- #
@@ -1584,6 +1711,11 @@ def main() -> int:
         f"bound {b_ms:.4f} ms ({b_by})"
     )
     g_papers, papers = g, (trainer, result)
+    parts_papers, result_papers = parts, result
+    stages_papers = {k: round(float(np.median(v)), 3) for k, v in {
+        "step": clock.ms("step"), "sample_host": clock.ms("sample"),
+        "store_serve": clock.ms("fetch.serve"), "train": clock.ms("train")}.items()}
+    stats_papers = {f: getattr(trainer.engine.stats, f).copy() for f in STATS}
     del trainer, result, clock, step_caps, gather_caps, store, g, parts, tables, idx
 
     # -- 4. card vs CPU, end to end --------------------------------------- #
@@ -1689,20 +1821,27 @@ def main() -> int:
         f"loaded back; kernel.<name>.seconds (host clock to the kernels' end): "
         + json.dumps(seconds)
     )
+    digest_small = t_off.last_trace.exact_digest()  # phase 11's legacy twin
     del runs, t_off, r_off, t_on, r_on, session, reg
 
     # -- 5. the goldens on the card --------------------------------------- #
     goldens = sorted((ROOT / "tests" / "golden").glob("*.json"))
     if len(goldens) != 8:
         raise AssertionError(f"expected 8 goldens, found {len(goldens)}")
+    t0 = time.perf_counter()
     for path in goldens:
         golden = load_trace(str(path))
-        for with_store in (False, True):
-            fresh = record_trace(dict(golden.config, feature_store=with_store), device=DEVICE)
-            if fresh.exact_digest() != golden.exact_digest():
-                raise AssertionError(f"golden {path.stem} (store={with_store}) drifted")
-    print(f"phase 5: all {len(goldens)} goldens re-recorded on the card, modeled and "
-          f"with the feature store: exact_digest matched ({', '.join(p.stem for p in goldens)})")
+        for runtime in ("vectorized", "legacy"):
+            for with_store in (False, True):
+                fresh = record_trace(dict(golden.config, feature_store=with_store),
+                                     runtime=runtime, device=DEVICE)
+                if fresh.exact_digest() != golden.exact_digest():
+                    raise AssertionError(
+                        f"golden {path.stem} ({runtime}, store={with_store}) drifted")
+    print(f"phase 5: all {len(goldens)} goldens re-recorded on the card, on both runtimes "
+          f"(vectorized: the device loops; legacy: the per-PE host loop), modeled and "
+          f"with the feature store: exact_digest matched "
+          f"({', '.join(p.stem for p in goldens)}); {time.perf_counter() - t0:.1f} s")
 
     # -- 6. the wide raw loop at full width --------------------------------- #
     t0 = time.perf_counter()
@@ -1749,14 +1888,7 @@ def main() -> int:
     wide_stages = stage_medians(clock)
     print("phase 6 vs phase 3, median ms per step: " + json.dumps(
         {k: [round(wide_stages[k], 3), round(v, 3)] for k, v in stages_main.items()}))
-    for i, (args, kw) in enumerate(captured):
-        got = fs.fused_frontier_step_wide_cuda(*args, **kw)
-        want = ref.fused_frontier_step_wide(*args, **kw)
-        torch.cuda.synchronize()
-        max_err["fused_frontier_step_wide"] = max(
-            max_err["fused_frontier_step_wide"],
-            compare_outputs(got, want, FRONTIER_OUT, f"wide launch {i}"),
-        )
+    check_frontier_launches("phase 6", captured, True, max_err)
     n_agg = check_captured("phase 6", clock, max_err)
     print(f"phase 6: kernel == plain, bit-exact, on all {len(captured)} launches of the run "
           f"and all {n_agg} gather_mean and segment_sum_equal launches")
@@ -2306,6 +2438,248 @@ def main() -> int:
           f"{l_card['mla_flash_decode']}, all on the CUDA-core kernel")
     del runs, tree
 
+    # -- 11. the legacy runtime at full width ------------------------------ #
+    t_phase = time.perf_counter()
+    trainer = DistributedTrainer(parts_main, device=DEVICE, runtime="legacy", **RUN)
+    steps = trainer.epochs * trainer.mb_per_epoch
+    clock = StageClock(AGGREGATION_KERNELS, by_ref=[trainer.features])
+    native.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with telemetry.active(clock):
+        result = trainer.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_legacy = dict(native.LAUNCHES)
+    check_aggregation("phase 11", launches_legacy, trainer)
+    only_kernels("phase 11", launches_legacy, AGGREGATION_KERNELS)
+    same, diff = compare_legacy("phase 11 (legacy vs phase 3)", trainer, result, result_main,
+                                stats_main, False)
+    n_agg = check_captured("phase 11", clock, max_err)
+    print(
+        f"phase 11: runtime='legacy' on phase 3's graph and run (products scale={MAIN_SCALE}, "
+        f"P=4, batch {RUN['batch_size']}, {steps} steps, GraphSAGE on the card): every "
+        f"stream ({', '.join(STREAMS)}), epoch_times and the accuracy equal phase 3's "
+        f"vectorized run, the buffers' stats sum to its engine.stats; losses "
+        + ("bit-identical" if same else f"not bit-identical, allclose (rtol={LOSS_RTOL}, "
+           f"atol={LOSS_ATOL}), max |diff| {diff:.3g}")
+        + f"; launches {({k: v for k, v in launches_legacy.items() if v})} (P * steps + 1 "
+        f"each, no prefetch-step kernel), all {n_agg} bit-exact; wall {wall:.2f} s"
+    )
+    in_run["phase 11"] = aggregation_in_run("phase 11", clock)
+    print("phase 11 vs phase 3, median ms per step: " + json.dumps(
+        {"legacy": legacy_stages(clock), "phase 3": {k: round(v, 3) for k, v in stages_main.items()}}))
+    del trainer, result, clock
+
+    # The ragged graph with the kernel-backed store, on the legacy loop.
+    store = FeatureStore.for_partitions(parts_papers, device=DEVICE, use_kernel=True)
+    trainer = DistributedTrainer(parts_papers, device=DEVICE, feature_store=store,
+                                 runtime="legacy", **RAGGED)
+    clock = StageClock(["gather_rows_batch", *AGGREGATION_KERNELS])
+    native.reset_launches()
+    store.kernel_gathers = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with telemetry.active(clock):
+        result = trainer.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_legacy_store = dict(native.LAUNCHES)
+    check_aggregation("phase 11 (store)", launches_legacy_store, trainer)
+    only_kernels("phase 11 (store)", launches_legacy_store,
+                 ("gather_rows_batch", *AGGREGATION_KERNELS))
+    if not 0 < launches_legacy_store["gather_rows_batch"] == store.kernel_gathers:
+        raise AssertionError(f"phase 11 (store): gather_rows_batch launches "
+                             f"{launches_legacy_store['gather_rows_batch']} != store kernel "
+                             f"gathers {store.kernel_gathers}")
+    same, diff = compare_legacy("phase 11 (legacy + store vs phase 3b)", trainer, result,
+                                result_papers, stats_papers, True)
+    gather_caps = clock.launches["gather_rows_batch"]
+    for i, (args, _kw) in enumerate(gather_caps):
+        got = gr.gather_rows_batch_cuda(*args)
+        torch.cuda.synchronize()
+        max_err["gather_rows_batch"] = max(
+            max_err["gather_rows_batch"],
+            compare_outputs(got, ref.gather_rows_batch(*args), ["out"], f"legacy gather {i}"),
+        )
+    n_agg = check_captured("phase 11 (store)", clock, max_err)
+    gather_in_run = round(float(np.median(clock.device_ms("gather_rows_batch"))), 4)
+    print(
+        f"phase 11: runtime='legacy' on phase 3b's graph and run (papers scale={RAGGED_SCALE}, "
+        f"FeatureStore(use_kernel=True) on the card): every stream and feat_sums, "
+        f"bytes_measured, bytes_modeled equal phase 3b's ({result.total_bytes_measured} bytes "
+        f"measured == modeled), epoch_times equal; losses "
+        + ("bit-identical" if same else f"allclose, max |diff| {diff:.3g}")
+        + f"; launches {({k: v for k, v in launches_legacy_store.items() if v})}: "
+        f"gather_rows_batch = the store's {store.kernel_gathers} kernel gathers (misses and "
+        f"admissions after each PE loop, each PE's training rows), all {len(gather_caps)} "
+        f"bit-exact, and all {n_agg} segment_sum_equal; gather_rows_batch device ms per "
+        f"launch (CUDA events), median {gather_in_run}; wall {wall:.2f} s"
+    )
+    in_run["phase 11 (store)"] = aggregation_in_run("phase 11 (store)", clock)
+    print("phase 11 (store) vs phase 3b, median ms per step: " + json.dumps(
+        {"legacy": legacy_stages(clock), "phase 3b": stages_papers}))
+    del trainer, result, clock, store, gather_caps
+
+    # Telemetry on the legacy loop: per-PE tracks, the vectorized digest.
+    tr = DistributedTrainer(p1g, device=DEVICE, trace=True, telemetry=True, runtime="legacy",
+                            **SMALL)
+    tr.run()
+    pes = sorted({sp.pe for sp in tr.last_telemetry.tracer.spans})
+    if pes != [-1, 0, 1, 2, 3]:
+        raise AssertionError(f"phase 11: legacy telemetry spans on PEs {pes}")
+    if tr.last_trace.exact_digest() != digest_small:
+        raise AssertionError("phase 11: the legacy digest differs from phase 4b's")
+    print(f"phase 11: legacy run at scale={SMALL_SCALE} with telemetry: spans on PEs {pes} "
+          f"(host track and one per PE), exact_digest equals phase 4b's vectorized run; "
+          f"phase 11 wall {time.perf_counter() - t_phase:.1f} s")
+    del tr
+
+    # -- 12. the classifier plane ----------------------------------------- #
+    from repro_torch.core import make_classifier
+    from repro_torch.core.classifiers import CLASSIFIERS, GradientClassifier
+    from repro_torch.gnn.train import collect_traces
+
+    t_phase = time.perf_counter()
+    trace_kw = dict(buffer_frac=RUN["buffer_frac"], batch_size=RUN["batch_size"],
+                    epochs=RUN["epochs"])
+    native.reset_launches()
+    X, y = collect_traces(parts_main, device=DEVICE, **trace_kw)
+    launches_traces = dict(native.LAUNCHES)
+    X_cpu, y_cpu = collect_traces(parts_main, device="cpu", **trace_kw)
+    if not (np.array_equal(X, X_cpu) and np.array_equal(y, y_cpu)):
+        raise AssertionError("phase 12: collect_traces on the card != on the CPU")
+    only_kernels("phase 12 (collect_traces)", launches_traces, ("fused_frontier_step",))
+    fitted, decide_times = {}, {}
+    for name in sorted(CLASSIFIERS):
+        pair = []
+        for where in (DEVICE, "cpu"):
+            clf = make_classifier(name, device=where)
+            if isinstance(clf, GradientClassifier):
+                init = {k: v.numpy() for k, v in clf.init_params().items()}
+                clf.fit(X, y, init=init)
+            else:
+                clf.fit(X, y)
+            pair.append(clf)
+        on_card, on_cpu = pair
+        if isinstance(on_card, GradientClassifier):
+            xs = torch.from_numpy(X)
+            with torch.no_grad():
+                z_card = on_card.logits(on_card.params, xs.to(dev)).cpu().numpy()
+                z_cpu = on_cpu.logits(on_cpu.params, xs).numpy()
+            np.testing.assert_allclose(z_card, z_cpu, rtol=1e-5, atol=1e-5,
+                                       err_msg=f"phase 12: {name} logits")
+        elif on_card.stumps != on_cpu.stumps:
+            raise AssertionError(f"phase 12: {name} stumps differ")
+        d_card = np.array([on_card.decide(x) for x in X])
+        d_cpu = np.array([on_cpu.decide(x) for x in X])
+        if not np.array_equal(d_card, d_cpu):
+            rows = np.nonzero(d_card != d_cpu)[0]
+            if isinstance(on_card, GradientClassifier):
+                print(f"phase 12: {name} decisions flip on rows {rows.tolist()}: logits "
+                      f"{z_card[rows].tolist()} (card) / {z_cpu[rows].tolist()} (CPU), the "
+                      f"threshold's logit {math.log(on_card.threshold / (1 - on_card.threshold))}")
+            raise AssertionError(f"phase 12: {name} decisions differ on rows {rows.tolist()}")
+        fitted[name] = on_card
+        decide_times[name] = {"card_us": round(decide_us(on_card, X), 1),
+                              "cpu_us": round(decide_us(on_cpu, X), 1)}
+    print(
+        f"phase 12: collect_traces on phase 3's graph (fixed, batch {RUN['batch_size']}, "
+        f"{RUN['epochs']} epochs, no training) on the card: X {X.shape}, y {y.shape} "
+        f"({int(y.sum())} positive) equal to the CPU's; launches "
+        f"{({k: v for k, v in launches_traces.items() if v})}; all {len(CLASSIFIERS)} "
+        f"classifiers fitted on the card and the CPU from the same initial arrays: the "
+        f"tree models identical, the gradient models' logits allclose (1e-5) on every row, "
+        f"every decision identical; host us per decide call: " + json.dumps(decide_times)
+    )
+    runs = {}
+    for runtime in ("vectorized", "legacy"):
+        tr = DistributedTrainer(parts_main, device=DEVICE, runtime=runtime,
+                                **dict(RUN, deciders=[fitted["mlp"]]))
+        clock = StageClock(["fused_frontier_step_batch", "fused_step_readback_batch"])
+        native.reset_launches()
+        with telemetry.active(clock):
+            run = tr.run()
+        torch.cuda.synchronize()
+        runs[runtime] = (tr, run, dict(native.LAUNCHES), clock)
+    (tv, rv, lv, cv), (tl, rl, ll, _) = runs["vectorized"], runs["legacy"]
+    launches_clf = lv
+    stats_v = {f: getattr(tv.engine.stats, f) for f in STATS}
+    same, diff = compare_legacy("phase 12 (mlp-driven legacy vs raw loop)", tl, rl, rv,
+                                stats_v, False)
+    check_aggregation("phase 12 (raw loop)", lv, tv)
+    only_kernels("phase 12 (legacy)", ll, AGGREGATION_KERNELS)
+    if lv["fused_frontier_step"] != tv.epochs * tv.mb_per_epoch + 1:
+        raise AssertionError(f"phase 12: raw-loop launches {lv}")
+    held_clf = check_prefetch_launches("phase 12", cv, max_err)
+    rates = {rt: round(r.controllers[0].replacement_interval, 3) for rt, (_, r, _, _) in runs.items()}
+    share = {rt: round(float(np.mean([d for log in r.logs for d in log.decisions])), 3)
+             for rt, (_, r, _, _) in runs.items()}
+    print(
+        f"phase 12: rudder with the card-fitted mlp as every PE's decider at phase 3's "
+        f"configuration, on the raw device loop and on runtime='legacy': every stream equal, "
+        f"losses " + ("bit-identical" if same else f"allclose, max |diff| {diff:.3g}")
+        + f"; raw-loop launches {({k: v for k, v in lv.items() if v})}, "
+        f"fused_frontier_step bit-exact on all {held_clf['fused_frontier_step']}; decision "
+        f"rate r (replacement interval, Table 2) {rates}, share of steps replaced {share}; "
+        f"phase 12 wall {time.perf_counter() - t_phase:.1f} s"
+    )
+    del runs, tv, rv, tl, rl, cv, tr, run, clock, fitted, X, y, X_cpu, y_cpu
+
+    # -- 13. the paper's presets and the sweep ----------------------------- #
+    from repro_torch.configs.rudder_gnn import EXPERIMENTS
+    from repro_torch.configs.rudder_gnn import build_trainer as build_preset
+    from repro_torch.runtime import default_grid, run_sweep, validate_rows
+
+    t_phase = time.perf_counter()
+    preset_launches = {}
+    for name in ("products_25pct_rudder", "products_massivegnn"):
+        got = {}
+        for where in (DEVICE, "cpu"):
+            tr = build_preset(name, device=where)
+            native.reset_launches()
+            got[where] = (tr, tr.run(), dict(native.LAUNCHES))
+        (ta, ra, la), (tb, rb, _) = got[DEVICE], got["cpu"]
+        compare_runs(f"phase 13 ({name}, card vs CPU)", ta, ra, tb, rb, False)
+        if ra.epoch_times != rb.epoch_times:
+            raise AssertionError(f"phase 13 ({name}): epoch_times differ")
+        preset_launches[name] = {k: v for k, v in la.items() if v}
+    print(f"phase 13: presets products_25pct_rudder and products_massivegnn at their scale "
+          f"({EXPERIMENTS['products_25pct_rudder'].scale}) on the card: every stream, "
+          f"engine.stats, the buffer state and epoch_times equal the CPU's; launches "
+          + json.dumps(preset_launches))
+    grid = default_grid()
+    clock = StageClock(["fused_frontier_step_batch", "fused_step_readback_batch"])
+    native.reset_launches()
+    t0 = time.perf_counter()
+    with telemetry.active(clock):
+        rows = run_sweep(grid, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_sweep = dict(native.LAUNCHES)
+    t0 = time.perf_counter()
+    rows_cpu = run_sweep(grid, device="cpu")
+    wall_cpu = time.perf_counter() - t0
+    for a, b in zip(rows, rows_cpu):
+        if a != b:
+            raise AssertionError(f"phase 13: sweep row {a['label']} differs: {a} != {b}")
+    if len(rows) != len(grid) or len(rows_cpu) != len(grid):
+        raise AssertionError(f"phase 13: {len(rows)} / {len(rows_cpu)} rows for {len(grid)} cells")
+    problems = validate_rows(rows)
+    if problems:
+        raise AssertionError(f"phase 13: validate_rows: {problems}")
+    only_kernels("phase 13 (sweep)", launches_sweep, ("fused_frontier_step", "fused_step"))
+    held_sweep = check_prefetch_launches("phase 13", clock, max_err)
+    if held_sweep != {k: launches_sweep[k] for k in held_sweep}:
+        raise AssertionError(f"phase 13: held {held_sweep} != launches {launches_sweep}")
+    print(
+        f"phase 13: run_sweep(default_grid()) ({len(grid)} cells, scale 0.12) on the card in "
+        f"{wall:.2f} s (CPU {wall_cpu:.2f} s): rows equal the CPU's on every field, "
+        f"validate_rows empty; launches {({k: v for k, v in launches_sweep.items() if v})}, "
+        f"all bit-exact ({held_sweep}); phase 13 wall {time.perf_counter() - t_phase:.1f} s"
+    )
+    del clock, rows, rows_cpu, got, ta, ra, tb, rb, tr
+
     # -- 10. results ------------------------------------------------------ #
     replaces = {
         "fused_frontier_step": "src/repro/kernels/fused_step.py:698",
@@ -2382,6 +2756,19 @@ def main() -> int:
             f"{SERVE['prompt_len'] + SERVE['gen_len']} steps); timed at decode_32k (phase 9b)",
         ),
     }
+    # Phases 11-13: the legacy runs' launches (rows 11-13) and the prefetch
+    # steps the classifier-driven run and the sweep launched (rows 1-2).
+    for name in ("gather_rows_batch", *AGGREGATION_KERNELS):
+        extras.setdefault(name, {})["legacy_launches"] = {
+            "phase 11": launches_legacy[name], "phase 11 (store)": launches_legacy_store[name]}
+    extras["gather_rows_batch"]["legacy_in_run_ms"] = gather_in_run
+    for name in ("fused_frontier_step", "fused_step"):
+        extras.setdefault(name, {}).update({
+            "collect_traces_launches": launches_traces[name],
+            "classifier_launches": launches_clf[name],
+            "preset_launches": {k: v.get(name, 0) for k, v in preset_launches.items()},
+            "sweep_launches": launches_sweep[name],
+        })
     for name in AGGREGATION_KERNELS:  # each phase's in-run median, CUDA events
         extras[name]["in_run_ms"] = {tag: med[name] for tag, med in in_run.items()
                                      if name in med}

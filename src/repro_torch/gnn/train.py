@@ -30,6 +30,12 @@ and ``readback_every=K > 1`` runs the K-step counter readback cadence.
 over the :class:`repro_torch.runtime.engine.PrefetchEngine`, with the
 model on the CPU; a device run whose ids pass ``WIDE_ID_MAX`` falls back
 to it, with the sampler's dedup and the scoring round on the device.
+
+``runtime="legacy"`` runs the reference's one-PE-at-a-time loop
+(:meth:`DistributedTrainer.run_legacy`), the semantic oracle of the
+others: per-PE :class:`PersistentBuffer` lookups and replacement rounds
+on the host, the GraphSAGE step (and a store built on the device) on the
+trainer's device.
 """
 
 from __future__ import annotations
@@ -42,7 +48,7 @@ import torch
 from ..core import scoring
 from ..core.buffer import PersistentBuffer
 from ..core.controller import Controller, make_controller
-from ..core.metrics import GraphMeta
+from ..core.metrics import GraphMeta, Metrics
 from ..graph.generate import (
     CongestionModel,
     Graph,
@@ -53,7 +59,7 @@ from ..graph.generate import (
     make_topology,
 )
 from ..graph.partition import Partitioned
-from ..graph.sampler import MiniBatch, NeighborSampler, SamplerPlane
+from ..graph.sampler import MiniBatch, NeighborSampler, SamplerPlane, unique_remote
 from ..runtime.engine import PrefetchEngine, resolve_device
 from ..kernels import ops
 from .sage import GraphSAGE, fanout_mean, init_sage, params_from_jax
@@ -222,10 +228,6 @@ class RunResult:
         return float(sum(vals)) if vals else float("nan")
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet ({item})")
-
-
 class DistributedTrainer:
     """One experiment: (graph, partitioning, variant, controller, buffer).
 
@@ -254,8 +256,11 @@ class DistributedTrainer:
     (``SamplerPlane(use_kernels=True)``, ``PrefetchEngine(use_kernels=True)``).
     ``telemetry`` (``True`` or a :class:`repro_torch.telemetry.TelemetrySession`)
     runs the experiment under a session that times every kernel
-    dispatcher and span; it lands on ``last_telemetry``. Not ported yet,
-    and refused with ``NotImplementedError``: ``runtime="legacy"``.
+    dispatcher and span; it lands on ``last_telemetry``.
+
+    ``runtime="legacy"`` runs :meth:`run_legacy`, the reference's
+    per-PE host loop, with the model (and a store built here) on
+    ``device``; ``readback_every > 1`` needs the vectorized runtime.
     """
 
     def __init__(
@@ -289,9 +294,7 @@ class DistributedTrainer:
         telemetry: object = False,
         init_params: object = None,
     ):
-        if runtime == "legacy":
-            raise _not_ported("runtime='legacy'", "ROADMAP Queue A item 1")
-        if runtime != "vectorized":
+        if runtime not in ("vectorized", "legacy"):
             raise ValueError(
                 f"runtime must be 'vectorized' or 'legacy', got {runtime!r}"
             )
@@ -312,6 +315,8 @@ class DistributedTrainer:
             )
         if readback_every > 1 and self.device is False:
             raise ValueError("readback_every > 1 requires device=...")
+        if readback_every > 1 and runtime == "legacy":
+            raise ValueError("readback_every > 1 requires runtime='vectorized'")
         self.readback_every = int(readback_every)
         if time_engine not in ("closed_form", "event"):
             raise ValueError(
@@ -640,7 +645,8 @@ class DistributedTrainer:
 
     # ------------------------------------------------------------------ #
     def run(self) -> RunResult:
-        """Execute the experiment: on the trainer's device
+        """Execute the experiment: with ``runtime="legacy"`` on
+        :meth:`run_legacy`; else on the trainer's device
         (:func:`repro_torch.runtime.driver.run_device`), or on the staged
         loop with ``device=False`` or past ``WIDE_ID_MAX``
         (:func:`repro_torch.runtime.driver.run_vectorized`).
@@ -648,19 +654,321 @@ class DistributedTrainer:
         With ``telemetry=...`` set, the run executes under an active
         :class:`repro_torch.telemetry.TelemetrySession`; the session lands
         on ``self.last_telemetry`` and its summary on the result."""
-        from ..runtime.driver import run_vectorized
-
         session = self.make_telemetry()
         if session is None:
-            return run_vectorized(self)
+            return self._run_impl()
         from .. import telemetry as tel
 
         with tel.active(session):
             with session.tracer.span("run", plane="runtime"):
-                result = run_vectorized(self)
+                result = self._run_impl()
         session.meta.setdefault("variant", self.variant)
         session.meta.setdefault("mode", self.mode)
         session.meta.setdefault("num_pes", self.parts.num_parts)
         self.last_telemetry = session
         result.telemetry = session.summary()
         return result
+
+    def _run_impl(self) -> RunResult:
+        if self.runtime == "vectorized":
+            from ..runtime.driver import run_vectorized
+
+            return run_vectorized(self)
+        return self.run_legacy()
+
+    def run_legacy(self) -> RunResult:
+        """The reference's loop: one PE at a time, one Python loop.
+
+        The semantic oracle of the vectorized runtimes: per-PE buffer
+        lookups, decisions and replacement rounds on the host, in PE
+        order, on the numpy :class:`PersistentBuffer` s; the feature store
+        serves each step's misses and admissions in two batched gathers
+        after the PE loop (on its device); the GraphSAGE step is the
+        vectorized loops' :func:`repro_torch.runtime.driver.train_step`
+        on the trainer's device. Every exact stream equals the vectorized
+        runtimes'."""
+        from .. import telemetry as tel
+        from ..runtime.driver import train_step
+        from ..sim import build_step_comm
+
+        P = self.parts.num_parts
+        logs = [TrainerLog() for _ in range(P)]
+        epoch_times: list[float] = []
+        losses: list[float] = []
+        time_engine = self.make_time_engine()
+        recorder = self.make_trace_recorder()
+
+        # Pipeline staleness: ReplaceandFetch overlaps with training, so a
+        # replacement round admits the miss set of the *previous*
+        # minibatch (Algorithm 1 queues the next minibatch before the
+        # decision lands).
+        prev_missed = [np.array([], dtype=np.int64) for _ in range(P)]
+        empty = np.array([], dtype=np.int64)
+
+        for epoch in range(self.epochs):
+            epoch_time = 0.0
+            for mb in range(self.mb_per_epoch):
+                minibatches: list[MiniBatch] = []
+                missed_sets: list[np.ndarray] = []
+                placed_sets: list[np.ndarray] = []
+                stall_ticks: list[float] = []
+                # Trace-only per-PE collections (references, not copies).
+                seed_sets: list[np.ndarray] = []
+                remote_sets: list[np.ndarray] = []
+                hit_counts: list[int] = []
+                occ_pre: list[float] = []
+                # Feature-store captures: hit rows are read at lookup
+                # time, before a replacement can overwrite their slots.
+                hit_mask_sets: list[np.ndarray] = []
+                hit_row_sets: list[np.ndarray] = []
+                _step_sp = tel.begin("step", plane="runtime")
+                for p in range(P):
+                    _pe_sp = tel.begin("pe_step", pe=p, plane="runtime")
+                    ctrl = self.controllers[p]
+                    buf = self.buffers[p]
+                    batch = self._seed_batch(p, epoch, mb)
+                    minibatch = self.sampler.sample(batch, self.rng)
+                    minibatches.append(minibatch)
+                    remote = unique_remote(
+                        minibatch, self.parts.part_of, p,
+                        id_base=self.graph.id_base,
+                    )
+                    n_remote = len(remote)
+
+                    slots = None
+                    if ctrl.uses_buffer and buf.capacity > 0:
+                        hit_mask, slots = buf.lookup(remote)
+                        missed = remote[~hit_mask]
+                        hits = int(hit_mask.sum())
+                        pct_hits = (
+                            100.0 * hits / n_remote if n_remote else 100.0
+                        )
+                    else:
+                        hit_mask = np.zeros(n_remote, dtype=bool)
+                        missed = remote
+                        hits = 0
+                        pct_hits = 0.0
+                    if self.feature_store is not None:
+                        hit_mask_sets.append(hit_mask)
+                        hit_row_sets.append(
+                            buf.features[slots[hit_mask]]
+                            if slots is not None
+                            else np.zeros(
+                                (0, self.feature_store.feature_dim),
+                                dtype=np.float32,
+                            )
+                        )
+                    if recorder is not None:
+                        seed_sets.append(batch)
+                        remote_sets.append(remote)
+                        hit_counts.append(hits)
+                        occ_pre.append(buf.occupancy)
+
+                    comm = len(missed)
+                    metrics = Metrics(
+                        minibatch=mb,
+                        total_minibatches=self.mb_per_epoch,
+                        epoch=epoch,
+                        total_epochs=self.epochs,
+                        pct_hits=pct_hits,
+                        comm_volume=comm,
+                        replaced_pct=(
+                            100.0 * logs[p].replaced[-1] / buf.capacity
+                            if logs[p].replaced and buf.capacity
+                            else 0.0
+                        ),
+                        buffer_occupancy=buf.occupancy,
+                        buffer_capacity=buf.capacity,
+                    )
+                    replace = ctrl.should_replace(metrics)
+                    if ctrl.uses_buffer:
+                        buf.end_round()
+                    replaced = 0
+                    if replace and ctrl.uses_buffer:
+                        replaced = buf.replace(prev_missed[p])
+                    prev_missed[p] = missed
+                    # Replacement traffic (Alg. 1 line 14): the admitted
+                    # nodes are fetched by their own RPC.
+                    comm += replaced
+
+                    logs[p].pct_hits.append(pct_hits)
+                    logs[p].comm_volume.append(comm)
+                    logs[p].comm_missed.append(len(missed))
+                    logs[p].occupancy.append(buf.occupancy)
+                    logs[p].unique_remote.append(n_remote)
+                    logs[p].replaced.append(replaced)
+                    logs[p].decisions.append(bool(replace))
+
+                    # Per-PE communication artifacts, priced after the PE
+                    # loop (link contention couples the PEs).
+                    missed_sets.append(missed)
+                    placed_sets.append(
+                        buf.last_placed
+                        if replace and ctrl.uses_buffer
+                        else empty
+                    )
+                    stall_ticks.append(ctrl.step_stall())
+                    tel.end(_pe_sp)
+
+                step_times = time_engine.step(
+                    build_step_comm(
+                        missed_sets,
+                        placed_sets,
+                        self.parts.part_of,
+                        P,
+                        time_engine.needs_pairs,
+                        id_base=self.graph.id_base,
+                    ),
+                    np.asarray(stall_ticks, dtype=np.float64),
+                )
+                for p in range(P):
+                    logs[p].step_time.append(float(step_times[p]))
+                epoch_time += float(step_times.max())
+
+                # Feature store: serve the step's misses and admissions in
+                # two batched gathers (hit rows were captured at lookup).
+                store_kwargs: dict = {}
+                if self.feature_store is not None:
+                    store = self.feature_store
+                    F = store.feature_dim
+                    miss_g = store.gather_batch(missed_sets)
+                    placed_g = store.gather_batch(placed_sets)
+                    fetch_seconds = miss_g.seconds + placed_g.seconds
+                    feat_sums = np.zeros(P, dtype=np.float64)
+                    bytes_measured = np.zeros(P, dtype=np.int64)
+                    bytes_modeled = np.zeros(P, dtype=np.int64)
+                    for p in range(P):
+                        if len(placed_sets[p]):
+                            self.buffers[p].fill_rows(
+                                placed_sets[p], placed_g.blocks[p]
+                            )
+                        block = np.empty(
+                            (len(hit_mask_sets[p]), F), dtype=np.float32
+                        )
+                        block[hit_mask_sets[p]] = hit_row_sets[p]
+                        block[~hit_mask_sets[p]] = miss_g.blocks[p]
+                        feat_sums[p] = block.sum(dtype=np.float64)
+                        bytes_measured[p] = (
+                            miss_g.blocks[p].nbytes + placed_g.blocks[p].nbytes
+                        )
+                        bytes_modeled[p] = (
+                            logs[p].comm_volume[-1] * F * self.tm.feature_bytes
+                        )
+                        logs[p].bytes_measured.append(int(bytes_measured[p]))
+                        logs[p].bytes_modeled.append(int(bytes_modeled[p]))
+                        logs[p].fetch_seconds.append(float(fetch_seconds))
+                        logs[p].feat_sums.append(float(feat_sums[p]))
+                    store_kwargs = dict(
+                        feat_sums=feat_sums,
+                        bytes_measured=bytes_measured,
+                        bytes_modeled=bytes_modeled,
+                        fetch_time_measured=np.full(
+                            P, fetch_seconds, dtype=np.float64
+                        ),
+                    )
+                if recorder is not None:
+                    recorder.record_step(
+                        seeds=seed_sets,
+                        remote=remote_sets,
+                        missed=missed_sets,
+                        placed=placed_sets,
+                        decisions=[logs[p].decisions[-1] for p in range(P)],
+                        stalls=np.asarray(stall_ticks, dtype=np.float64),
+                        pct_hits=[logs[p].pct_hits[-1] for p in range(P)],
+                        hits=hit_counts,
+                        n_remote=[logs[p].unique_remote[-1] for p in range(P)],
+                        replaced=[logs[p].replaced[-1] for p in range(P)],
+                        total_comm=[logs[p].comm_volume[-1] for p in range(P)],
+                        occupancy_pre=occ_pre,
+                        occupancy_post=[logs[p].occupancy[-1] for p in range(P)],
+                        step_times=step_times,
+                        controllers=self.controllers,
+                        **store_kwargs,
+                    )
+                if self.train_model:
+                    _train_sp = tel.begin("train", plane="train")
+                    losses.append(train_step(self, minibatches))
+                    tel.end(_train_sp)
+                tel.end(_step_sp)
+            epoch_times.append(epoch_time)
+
+        accuracy = 0.0
+        if self.train_model:
+            batch = self.graph.train_nodes[: min(512, len(self.graph.train_nodes))]
+            minibatch = self.sampler.sample(batch, self.rng)
+            accuracy = self.model.accuracy(
+                *self._features_of(minibatch), aggregated=True
+            )
+
+        trace = None
+        if recorder is not None:
+            trace = recorder.finalize(epoch_times, time_engine.events)
+            self.last_trace = trace
+
+        return RunResult(
+            variant=self.variant,
+            epoch_times=epoch_times,
+            losses=losses,
+            accuracy=accuracy,
+            logs=logs,
+            controllers=self.controllers,
+            graph_meta=self.graph_meta,
+            sim_events=time_engine.events,
+            trace=trace,
+        )
+
+
+def collect_traces(
+    parts: Partitioned,
+    buffer_frac: float = 0.25,
+    batch_size: int = 256,
+    epochs: int = 3,
+    seed: int = 0,
+    device="cuda",
+) -> tuple[np.ndarray, np.ndarray]:
+    """Trace-only mode (§4.4): run DistDGL+fixed with training disabled,
+    record per-minibatch features and S'-labels for offline classifier
+    training. Returns (X, y), equal to the reference's: every stream the
+    features are built from is exact, and the features are numpy.
+    ``device`` is the trainer's (``"cuda"``, ``"cpu"`` or ``False``)."""
+    from ..core.classifiers import featurize, label_traces
+
+    trainer = DistributedTrainer(
+        parts,
+        variant="fixed",
+        buffer_frac=buffer_frac,
+        batch_size=batch_size,
+        epochs=epochs,
+        train_model=False,
+        seed=seed,
+        device=device,
+    )
+    result = trainer.run()
+    X_rows, y_rows = [], []
+    for p, log in enumerate(result.logs):
+        hits = np.array(log.pct_hits)
+        comm = np.array(log.comm_volume, dtype=np.float64)
+        repl = np.array(log.replaced, dtype=np.float64)
+        labels = label_traces(hits, comm, repl)
+        cap = trainer.buffers[p].capacity
+        prev = None
+        recent: list[float] = []
+        recent_c: list[int] = []
+        for i in range(len(hits)):
+            m = Metrics(
+                minibatch=i % trainer.mb_per_epoch,
+                total_minibatches=trainer.mb_per_epoch,
+                epoch=i // trainer.mb_per_epoch,
+                total_epochs=epochs,
+                pct_hits=float(hits[i]),
+                comm_volume=int(comm[i]),
+                replaced_pct=100.0 * repl[i] / cap if cap else 0.0,
+                buffer_occupancy=float(log.occupancy[i]),
+                buffer_capacity=cap,
+            )
+            recent.append(float(hits[i]))
+            recent_c.append(int(comm[i]))
+            X_rows.append(featurize(m, prev, recent[-16:], recent_c[-16:]))
+            y_rows.append(labels[i])
+            prev = m
+    return np.stack(X_rows), np.array(y_rows, dtype=np.float32)

@@ -10,12 +10,23 @@
   or device-resident;
 * :func:`run_vectorized` — the minibatch loop of
   ``DistributedTrainer.run``: the staged loop, or :func:`run_device`, the
-  device-resident one.
+  device-resident one;
+* :func:`run_sweep` — the one-process grid runner over
+  (graph, num_parts, batch_size, fanout, controller, policy, topology)
+  configurations (:mod:`repro_torch.runtime.sweep`).
 """
 
 from .driver import run_device, run_vectorized
 from .engine import DeviceEngine, EngineStats, PrefetchEngine
 from .stage import DecisionStage, FetchStage, FusedFetchStage, SampleStage
+from .sweep import (
+    SweepConfig,
+    default_grid,
+    run_sweep,
+    sweep_artifact,
+    validate_rows,
+    write_sweep_json,
+)
 
 __all__ = [
     "PrefetchEngine",
@@ -27,4 +38,10 @@ __all__ = [
     "FusedFetchStage",
     "run_device",
     "run_vectorized",
+    "SweepConfig",
+    "default_grid",
+    "run_sweep",
+    "sweep_artifact",
+    "validate_rows",
+    "write_sweep_json",
 ]

@@ -2,7 +2,7 @@
 
 Every ``BENCH_*.json`` writer and ``write_sweep_json`` stamps this
 header so trajectory comparisons across PRs are attributable: which
-commit, which platform, which torch and CUDA. Deliberately no
+commit, which platform, which torch and CUDA, which card. Deliberately no
 wall-clock timestamp — artifacts from the same checkout must stay
 byte-identical across reruns so they diff cleanly. The header has the
 reference's keys, with ``torch`` and ``cuda`` where the reference
@@ -50,4 +50,8 @@ def provenance() -> dict:
         # None on a CPU-only build of torch.
         "cuda": torch.version.cuda or "none",
         "numpy": np.__version__,
+        # The card the artifact's runs could use ("cpu" without one).
+        "device": (
+            torch.cuda.get_device_name(0) if torch.cuda.is_available() else "cpu"
+        ),
     }

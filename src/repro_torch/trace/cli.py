@@ -2,12 +2,14 @@
 
 The reference's trace CLI on the port's trainer. Every subcommand that
 runs a trainer takes ``--device`` (``cuda`` by default, or ``cpu``): a
-trace config's ``"device"`` and ``"runtime"`` keys name the reference's
-paths (``False`` / ``"vectorized"`` is its staged loop), and the CLI
-runs every config on the port's device-resident loop, whose streams the
-reference holds bit-identical to the staged ones; from Python,
-:func:`record_trace` and :func:`build_trainer` also take
-``device=False``, the port's staged loop. So
+trace config's ``"device"`` key names the reference's path (``False`` is
+its staged loop) and is not read: the CLI runs a ``"vectorized"`` config
+on the port's device-resident loop, whose streams the reference holds
+bit-identical to the staged ones, and a ``"legacy"`` one (or
+``replay --runtime legacy``) on the port's legacy loop, its model and
+store on the device; from Python, :func:`record_trace` and
+:func:`build_trainer` also take ``device=False``, the port's staged
+loop. So
 ``python -m repro_torch.trace verify tests/golden --device cuda``
 re-records the committed goldens on the card.
 
@@ -91,8 +93,9 @@ def build_trainer(
     ``num_parts``-way. Experiment cells never train the model
     (``train_model=False``). The config's ``"device"`` key is the
     reference's and is not read: ``device`` is the port's (``"cuda"``,
-    ``"cpu"``, or ``False`` for the staged loop); ``runtime="legacy"``
-    raises, as the port's trainer does.
+    ``"cpu"``, or ``False`` for the staged loop). ``runtime`` (or the
+    config's ``"runtime"``) picks the loop: ``"vectorized"``, or
+    ``"legacy"``, the per-PE host loop, with the store on ``device``.
     """
     from ..core import LLMAgent, make_backend
     from ..gnn import DistributedTrainer
@@ -354,7 +357,7 @@ def make_parser() -> argparse.ArgumentParser:
         help="what to re-run against the recorded upstream streams",
     )
     rep.add_argument(
-        "--runtime", choices=("vectorized",), default=None,
+        "--runtime", choices=("vectorized", "legacy"), default=None,
         help="override the recorded runtime (full replay)",
     )
     rep.add_argument("--json", default=None, help="write the JSON report here")

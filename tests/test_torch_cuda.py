@@ -22,7 +22,9 @@ NaN, and with its per-kernel launch counts by dtype), short
 trainer runs on the card (narrow, rebased past ``2**31``, on the
 readback cadence, the staged fall-back past ``WIDE_ID_MAX``, and one
 under a telemetry session) against the same runs on the CPU, and one
-committed golden trace re-recorded on the card.
+committed golden trace re-recorded on the card; the legacy runtime at
+``scale=1`` (its GraphSAGE step on the card), the six classifiers fitted
+on the card and a 2-cell sweep, each against the CPU.
 """
 
 import itertools
@@ -837,3 +839,80 @@ def test_mla_flash_decode_kernel_by_dtype(card):
         assert {k: v - before[k] for k, v in md.KERNEL_LAUNCHES.items()} == {
             name: 2 if name == kernel else 0 for name in md.KERNEL_LAUNCHES
         }
+
+
+# --------------------------------------------------------------------------- #
+# The legacy runtime, the classifier plane and the sweep on the card.
+def test_legacy_on_the_card_matches_cpu(card):
+    """The scale-1 legacy run, GraphSAGE on the card (``gather_mean`` and
+    ``segment_sum_equal`` once per PE, step and mean, plus the accuracy
+    pass), against the same run on the CPU and the vectorized run."""
+    from dataclasses import asdict
+
+    from repro_torch.gnn import DistributedTrainer
+    from repro_torch.graph import generate, partition_graph
+
+    parts = partition_graph(generate("products", seed=0, scale=1), 4)
+    kw = dict(variant="rudder", deciders=["gemma3-4b"], epochs=2, batch_size=256,
+              runtime="legacy")
+    on_card = DistributedTrainer(parts, device="cuda", **kw)
+    before = dict(native.LAUNCHES)
+    a = on_card.run()
+    torch.cuda.synchronize()
+    calls = 4 * on_card.epochs * on_card.mb_per_epoch + 1
+    assert native.LAUNCHES["gather_mean"] == before["gather_mean"] + calls
+    assert native.LAUNCHES["segment_sum_equal"] == before["segment_sum_equal"] + calls
+    assert native.LAUNCHES["fused_frontier_step"] == before["fused_frontier_step"]
+    b = DistributedTrainer(parts, device="cpu", **kw).run()
+    c = DistributedTrainer(parts, device="cuda", **dict(kw, runtime="vectorized")).run()
+    for run in (b, c):
+        assert [asdict(x) for x in a.logs] == [asdict(y) for y in run.logs]
+        assert a.epoch_times == run.epoch_times
+        np.testing.assert_allclose(a.losses, run.losses, rtol=1e-4, atol=1e-5)
+
+
+def test_classifier_fits_on_the_card_match_cpu(card):
+    """Every model fitted on the card and on the CPU from the same
+    initial arrays: equal decisions on every row; the card's fitted model
+    gives its own logits on the CPU to 1e-5; the two fits' logits agree
+    to 1e-3 (200 SGD steps amplify the card's summation order where a
+    ReLU or hinge kink switches: 9.9e-4 on ``mlp``, at most 3.3e-6 on the
+    others, NVIDIA H100 80GB HBM3, 700 W)."""
+    from repro_torch.core import make_classifier
+
+    rng = np.random.default_rng(0)
+    X = rng.uniform(0, 1, size=(400, 8)).astype(np.float32)
+    y = ((X[:, 0] < 0.5) & (X[:, 2] > 0.3)).astype(np.float32)
+    for name in ("lr", "mlp", "svm", "tabnet", "rf", "xgb"):
+        fitted = []
+        for dev in ("cuda", "cpu"):
+            clf = make_classifier(name, device=dev)
+            if hasattr(clf, "init_params"):
+                init = {k: v.numpy() for k, v in clf.init_params().items()}
+                clf.fit(X[:300], y[:300], init=init)
+            else:
+                clf.fit(X[:300], y[:300])
+            fitted.append(clf)
+        on_card, on_cpu = fitted
+        if hasattr(on_card, "params"):
+            xs = torch.from_numpy(X)
+            with torch.no_grad():
+                za = on_card.logits(on_card.params, xs.cuda()).cpu().numpy()
+                zc = on_card.logits({k: v.cpu() for k, v in on_card.params.items()}, xs)
+                zb = on_cpu.logits(on_cpu.params, xs).numpy()
+            np.testing.assert_allclose(za, zc.numpy(), rtol=1e-5, atol=1e-5)
+            np.testing.assert_allclose(za, zb, rtol=1e-3, atol=1e-3)
+        else:
+            assert on_card.stumps == on_cpu.stumps
+        assert [on_card.decide(x) for x in X] == [on_cpu.decide(x) for x in X]
+
+
+def test_sweep_on_the_card_matches_cpu(card):
+    from repro_torch.runtime import default_grid, run_sweep, validate_rows
+
+    grid = default_grid(num_parts=(2,), batch_sizes=(16,), fanouts=((5, 10),),
+                        variants=("fixed", "massivegnn"), epochs=2)
+    assert len(grid) == 2
+    rows = run_sweep(grid, device="cuda")
+    assert rows == run_sweep(grid, device="cpu")
+    assert validate_rows(rows) == []

@@ -76,6 +76,8 @@ def no_card(monkeypatch):
 
 
 def test_cuda_without_a_card_raises(no_card):
+    """Every entry point asks for the card by default and raises without
+    one; none carries on on the CPU."""
     from repro_torch.gnn import DistributedTrainer
     from repro_torch.graph import generate, partition_graph
     from repro_torch.runtime.engine import DeviceEngine, PrefetchEngine, resolve_device
@@ -87,8 +89,24 @@ def test_cuda_without_a_card_raises(no_card):
     parts = partition_graph(generate("products", seed=0, scale=0.05), 2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DistributedTrainer(parts, variant="fixed", train_model=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DistributedTrainer(parts, variant="fixed", train_model=False, runtime="legacy")
     with pytest.raises(ValueError, match="CUDA device or 'cpu'"):
         resolve_device("meta")
+    # This slice's entry points default to the card too.
+    from repro_torch.configs.rudder_gnn import build_trainer
+    from repro_torch.core import make_classifier
+    from repro_torch.gnn.train import collect_traces
+    from repro_torch.runtime import SweepConfig, run_sweep
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        collect_traces(parts, epochs=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_classifier("mlp").fit(np.zeros((4, 8), np.float32), np.ones(4, np.float32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_trainer("products_25pct_fixed")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_sweep([SweepConfig(num_parts=2, epochs=1)], scale=0.05)
 
 
 def _run_smoke(cwd: Path):

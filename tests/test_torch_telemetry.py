@@ -11,11 +11,13 @@ TimeModel calibration. Artifacts load across the two packages both ways:
 the reference's ``load_jsonl`` and CLI read the port's JSONL, and the
 port's read the reference's.
 
-Not mirrored: ``test_legacy_runtime_emits_per_pe_tracks`` waits for the
-port's legacy runtime (``runtime="legacy"``, ROADMAP Queue A item 1),
-and ``test_sweep_rows_carry_telemetry_brief`` for ``runtime/sweep.py``;
-the per-PE Chrome tracks, which only the legacy runtime records, are
-checked on spans opened per PE by hand.
+The legacy runtime (``runtime="legacy"``) records per-PE tracks
+(``test_legacy_runtime_emits_per_pe_tracks``) and its session goes
+through the exporters as the reference's ``TestExport`` does
+(:class:`TestLegacyExport`); the device loop's session, which records no
+per-PE span, checks the Chrome tracks on spans opened per PE by hand.
+The sweep's rows carry the telemetry brief
+(``tests/test_torch_sweep.py::test_sweep_rows_carry_telemetry_brief``).
 
 Tolerances: none; every comparison is exact (digests, streams, counts),
 except the calibration fits, held as in the reference.
@@ -365,6 +367,20 @@ class TestContract:
         assert len(train) == t.epochs * t.mb_per_epoch
         assert all(s.plane == "train" for s in train)
 
+    def test_legacy_runtime_emits_per_pe_tracks(self, parts, off_run):
+        t_off, _ = off_run
+        t_leg = DistributedTrainer(
+            parts, runtime="legacy", telemetry=True, **DEVICE
+        )
+        t_leg.run()
+        assert (
+            t_leg.last_trace.exact_digest() == t_off.last_trace.exact_digest()
+        )
+        pes = {s.pe for s in t_leg.last_telemetry.tracer.spans}
+        assert pes == {-1, 0, 1, 2, 3}
+        pe_steps = [s for s in t_leg.last_telemetry.tracer.spans if s.name == "pe_step"]
+        assert len(pe_steps) == 4 * t_leg.epochs * t_leg.mb_per_epoch
+
     def test_session_passed_through_and_meta_stamped(self, parts):
         session = TelemetrySession(label="custom")
         t = DistributedTrainer(parts, telemetry=session, **DEVICE)
@@ -402,6 +418,39 @@ class TestContract:
 # ---------------------------------------------------------------------- #
 # exporters: JSONL round-trip + Chrome-trace validation
 # ---------------------------------------------------------------------- #
+def _check_chrome_tracks(session, tmp_path):
+    """The session's Chrome trace: loads, a host track and one per PE,
+    every span inside a parent on its own track."""
+    path = tmp_path / "trace.json"
+    session.write_chrome_trace(path)
+    doc = json.loads(path.read_text())
+    events = doc["traceEvents"]
+    names = {
+        e["args"]["name"]: e["tid"]
+        for e in events
+        if e.get("ph") == "M" and e["name"] == "thread_name"
+    }
+    assert names["host"] == 0
+    for p in range(4):
+        assert names[f"PE {p}"] == p + 1
+    complete = [e for e in events if e.get("ph") == "X"]
+    assert complete
+    for e in complete:
+        assert e["dur"] >= 0 and e["ts"] >= 0
+    eps = 1e-3  # float µs rounding
+    for e in complete:
+        d = e["args"]["depth"]
+        if d == 0:
+            continue
+        parents = [
+            p for p in complete
+            if p["tid"] == e["tid"] and p["args"]["depth"] == d - 1
+            and p["ts"] - eps <= e["ts"]
+            and e["ts"] + e["dur"] <= p["ts"] + p["dur"] + eps
+        ]
+        assert parents, f"span {e['name']} has no enclosing parent"
+
+
 class TestExport:
     @pytest.fixture(scope="class")
     def session(self, parts):
@@ -432,40 +481,14 @@ class TestExport:
 
     def test_chrome_trace_validates(self, session, tmp_path):
         """The Chrome-trace JSON loads, every span nests within a parent
-        on its track, and each PE's spans get their own thread track."""
+        on its track, and each PE's spans get their own thread track (the
+        device loop records none: they are opened here by hand)."""
         with tel.active(session):
             for p in range(4):
                 with session.tracer.span("pe_step", pe=p, plane="runtime"):
                     with session.tracer.span("fetch.commit", pe=p):
                         pass
-        path = tmp_path / "trace.json"
-        session.write_chrome_trace(path)
-        doc = json.loads(path.read_text())
-        events = doc["traceEvents"]
-        names = {
-            e["args"]["name"]: e["tid"]
-            for e in events
-            if e.get("ph") == "M" and e["name"] == "thread_name"
-        }
-        assert names["host"] == 0
-        for p in range(4):
-            assert names[f"PE {p}"] == p + 1
-        complete = [e for e in events if e.get("ph") == "X"]
-        assert complete
-        for e in complete:
-            assert e["dur"] >= 0 and e["ts"] >= 0
-        eps = 1e-3  # float µs rounding
-        for e in complete:
-            d = e["args"]["depth"]
-            if d == 0:
-                continue
-            parents = [
-                p for p in complete
-                if p["tid"] == e["tid"] and p["args"]["depth"] == d - 1
-                and p["ts"] - eps <= e["ts"]
-                and e["ts"] + e["dur"] <= p["ts"] + p["dur"] + eps
-            ]
-            assert parents, f"span {e['name']} has no enclosing parent"
+        _check_chrome_tracks(session, tmp_path)
 
     def test_chrome_trace_from_loaded_artifact(self, session, tmp_path):
         jsonl = write_jsonl(session, tmp_path / "run.jsonl")
@@ -499,6 +522,26 @@ class TestExport:
         assert tel_main(["chrome", str(path), "--out", str(out)]) == 0
         capsys.readouterr()
         assert json.loads(out.read_text())["traceEvents"]
+
+
+class TestLegacyExport:
+    """The exporters on a legacy-runtime session, as the reference's
+    ``TestExport``: its per-PE tracks are the run's own."""
+
+    @pytest.fixture(scope="class")
+    def session(self, parts):
+        t = DistributedTrainer(parts, runtime="legacy", telemetry=True, **DEVICE)
+        t.run()
+        return t.last_telemetry
+
+    test_jsonl_round_trip = TestExport.test_jsonl_round_trip
+    test_chrome_trace_from_loaded_artifact = TestExport.test_chrome_trace_from_loaded_artifact
+    test_port_artifact_loads_in_the_reference = (
+        TestExport.test_port_artifact_loads_in_the_reference
+    )
+
+    def test_chrome_trace_validates(self, session, tmp_path):
+        _check_chrome_tracks(session, tmp_path)
 
 
 # ---------------------------------------------------------------------- #
@@ -651,9 +694,12 @@ class TestIntegration:
     def test_provenance_header(self):
         p = provenance()
         assert p["schema"] == 1
-        for key in ("git_sha", "platform", "python", "torch", "cuda", "numpy"):
+        for key in ("git_sha", "platform", "python", "torch", "cuda", "numpy", "device"):
             assert isinstance(p[key], str) and p[key]
         assert p["torch"] == torch.__version__
+        assert p["device"] == (
+            torch.cuda.get_device_name(0) if torch.cuda.is_available() else "cpu"
+        )
         assert "jax" not in p
         json.dumps(p)
 

@@ -6,6 +6,11 @@
   ``feature_store=True``: each ``exact_digest()`` equals the committed
   golden's, and the store runs measure exactly the modeled bytes
   (``bytes_measured == bytes_modeled``).
+* The goldens again on the legacy runtime (``runtime="legacy"``),
+  modeled and with the store; the legacy and vectorized runtimes record
+  the same whole trace (``digest()``) for every variant and mode, equal
+  to the reference's legacy trace; ``replay --runtime legacy`` through
+  the CLI.
 * A ragged-seed-block trace recorded by the port equals the reference's
   (``device="jnp"``) under ``diff_traces`` on the exact fields.
 * Each package's ``load_trace`` reads the other's saved file, and
@@ -62,6 +67,62 @@ def test_goldens_re_record_on_the_staged_loop(path, store):
         )
     else:
         assert ttrace.diff_traces(golden, fresh).identical
+
+
+@pytest.mark.parametrize("store", [False, True], ids=["modeled", "store"])
+@pytest.mark.parametrize("path", GOLDENS, ids=[Path(p).stem for p in GOLDENS])
+def test_goldens_re_record_on_the_legacy_loop(path, store):
+    """``runtime="legacy"``: the per-PE host loop records each golden's
+    exact streams (mirrors the reference's
+    ``test_golden_conformance_both_runtimes``, on all 8)."""
+    golden = ttrace.load_trace(path)
+    config = dict(golden.config, feature_store=store)
+    fresh = tcli.record_trace(config, runtime="legacy", device="cpu")
+    assert fresh.config["runtime"] == "legacy"
+    assert fresh.exact_digest() == golden.exact_digest()
+    assert fresh.num_steps == golden.num_steps == 14
+    if store:
+        np.testing.assert_array_equal(
+            fresh.arrays["bytes_measured"], fresh.arrays["bytes_modeled"]
+        )
+    else:
+        assert ttrace.diff_traces(golden, fresh).identical
+
+
+RUNTIME_CONFIG = dict(
+    dataset="products", scale=0.05, num_parts=2, batch_size=8, fanouts=[3, 5],
+    epochs=2, interval=4, seed=0,
+)
+
+
+@pytest.mark.parametrize("mode", ["async", "sync"])
+@pytest.mark.parametrize("variant", ["distdgl", "fixed", "massivegnn", "rudder"])
+def test_bit_identical_across_runtimes(variant, mode):
+    """The reference's ``test_trace.py:61``: both runtimes record the same
+    whole trace, and it is the reference's legacy trace."""
+    config = dict(RUNTIME_CONFIG, variant=variant, mode=mode)
+    vec = tcli.record_trace(config, runtime="vectorized", device="cpu")
+    leg = tcli.record_trace(config, runtime="legacy", device="cpu")
+    ref = jrecord(config, runtime="legacy")
+    report = ttrace.diff_traces(vec, leg)
+    assert report.identical, report.render()
+    assert vec.digest() == leg.digest() == ref.digest()
+
+
+def test_cli_replay_on_the_legacy_runtime(tmp_path, capsys):
+    """The reference's ``test_trace.py:464``: a recorded trace replays
+    clean on the legacy runtime, whole and through the time plane."""
+    out = str(tmp_path / "cli")
+    args = [
+        "record", "--out", out, "--scale", "0.05", "--num-parts", "2",
+        "--batch-size", "8", "--fanouts", "3,5", "--epochs", "2",
+        "--variant", "fixed", "--device", "cpu",
+    ]
+    assert tcli.main(args) == 0
+    assert tcli.main(["replay", out, "--runtime", "legacy", "--device", "cpu"]) == 0
+    assert tcli.main(["replay", out, "--plane", "time", "--runtime", "legacy",
+                      "--device", "cpu"]) == 0
+    assert "identical" in capsys.readouterr().out.lower()
 
 
 def test_goldens_are_eight():

@@ -207,14 +207,16 @@ def test_feature_store_true_builds_a_store_on_the_trainer_device(parts):
 @pytest.mark.parametrize(
     "kwargs,match",
     [
-        (dict(runtime="legacy"), "legacy"),
+        (dict(runtime="eager"), "legacy"),
     ],
 )
 def test_unported_options_raise(parts, kwargs, match):
+    """Every option of the reference is ported; an unknown runtime raises
+    ``ValueError`` naming the two there are, as the reference's does."""
     _, port = parts
     kw = dict(COMMON, variant="fixed", device="cpu")
     kw.update(kwargs)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(ValueError, match=match):
         tgnn.DistributedTrainer(port, **kw)
 
 
@@ -244,13 +246,6 @@ def test_unported_run_paths_raise(parts, kwargs, match):
         )
     launches = COMMON["epochs"] * tr.mb_per_epoch + 1
     assert tr.last_device_engine.transfers["d2h"] == -(-launches // 2)
-
-
-def test_legacy_refusal_names_its_roadmap_item(parts):
-    _, port = parts
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 1"):
-        tgnn.DistributedTrainer(port, **dict(COMMON, variant="fixed", device="cpu",
-                                             runtime="legacy"))
 
 
 FETCH_LOGS = [
