@@ -104,21 +104,37 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    run, equal to phase 3; then phase 8's ``sample`` and ``fetch.commit``
    medians beside 8b's and phase 3's in one line;
 9. DeepSeek-V3's serving path at full width: ``serve_batch`` on
-   ``CONFIG.with_overrides(num_layers=3)`` (the checkpoint's three dense
-   layers, 128 heads, vocabulary 129,280, bf16, random weights from a
+   ``CONFIG.with_overrides(num_layers=5)`` (the checkpoint's three dense
+   layers and two MoE layers of 256 routed experts top-8 and one shared,
+   128 heads, vocabulary 129,280, bf16, 54.6 GB of random weights from a
    seed), 4 requests, prompt 256, 32 generated tokens: exactly
-   3 x 288 ``mla_flash_decode`` launches, all on the tensor-core kernel,
-   and no other kernel, the kernel
-   against its plain version on the captured inputs of a prefill step and
-   the last step, decode time per step, tokens/s and peak memory;
+   5 x 288 ``mla_flash_decode`` launches, all on the tensor-core kernel,
+   and no other kernel, the kernel against its plain version on the
+   captured inputs of a prefill step and the last step; tokens in range;
+   decode time per step, tokens/s, peak memory, the distinct experts a
+   MoE layer touches per step (its serve inputs routed again) and the MoE
+   layers' share of the decode step (CUDA events around each
+   ``moe_forward``); ``make_prefill_step`` on the same prompts (wall
+   time, its last-position logits against the decode path's); one MoE
+   layer alone at decode (4 tokens) and prefill (1024 tokens): ms, the
+   expert bytes it reads, their HBM bound, and what a host read of its
+   expert counts would cost (``moe_forward`` reads none);
 9b. ``mla_flash_decode`` at the reference's ``decode_32k`` shape (batch
    128, cache 32768, bf16, peaked scores): the ``-Xptxas -v`` report of
    its kernels, against its plain version (3e-2, and within 1e-2 of the
    plain output's largest value), timed beside the plain version,
    ``scaled_dot_product_attention`` and its bound, the split kernel alone
    by torch.profiler and the share of the bound reached;
-9c. card vs CPU: the dense smoke config in float32 served on both devices
-   from the same weights: greedy tokens identical, logits allclose 1e-4;
+9c. card vs CPU: the smoke configs of the six ported architectures
+   (DeepSeek-V3, Phi-3.5-MoE, Qwen3-8B, Phi-3-mini, Minitron-4B,
+   Gemma2-2B) in float32, served on both devices from the same weights:
+   greedy tokens identical, decode and prefill logits allclose 1e-4, the
+   MLA configs' launches all on the CUDA-core kernel and the GQA ones'
+   none; ``forward`` vs token-by-token decode on the card within 1e-3 x
+   max(|logits|, 1) (Gemma2 at S = 14, past its window of 8); the two MoE
+   configs' decode twice on the card, bit-identical;
+9d. Qwen3-8B whole (36 layers, 16.4 GB of bf16) served as phase 9 with
+   no native kernel launched, printed as phase 9 (with its prefill step);
 11. the legacy runtime (``runtime="legacy"``, the per-PE host loop, its
    GraphSAGE step on the card): phase 3's graph and run, every stream,
    ``epoch_times`` and the accuracy equal to phase 3's, the buffers' stats
@@ -157,7 +173,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    around each dispatcher call) prints on phases 3, 3b, 6, 6b and 8.
 
 Each path's launch counts are zeroed just before it runs and read just
-after (the serving path launches ``mla_flash_decode`` only); the device loops (phases 3, 3b, 6, 6b, 7) launch neither of the
+after (the serving path launches ``mla_flash_decode`` only, phase 9d none); the device loops (phases 3, 3b, 6, 6b, 7) launch neither of the
 staged pipeline's kernels, and every training run launches the two
 aggregation kernels exactly once per PE, step and mean, plus the
 accuracy pass. Every phase raises on failure, so any failure exits non-zero.
@@ -207,12 +223,18 @@ SMALL = dict(RUN, batch_size=256, epochs=2)
 SMALL_RAGGED = dict(RUN, batch_size=72, epochs=2)
 MAIN_SCALE, RAGGED_SCALE, SMALL_SCALE, SMALL_RAGGED_SCALE = 10, 10, 1, 0.15
 DEVICE = "cuda"
-#: Phase 9: DeepSeek-V3's serving path at full width, cut to the
-#: checkpoint's three dense layers; 4 requests, prompt 256, 32 tokens.
+#: Phase 9: DeepSeek-V3's serving path at full width, cut in depth to its
+#: first five layers (the checkpoint's three dense layers and two MoE
+#: layers, 54.6 GB of bf16); 4 requests, prompt 256, 32 tokens.
 ARCH = "deepseek-v3-671b"
-SERVE_LAYERS = 3
+SERVE_LAYERS = 5
 SERVE = dict(requests=4, prompt_len=256, gen_len=32, seed=0)
-#: Phase 9c: the dense smoke config on the card and the CPU.
+#: Phase 9d: Qwen3-8B whole (36 layers, 16.4 GB of bf16), the same requests.
+WHOLE_ARCH = "qwen3-8b"
+#: Phase 9c: the smoke configs of the six ported architectures on the
+#: card and the CPU.
+ZOO = ("deepseek-v3-671b", "phi3.5-moe-42b-a6.6b", "qwen3-8b", "phi3-mini-3.8b",
+       "minitron-4b", "gemma2-2b")
 SERVE_SMALL = dict(requests=3, prompt_len=12, gen_len=12, seed=1)
 #: Phase 2's MLA sweep, B, H, r, rr, S: the reference test's shapes,
 #: phase 9's, H 72 (not a multiple of the tensor-core kernel's 64-head
@@ -738,6 +760,255 @@ class LaunchCapture:
                 )
             self.calls += 1
         return fn(*args, **kwargs)
+
+
+class ServeCapture(LaunchCapture):
+    """:class:`LaunchCapture` that also watches ``moe_forward``: it keeps
+    each call's input (cloned), for the experts a step touches, or with
+    ``timed=True`` times each call by CUDA events instead."""
+
+    def __init__(self, name="", keep=(), timed=False):
+        super().__init__(name, keep)
+        self.timed = timed
+        self.moe_inputs, self.moe_events = [], []
+
+    def profile_call(self, name, fn, *args, **kwargs):
+        import torch
+
+        if name != "moe_forward":
+            return super().profile_call(name, fn, *args, **kwargs)
+        if not self.timed:
+            self.moe_inputs.append(args[2].detach().clone())
+            return fn(*args, **kwargs)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kwargs)
+        end.record()
+        self.moe_events.append((start, end))
+        return out
+
+
+def serve_prompts(cfg, device):
+    """The prompts ``serve_batch`` draws for ``SERVE`` (its own rng)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SERVE["seed"])
+    prompts = rng.integers(1, min(cfg.vocab_size, 1000),
+                           size=(SERVE["requests"], SERVE["prompt_len"]))
+    return torch.from_numpy(prompts.astype(np.int32)).to(device)
+
+
+def expert_bytes(cfg, used: int) -> int:
+    """Bytes of weights a MoE layer reads with ``used`` routed experts in
+    use: their three matrices, the shared experts' and the float32
+    router."""
+    m = cfg.moe
+    width = 2 if cfg.dtype == "bfloat16" else 4
+    return ((used + m.num_shared_experts) * 3 * cfg.d_model * m.d_ff_expert * width
+            + cfg.d_model * m.num_experts * 4)
+
+
+def experts_touched(cfg, router, x) -> int:
+    from repro_torch.models import moe
+
+    return moe._route(cfg, router, x.reshape(-1, x.shape[-1]))[1].unique().numel()
+
+
+def moe_layer_alone(cfg, p, x, flush, reps=5) -> dict:
+    """One MoE layer (``moe_forward`` on its captured input ``x``): device
+    ms by CUDA events (L2 flushed, mean of ``reps`` after a warm call), the
+    experts it reads and their bytes, the HBM bound of those bytes, and
+    what a host read of its expert counts would cost (``bincount`` of its
+    routing copied to the host: host ms, median of 20 on the idle card;
+    ``moe_forward`` itself reads nothing back)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import moe
+
+    with torch.no_grad():
+        moe.moe_forward(cfg, p, x)
+        ms = timed_ms(lambda: moe.moe_forward(cfg, p, x), reps, flush)
+        idx = moe._route(cfg, p["router"], x.reshape(-1, x.shape[-1]))[1].reshape(-1)
+        reads = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.bincount(idx, minlength=cfg.moe.num_experts).tolist()
+            reads.append(1e3 * (time.perf_counter() - t0))
+    used = idx.unique().numel()
+    nbytes = expert_bytes(cfg, used)
+    return {"tokens": x.shape[0] * x.shape[1], "ms": ms, "experts": used,
+            "expert_bytes": nbytes, "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+            "count_read_ms": float(np.median(reads))}
+
+
+def decode_alone(cfg, params, prompts, gen_len, session):
+    """The decode step alone over the prompt (teacher-forced) and
+    ``gen_len`` greedy tokens, each step ending in a sync: host ms and
+    CUDA-event ms per step, the ``moe_forward`` event ms inside each step
+    (``session`` timed), and the logits at the prompt's last position."""
+    import torch
+
+    from repro_torch import telemetry
+    from repro_torch.models import model as M
+
+    B, P = prompts.shape
+    steps = P + gen_len
+    cache = M.init_cache(cfg, B, steps + 1, device=prompts.device)
+    host_ms, dev_ms, moe_ms, at_prompt = [], [], [], None
+    tok = prompts[:, :1]
+    with torch.no_grad(), telemetry.active(session):
+        for t in range(steps):
+            torch.cuda.synchronize()
+            n0 = len(session.moe_events)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            logits, cache = M.decode_step(cfg, params, cache, tok, t)
+            nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)[:, None]
+            end.record()
+            torch.cuda.synchronize()
+            host_ms.append(1e3 * (time.perf_counter() - t0))
+            dev_ms.append(start.elapsed_time(end))
+            moe_ms.append(sum(s.elapsed_time(e) for s, e in session.moe_events[n0:]))
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"decode step {t}: logits not all finite")
+            if t == P - 1:
+                at_prompt = logits[:, -1].clone()
+            tok = prompts[:, t + 1 : t + 2] if t + 1 < P else nxt
+    return host_ms, dev_ms, moe_ms, at_prompt
+
+
+def prefill_check(tag, cfg, params, prompts, at_prompt, session, runs=2) -> dict:
+    """``make_prefill_step`` on the prompts (``runs`` times, each synced:
+    wall s), its last-position logits against the decode path's at the
+    same position."""
+    import torch
+
+    from repro_torch import telemetry
+    from repro_torch.launch.steps import make_prefill_step
+
+    prefill = make_prefill_step(cfg)
+    walls = []
+    with torch.no_grad(), telemetry.active(session):
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            last = prefill(params, {"tokens": prompts})
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    if tuple(last.shape) != (prompts.shape[0], cfg.vocab_size) or not bool(
+            torch.isfinite(last).all()):
+        raise AssertionError(f"{tag}: prefill logits {tuple(last.shape)} not all finite")
+    diff = (last - at_prompt).abs().max().item()
+    scale = at_prompt.abs().max().item()
+    same = (last.argmax(-1) == at_prompt.argmax(-1)).sum().item()
+    print(f"{tag}: make_prefill_step on the prompts ({tuple(prompts.shape)}): wall "
+          + ", ".join(f"{w:.3f}" for w in walls) + " s (the first includes warm-up); "
+          f"last-position logits vs the decode path's at position {prompts.shape[1] - 1}: "
+          f"max |diff| {diff:.4g}, {diff / max(scale, 1e-30):.4g} of max |logits| "
+          f"{scale:.4g}; greedy token equal on {same} of {prompts.shape[0]} requests")
+    return {"prefill_s": walls, "max_abs_diff": diff, "ratio": diff / max(scale, 1e-30)}
+
+
+def serve_numbers(tag, cfg, served, host_ms, dev_ms, moe_ms, peak_gb) -> None:
+    import numpy as np
+
+    share = [m / d for m, d in zip(moe_ms, dev_ms) if d > 0]
+    print(f"{tag}: serve_batch: prefill {served['prefill_s']:.3f} s, decode "
+          f"{served['decode_s']:.3f} s ({1e3 * served['decode_s'] / SERVE['gen_len']:.3f} ms "
+          f"per step), {served['tokens_per_s']:.1f} tokens/s; peak memory {peak_gb:.2f} GB")
+    print(f"{tag}: decode step alone (synced): host median {np.median(host_ms):.3f} ms, "
+          f"min {np.min(host_ms):.3f}; CUDA events median {np.median(dev_ms):.3f} ms over "
+          f"{len(dev_ms)} steps"
+          + (f"; MoE layers {np.median(moe_ms):.3f} ms a step (CUDA events around each "
+             f"moe_forward), {100 * np.median(share):.1f}% of the step (median)"
+             if any(moe_ms) else ""))
+
+
+def zoo_card_vs_cpu(arch, dev) -> dict:
+    """Phase 9c for one architecture: its smoke config in float32 from the
+    same weights on the CPU and the card. ``serve_batch`` tokens equal;
+    8 decode positions' logits and the prefill step's allclose 1e-4; the
+    card's MLA launches all on the CUDA-core kernel (GQA: none);
+    ``forward`` vs token-by-token decode on the card within 1e-3 x
+    max(|logits|, 1) (S = 14 past the window of 8 for a windowed
+    config); a MoE config's decode twice on the card, bit-identical."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import mla_decode as md
+    from repro_torch.kernels import native
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import model as M
+
+    small = get_smoke_config(arch).with_overrides(dtype="float32")
+    tree = _numpy_tree(M.init_params(small, 7, device="cpu"))
+    B = SERVE_SMALL["requests"]
+    toks_np = np.random.default_rng(5).integers(1, small.vocab_size, size=(B, 8)).astype(np.int32)
+
+    def decode_logits(p, where, toks):
+        cache = M.init_cache(small, toks.shape[0], toks.shape[1] + 2, device=where)
+        out = []
+        with torch.no_grad():
+            for t in range(toks.shape[1]):
+                lg, cache = M.decode_step(small, p, cache, toks[:, t : t + 1], t)
+                out.append(lg[:, 0])
+        return torch.stack(out, dim=1)
+
+    runs = []
+    for where in ("cpu", DEVICE):
+        p_dev = M.params_from_jax(tree, where)
+        toks = torch.from_numpy(toks_np).to(where)
+        native.reset_launches()
+        mla0 = dict(md.KERNEL_LAUNCHES)
+        res = serve_mod.serve_batch(arch, cfg=small, params=p_dev, device=where, **SERVE_SMALL)
+        logits = decode_logits(p_dev, where, toks)
+        with torch.no_grad():
+            last = make_prefill_step(small)(p_dev, {"tokens": toks})
+        mla = {k: v - mla0[k] for k, v in md.KERNEL_LAUNCHES.items()}
+        runs.append((res["tokens"], logits.cpu(), last.cpu(), dict(native.LAUNCHES), mla, p_dev))
+    (tok_cpu, log_cpu, last_cpu, l_cpu, _, _), (tok_card, log_card, last_card, l_card, mla,
+                                                 p_card) = runs
+    mla_layers = sum(1 for k in M.layer_kinds(small) if small.attn_type == "mla")
+    n_small = mla_layers * (SERVE_SMALL["prompt_len"] + SERVE_SMALL["gen_len"] + 8)
+    others = {k: v for k, v in l_card.items() if v and k != "mla_flash_decode"}
+    if (any(l_cpu.values()) or others or l_card["mla_flash_decode"] != n_small
+            or mla != {"tensor_cores": 0, "cuda_cores": n_small}):
+        raise AssertionError(f"phase 9c ({arch}): launches cpu {l_cpu}, card {l_card}, MLA "
+                             f"kernels {mla}, want {n_small} (float32: the CUDA-core kernel)")
+    if not np.array_equal(tok_cpu, tok_card):
+        raise AssertionError(f"phase 9c ({arch}): greedy tokens differ:\n{tok_cpu}\n{tok_card}")
+    for what, a, b in (("decode", log_card, log_cpu), ("prefill", last_card, last_cpu)):
+        if not torch.allclose(a, b, rtol=1e-4, atol=1e-4):
+            raise AssertionError(f"phase 9c ({arch}): {what} logits differ beyond 1e-4 (max "
+                                 f"|diff| {(a - b).abs().max().item():.3g})")
+    # forward vs token-by-token decode, on the card.
+    S = 14 if small.sliding_window else 10
+    seq = torch.from_numpy(np.random.default_rng(6).integers(
+        0, small.vocab_size, size=(1, S)).astype(np.int32)).to(dev)
+    with torch.no_grad():
+        full, _ = M.forward(small, p_card, seq)
+    dec = decode_logits(p_card, dev, seq)
+    err = (dec - full).abs().max().item()
+    scale = full.abs().max().item()
+    if not err < 1e-3 * max(scale, 1.0):
+        raise AssertionError(f"phase 9c ({arch}): forward vs decode {err} at scale {scale}")
+    row = {"tokens": list(tok_card.shape), "decode_diff": (log_card - log_cpu).abs().max().item(),
+           "prefill_diff": (last_card - last_cpu).abs().max().item(),
+           "mla_launches": n_small, "fwd_vs_dec": err, "S": S}
+    if small.moe.num_experts:
+        twice = [decode_logits(p_card, dev, torch.from_numpy(toks_np).to(dev)) for _ in range(2)]
+        if not torch.equal(*twice):
+            raise AssertionError(f"phase 9c ({arch}): two card decodes differ")
+        row["moe_bit_identical"] = True
+    return row
 
 
 def _leaves(tree):
@@ -2242,6 +2513,10 @@ def main() -> int:
     from repro_torch.models import model as M
 
     cfg = get_config(ARCH).with_overrides(num_layers=SERVE_LAYERS)
+    n_dense = cfg.moe.first_k_dense
+    unit = ("dense",) * n_dense + ("moe",) * (SERVE_LAYERS - n_dense)
+    if M.scan_groups(cfg) != [(unit, 1)]:
+        raise AssertionError(f"phase 9: scan groups {M.scan_groups(cfg)}")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2250,14 +2525,18 @@ def main() -> int:
     n_params = sum(t.numel() for t in _leaves(params))
     steps = SERVE["prompt_len"] + SERVE["gen_len"]
     n_mla = SERVE_LAYERS * steps
+    n_moe = (SERVE_LAYERS - n_dense) * steps
     prefill_step = SERVE["prompt_len"] // 2
     keep = [SERVE_LAYERS * prefill_step + i for i in range(SERVE_LAYERS)]
     keep += [n_mla - SERVE_LAYERS + i for i in range(SERVE_LAYERS)]
+    m = cfg.moe
     print(f"phase 9: {ARCH} at full width (d_model {cfg.d_model}, {cfg.num_heads} heads, "
-          f"kv_lora {cfg.mla.kv_lora_rank}, d_ff {cfg.moe.d_ff_dense}, vocab {cfg.vocab_size}, "
-          f"{cfg.dtype}), {SERVE_LAYERS} dense layers: {n_params} parameters (MTP head "
-          f"included) from seed {SERVE['seed']} in {time.perf_counter() - t0:.3f} s")
-    capture = LaunchCapture("mla_flash_decode", keep)
+          f"kv_lora {cfg.mla.kv_lora_rank}, d_ff {m.d_ff_dense}, {m.num_experts} routed "
+          f"experts top-{m.experts_per_token} of width {m.d_ff_expert} + {m.num_shared_experts} "
+          f"shared, vocab {cfg.vocab_size}, {cfg.dtype}), cut in depth to {SERVE_LAYERS} layers "
+          f"{unit}: {n_params} parameters, {M.param_bytes(cfg)} bytes (MTP head included) from "
+          f"seed {SERVE['seed']} in {time.perf_counter() - t0:.3f} s")
+    capture = ServeCapture("mla_flash_decode", keep)
     native.reset_launches()
     mla_kernels = dict(md.KERNEL_LAUNCHES)
     torch.cuda.synchronize()
@@ -2268,6 +2547,7 @@ def main() -> int:
     wall = time.perf_counter() - t0
     launches_serve = dict(native.LAUNCHES)
     mla_kernels = {k: v - mla_kernels[k] for k, v in md.KERNEL_LAUNCHES.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     captured = capture.kept
     others = {k: v for k, v in launches_serve.items() if v and k != "mla_flash_decode"}
     if launches_serve["mla_flash_decode"] != n_mla or others or capture.calls != n_mla:
@@ -2276,21 +2556,34 @@ def main() -> int:
     if mla_kernels != {"tensor_cores": n_mla, "cuda_cores": 0}:
         raise AssertionError(f"phase 9: MLA kernels {mla_kernels}, want all {n_mla} bf16 "
                              "launches on the tensor-core kernel")
+    if len(capture.moe_inputs) != n_moe:
+        raise AssertionError(f"phase 9: {len(capture.moe_inputs)} moe_forward calls, want "
+                             f"{n_moe}")
     tokens = served["tokens"]
     if tokens.shape != (SERVE["requests"], SERVE["gen_len"]) or not (
             (tokens >= 0) & (tokens < cfg.vocab_size)).all():
         raise AssertionError(f"phase 9: tokens {tokens.shape}, range "
                              f"{tokens.min()}..{tokens.max()}")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # The experts each step's MoE layers touch (the serve run's own routed
+    # inputs, routed again).
+    moe_layers = [M._index(params["groups"][0], 0)[f"b{i}"]["ffn"]
+                  for i in range(n_dense, SERVE_LAYERS)]
+    touched = np.array([
+        experts_touched(cfg, moe_layers[i % len(moe_layers)]["router"], x)
+        for i, x in enumerate(capture.moe_inputs)
+    ]).reshape(steps, len(moe_layers))
     print(f"phase 9: serve_batch on the card: {SERVE['requests']} requests, prompt "
           f"{SERVE['prompt_len']}, {SERVE['gen_len']} generated: tokens {tokens.shape} in "
           f"[0, {cfg.vocab_size}); launches {launches_serve['mla_flash_decode']} = "
           f"{SERVE_LAYERS} x {steps} (mla_flash_decode only, all on the tensor-core "
-          f"kernel: {mla_kernels}); prefill "
-          f"{served['prefill_s']:.3f} s, decode {served['decode_s']:.3f} s "
-          f"({1e3 * served['decode_s'] / SERVE['gen_len']:.3f} ms per step), "
-          f"{served['tokens_per_s']:.1f} tokens/s; peak memory {peak_gb:.2f} GB; wall "
-          f"{wall:.2f} s")
+          f"kernel: {mla_kernels}); {n_moe} moe_forward calls; wall {wall:.2f} s")
+    print(f"phase 9: distinct routed experts a MoE layer touches per step (of "
+          f"{m.num_experts}, at most {SERVE['requests'] * m.experts_per_token}): min "
+          f"{touched.min()}, median {np.median(touched):.1f}, max {touched.max()}; per step "
+          f"over both MoE layers: median {np.median(touched.sum(1)):.1f} "
+          f"({expert_bytes(cfg, int(np.median(touched))) * len(moe_layers)} bytes of expert "
+          f"weights read at the median, against {expert_bytes(cfg, m.num_experts) * len(moe_layers)} "
+          "for every expert)")
     for i in keep:
         args, kw = captured[i]
         pos = args[4]
@@ -2302,28 +2595,33 @@ def main() -> int:
     print(f"phase 9: kernel == plain (allclose 3e-2) on the captured launches {keep} "
           f"(prefill step {prefill_step} and the last step, every layer); max |diff| "
           f"{max_err['mla_flash_decode']:.3g}")
-    # The decode step alone, each step ending in a sync (host clock), on a
-    # fresh cache filled up to the prompt.
+    # The decode step alone on a fresh cache (the same prompts teacher-
+    # forced, then greedy), each step synced; the MoE layers by CUDA events.
+    prompts = serve_prompts(cfg, dev)
+    clock = ServeCapture(timed=True)
+    step_host, step_dev, step_moe, at_prompt = decode_alone(cfg, params, prompts, SERVE["gen_len"],
+                                                      clock)
+    serve_numbers("phase 9", cfg, served, step_host, step_dev, step_moe, peak_gb)
     step = make_decode_step(cfg)
     cache = M.init_cache(cfg, SERVE["requests"], steps + 1, device=dev)
-    tok = torch.ones((SERVE["requests"], 1), dtype=torch.int32, device=dev)
-    step_ms = []
-    with torch.no_grad():
-        logits, _ = M.decode_step(cfg, params, cache, tok, 0)
-        if logits.shape != (SERVE["requests"], 1, cfg.vocab_size) or not bool(
-                torch.isfinite(logits).all()):
-            raise AssertionError(f"phase 9: logits {tuple(logits.shape)} not all finite")
-        for t in range(1, steps):
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            tok, cache = step(params, cache, tok, t)
-            torch.cuda.synchronize()
-            step_ms.append(1e3 * (time.perf_counter() - t1))
-    print(f"phase 9: decode step alone (synced, host clock): median "
-          f"{np.median(step_ms):.3f} ms, min {np.min(step_ms):.3f} ms over {len(step_ms)} "
-          f"steps; logits finite, float32 (B, 1, {cfg.vocab_size})")
+    tok = prompts[:, :1]
     print("phase 9: decode step device time by kernel (torch.profiler): "
           + profile_rows(lambda: step(params, cache, tok, steps - 1), reps=2))
+    pcap = ServeCapture()
+    prefill_check("phase 9", cfg, params, prompts, at_prompt, pcap)
+    # One MoE layer alone, at decode (the last step's input) and at prefill
+    # (the prefill's input of the same layer).
+    alone = {
+        "decode": moe_layer_alone(cfg, moe_layers[0], capture.moe_inputs[-len(moe_layers)], flush),
+        "prefill": moe_layer_alone(cfg, moe_layers[0], pcap.moe_inputs[0], flush),
+    }
+    for what, row in alone.items():
+        print(f"phase 9: one MoE layer alone at {what} ({row['tokens']} tokens): "
+              f"{row['ms']:.4f} ms (CUDA events, L2 flushed, mean of 5); {row['experts']} "
+              f"experts read, {row['expert_bytes']} bytes of expert weights, HBM bound "
+              f"{row['bound_ms']:.4f} ms ({100 * row['bound_ms'] / row['ms']:.1f}% of it "
+              f"reached); no host read (a host read of the counts alone: "
+              f"{row['count_read_ms']:.4f} ms)")
     args, kw = captured[keep[-1]]
     serve_args, serve_pos = args[:4], args[4]
     k_ms, p_ms, _, raw = time_pair(
@@ -2341,7 +2639,8 @@ def main() -> int:
           + json.dumps(kernel_device_ms(
               lambda: md.mla_flash_decode_cuda(*serve_args, serve_pos, kw["scale"]),
               ("mla_tc_kernel", "mla_combine_kernel"))) + " ms")
-    del params, cache, capture, captured, served, step, logits, args, serve_args
+    del params, cache, capture, captured, served, step, args, serve_args, moe_layers
+    del clock, pcap, prompts, at_prompt
     torch.cuda.empty_cache()
 
     # -- 9b. the kernel at decode_32k --------------------------------------- #
@@ -2401,42 +2700,57 @@ def main() -> int:
     del args, q_cat, k_cat, v, gen
     torch.cuda.empty_cache()
 
-    # -- 9c. card vs CPU on the dense smoke config --------------------------- #
-    small = serve_mod.dense_smoke_config(ARCH).with_overrides(dtype="float32")
-    tree = _numpy_tree(M.init_params(small, 7, device="cpu"))
-    runs = []
-    mla_kernels = dict(md.KERNEL_LAUNCHES)
-    for where in ("cpu", DEVICE):
-        p_dev = M.params_from_jax(tree, where)
-        native.reset_launches()
-        res = serve_mod.serve_batch(ARCH, cfg=small, params=p_dev, device=where, **SERVE_SMALL)
-        cache = M.init_cache(small, SERVE_SMALL["requests"], 10, device=where)
-        toks = torch.from_numpy(
-            np.random.default_rng(5).integers(1, small.vocab_size, size=(SERVE_SMALL["requests"], 8))
-            .astype(np.int32)).to(where)
-        logits = []
-        with torch.no_grad():
-            for t in range(8):
-                out, cache = M.decode_step(small, p_dev, cache, toks[:, t : t + 1], t)
-                logits.append(out.cpu())
-        runs.append((res["tokens"], torch.cat(logits, dim=1), dict(native.LAUNCHES)))
-    (tok_cpu, log_cpu, l_cpu), (tok_card, log_card, l_card) = runs
-    n_small = small.num_layers * (SERVE_SMALL["prompt_len"] + SERVE_SMALL["gen_len"] + 8)
-    mla_kernels = {k: v - mla_kernels[k] for k, v in md.KERNEL_LAUNCHES.items()}
-    if (any(l_cpu.values()) or l_card["mla_flash_decode"] != n_small
-            or mla_kernels != {"tensor_cores": 0, "cuda_cores": n_small}):
-        raise AssertionError(f"phase 9c: launches cpu {l_cpu}, card {l_card}, MLA kernels "
-                             f"{mla_kernels} (float32: all on the CUDA-core kernel)")
-    if not np.array_equal(tok_cpu, tok_card):
-        raise AssertionError(f"phase 9c: greedy tokens differ:\n{tok_cpu}\n{tok_card}")
-    if not torch.allclose(log_card, log_cpu, rtol=1e-4, atol=1e-4):
-        raise AssertionError("phase 9c: logits differ beyond 1e-4")
-    print(f"phase 9c: {ARCH} dense smoke config (2 dense layers, float32, TF32 off) from "
-          f"seed 7 on both devices: greedy tokens {tok_card.shape} identical, logits over 8 "
-          f"positions allclose 1e-4 (max |diff| "
-          f"{(log_card - log_cpu).abs().max().item():.3g}); card launches "
-          f"{l_card['mla_flash_decode']}, all on the CUDA-core kernel")
-    del runs, tree
+    # -- 9c. card vs CPU on the six smoke configs --------------------------- #
+    card_vs_cpu = {}
+    for arch in ZOO:
+        card_vs_cpu[arch] = zoo_card_vs_cpu(arch, dev)
+    print("phase 9c: the smoke configs of " + ", ".join(ZOO) + " (float32, TF32 off) from "
+          "seed 7 on both devices: greedy tokens identical, decode and prefill logits "
+          "allclose 1e-4, forward vs decode on the card within 1e-3 x scale; " + json.dumps(
+              {a: {k: float(f"{v:.3g}") if isinstance(v, float) else v for k, v in r.items()}
+               for a, r in card_vs_cpu.items()}))
+
+    # -- 9d. Qwen3-8B whole, on the card ----------------------------------- #
+    cfg = get_config(WHOLE_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, SERVE["seed"], device=dev)
+    torch.cuda.synchronize()
+    print(f"phase 9d: {WHOLE_ARCH} whole ({cfg.num_layers} layers {M.scan_groups(cfg)}, d_model "
+          f"{cfg.d_model}, GQA {cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim} with "
+          f"qk-norm, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.dtype}): "
+          f"{sum(t.numel() for t in _leaves(params))} parameters, {M.param_bytes(cfg)} bytes from "
+          f"seed {SERVE['seed']} in {time.perf_counter() - t0:.3f} s")
+    native.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served = serve_mod.serve_batch(WHOLE_ARCH, cfg=cfg, params=params, device=DEVICE, **SERVE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches_whole = dict(native.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tokens = served["tokens"]
+    if any(launches_whole.values()):
+        raise AssertionError(f"phase 9d: native launches {launches_whole}, want none")
+    if tokens.shape != (SERVE["requests"], SERVE["gen_len"]) or not (
+            (tokens >= 0) & (tokens < cfg.vocab_size)).all():
+        raise AssertionError(f"phase 9d: tokens {tokens.shape}, range "
+                             f"{tokens.min()}..{tokens.max()}")
+    print(f"phase 9d: serve_batch on the card: tokens {tokens.shape} in [0, {cfg.vocab_size}); "
+          f"no native kernel launched (GQA attention is plain PyTorch, as the reference's is "
+          f"plain jnp); wall {wall:.2f} s")
+    prompts = serve_prompts(cfg, dev)
+    step_host, step_dev, step_moe, at_prompt = decode_alone(cfg, params, prompts, SERVE["gen_len"],
+                                                      ServeCapture(timed=True))
+    serve_numbers("phase 9d", cfg, served, step_host, step_dev, step_moe, peak_gb)
+    step = make_decode_step(cfg)
+    cache = M.init_cache(cfg, SERVE["requests"], steps + 1, device=dev)
+    print("phase 9d: decode step device time by kernel (torch.profiler): "
+          + profile_rows(lambda: step(params, cache, prompts[:, :1], steps - 1), reps=2))
+    prefill_check("phase 9d", cfg, params, prompts, at_prompt, ServeCapture())
+    del params, cache, served, step, prompts, at_prompt
+    torch.cuda.empty_cache()
 
     # -- 11. the legacy runtime at full width ------------------------------ #
     t_phase = time.perf_counter()

@@ -2,25 +2,25 @@
 
 Counterpart of the reference's ``repro.launch.serve``. Prefills each
 request's prompt (token-by-token decode into the cache), then decodes
-greedily; every step's MLA latent context runs on the card's
-``mla_flash_decode`` kernel. Weights are random (made from ``seed``)
-unless ``params`` is given; nothing is downloaded.
+greedily; DeepSeek-V3's MLA latent context runs on the card's
+``mla_flash_decode`` kernel at every step. Weights are random (made from
+``seed``) unless ``params`` is given; nothing is downloaded.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b \
-        --requests 4 --prompt-len 16 --gen 32 [--device cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
+        --requests 4 --prompt-len 16 --gen 32 [--full] [--device cpu]
 
-The port runs DeepSeek-V3's dense (MLA + MLP) layers only. So the CLI's
-smoke config is the reference's with every layer dense
-(:func:`dense_smoke_config`), and ``--full`` (61 layers, 58 of them MoE)
-raises ``NotImplementedError``. A caller serves the full widths at the
-depth of the checkpoint's three dense layers through ``cfg=`` (``CONFIG.
-with_overrides(num_layers=3)``), as ``chip_smoke.py`` does.
+The CLI serves the reference's smoke config of ``--arch`` (2 layers;
+DeepSeek-V3's second is MoE), or with ``--full`` the whole published
+config. A model larger than the device stops with ``MemoryError``
+naming its bytes (:func:`repro_torch.models.model.init_params`): there
+is no fall-back to a smaller config or to the CPU. DeepSeek-V3 at full
+width fits one card only cut in depth (``cfg=CONFIG.with_overrides(
+num_layers=5)``, 54.6 GB, as ``chip_smoke.py`` serves it).
 """
 
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import time
 
 import numpy as np
@@ -30,13 +30,6 @@ from ..configs import all_arch_ids, get_config, get_smoke_config
 from ..models import model as M
 from ..runtime.engine import resolve_device
 from .steps import make_decode_step
-
-
-def dense_smoke_config(arch: str):
-    """The reference's smoke config with every layer dense
-    (``moe.first_k_dense = num_layers``): the part of it the port runs."""
-    cfg = get_smoke_config(arch)
-    return cfg.with_overrides(moe=dataclasses.replace(cfg.moe, first_k_dense=cfg.num_layers))
 
 
 def _sync(dev: torch.device) -> None:
@@ -110,10 +103,9 @@ def main(argv=None):
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    cfg = dense_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     res = serve_batch(
         args.arch,
-        cfg=cfg,
+        smoke=args.smoke,
         requests=args.requests,
         prompt_len=args.prompt_len,
         gen_len=args.gen,

@@ -2,10 +2,11 @@
 reference's assignment.
 
 Counterpart of the reference's ``repro.launch.steps``: ``SHAPES`` is
-copied as data, and :func:`make_decode_step` is the greedy one-token
-decode step. PyTorch runs eagerly, so there is nothing to jit; the train
-and prefill steps and the abstract input specs wait for ROADMAP Queue A
-item 5.
+copied as data, :func:`make_prefill_step` returns the last position's
+logits of a full forward, and :func:`make_decode_step` is the greedy
+one-token decode step. PyTorch runs eagerly, so there is nothing to jit;
+the train step (ROADMAP Queue A item 5a) and the abstract input specs
+(``dryrun.py``'s, item 5f) are not ported.
 
 INPUT SHAPES (assignment):
     train_4k     seq 4096,    global batch 256   (training)
@@ -27,6 +28,26 @@ SHAPES = {
     "decode_32k": dict(kind="decode", seq=32768, batch=128),
     "long_500k": dict(kind="decode", seq=524288, batch=1, long=True),
 }
+
+
+def make_prefill_step(cfg: ModelConfig):
+    """``prefill_step(params, batch) -> logits (B, vocab)``: float32
+    logits of the last position of :func:`repro_torch.models.model.forward`
+    over ``batch["tokens"]`` (``patches`` / ``frames`` are passed on, and
+    refused there)."""
+
+    def prefill_step(params, batch: dict):
+        logits, _ = M.forward(
+            cfg,
+            params,
+            batch["tokens"],
+            patches=batch.get("patches"),
+            frames=batch.get("frames"),
+        )
+        # Serving prefill returns only the last-position logits.
+        return logits[:, -1, :]
+
+    return prefill_step
 
 
 def make_decode_step(cfg: ModelConfig, long_mode: bool = False):

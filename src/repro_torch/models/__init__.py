@@ -1,3 +1,4 @@
-"""The model zoo of the port: configuration, layers and the serving
-decode step (counterpart of the reference's ``repro.models``). So far it
-runs DeepSeek-V3's MLA + dense-MLP layers; see :mod:`.model`."""
+"""The model zoo of the port: configuration, layers, the prefill forward
+and the serving decode step (counterpart of the reference's
+``repro.models``). It serves the decoder-only attention architectures
+(GQA, MLA, MoE); see :mod:`.model`."""

@@ -1,12 +1,22 @@
-"""Attention: MLA (DeepSeek-V3), its parameters and the absorbed decode.
+"""Attention variants: GQA (with qk-norm, softcap, sliding window) and MLA
+(DeepSeek-V3), with their KV-cache decode paths.
 
-Counterpart of the MLA half of the reference's ``repro.models.attention``.
-GQA, cross attention and the full-sequence ``mla_forward`` wait for
-ROADMAP Queue A item 5.
+Counterpart of the reference's ``repro.models.attention``. Cross
+attention (``cross_forward``, ``cross_memory``) waits for Whisper
+(ROADMAP Queue A item 5c).
 
 Conventions:
   x            (B, S, D)
+  q            (B, S, H, hd)
+  k, v         (B, S, Hkv, hd)
+  caches       (B, S_cache, Hkv, hd) — keys after RoPE
   MLA cache    latent (B, S, r_kv) + shared rope key (B, S, r_rope)
+
+The decode paths take the new token's position as a host int and write
+the caches in place. None of these layers reaches a Pallas kernel in the
+reference but the MLA decode's latent context, which runs
+:func:`repro_torch.kernels.ops.mla_flash_decode` here; the rest is plain
+PyTorch with the reference's float32 scores and masking constant.
 """
 
 from __future__ import annotations
@@ -16,10 +26,121 @@ import math
 import torch
 
 from ..kernels import ops
-from .common import apply_rope, dtype_of, init_dense, normal, rms_norm
+from .common import apply_rope, dtype_of, init_dense, normal, rms_norm, softcap
 from .config import ModelConfig
 
+NEG_INF = -2.3819763e38  # same constant XLA uses for -inf masking
 
+
+# --------------------------------------------------------------------- #
+# GQA
+# --------------------------------------------------------------------- #
+def init_gqa(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    dt = dtype_of(cfg)
+    h, hkv, hd, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
+    params = {
+        "wq": init_dense(gen, d, (h, hd), dt),
+        "wk": init_dense(gen, d, (hkv, hd), dt),
+        "wv": init_dense(gen, d, (hkv, hd), dt),
+        "wo": normal(gen, (h, hd, d), (1.0 / (h * hd)) ** 0.5, dt),
+    }
+    if cfg.qk_norm:
+        params["q_norm"] = torch.zeros((hd,), dtype=torch.float32, device=gen.device)
+        params["k_norm"] = torch.zeros((hd,), dtype=torch.float32, device=gen.device)
+    return params
+
+
+def _project_qkv(cfg: ModelConfig, params: dict, xq, xkv, positions_q, positions_kv):
+    q = torch.einsum("bsd,dhk->bshk", xq, params["wq"])
+    k = torch.einsum("bsd,dhk->bshk", xkv, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", xkv, params["wv"])
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"])
+        k = rms_norm(k, params["k_norm"])
+    q = apply_rope(q, positions_q, cfg.rope_theta)
+    k = apply_rope(k, positions_kv, cfg.rope_theta)
+    return q, k, v
+
+
+def _sdpa(cfg: ModelConfig, q, k, v, mask):
+    """Grouped scaled-dot-product attention, scores in float32.
+
+    q: (B, Sq, H, hd); k, v: (B, Skv, Hkv, hd); mask: (B|1, Sq, Skv) bool.
+    The scores are products in the inputs' dtype widened to float32, as
+    the reference's; the softmax weights are rounded to v's dtype before
+    the context product, as the reference's."""
+    b, sq, h, hd = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    q = q.reshape(b, sq, hkv, g, hd)
+    scores = torch.einsum("bqhgk,bshk->bhgqs", q, k).to(torch.float32)
+    scores = scores / math.sqrt(hd)
+    scores = softcap(scores, cfg.attn_softcap)
+    scores = torch.where(mask[:, None, None, :, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bhgqs,bshk->bqhgk", probs, v)
+    return out.reshape(b, sq, h, hd)
+
+
+def _causal_mask(sq: int, skv: int, window: int = 0, device=None) -> torch.Tensor:
+    """(1, Sq, Skv) causal (optionally banded) mask; q positions are the
+    trailing sq positions of the kv range."""
+    qpos = torch.arange(sq, device=device) + (skv - sq)
+    kpos = torch.arange(skv, device=device)
+    m = kpos[None, :] <= qpos[:, None]
+    if window > 0:
+        m &= kpos[None, :] > qpos[:, None] - window
+    return m[None]
+
+
+def gqa_forward(
+    cfg: ModelConfig,
+    params: dict,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    window: int = 0,
+) -> torch.Tensor:
+    """Full-sequence causal attention (prefill)."""
+    q, k, v = _project_qkv(cfg, params, x, x, positions, positions)
+    s = x.shape[1]
+    out = _sdpa(cfg, q, k, v, _causal_mask(s, s, window, x.device))
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+
+
+def gqa_decode(
+    cfg: ModelConfig,
+    params: dict,
+    x: torch.Tensor,            # (B, 1, D)
+    cache_k: torch.Tensor,      # (B, S, Hkv, hd)
+    cache_v: torch.Tensor,
+    pos: int,
+    window: int = 0,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-token decode at host position ``pos``. ``window > 0`` treats
+    the cache as a ring buffer of that size (slot ``pos % window``,
+    clipped to the cache; every slot valid once ``pos`` reaches the
+    cache's length). The new key and value are written into ``cache_k`` /
+    ``cache_v`` in place (the reference returns updated copies); the same
+    tensors are returned."""
+    s_cache = cache_k.shape[1]
+    positions = torch.full((1, 1), pos, dtype=torch.int64, device=x.device)
+    q, k_new, v_new = _project_qkv(cfg, params, x, x, positions, positions)
+    slot = pos % max(window, 1) if window > 0 else pos
+    slot = min(slot, s_cache - 1)
+    cache_k[:, slot] = k_new[:, 0].to(cache_k.dtype)
+    cache_v[:, slot] = v_new[:, 0].to(cache_v.dtype)
+    kpos = torch.arange(s_cache, device=x.device)
+    if window > 0 and pos >= s_cache:
+        valid = torch.ones((s_cache,), dtype=torch.bool, device=x.device)
+    else:
+        valid = kpos <= pos
+    out = _sdpa(cfg, q, cache_k, cache_v, valid[None, None, :])
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"]), cache_k, cache_v
+
+
+# --------------------------------------------------------------------- #
+# MLA — Multi-head Latent Attention (DeepSeek-V3)
+# --------------------------------------------------------------------- #
 def init_mla(cfg: ModelConfig, gen: torch.Generator) -> dict:
     dt = dtype_of(cfg)
     m = cfg.mla
@@ -53,6 +174,28 @@ def _mla_latent(cfg: ModelConfig, params: dict, x, positions):
     k_rope = (x @ params["w_kr"])[:, :, None, :]
     k_rope = apply_rope(k_rope, positions, cfg.rope_theta)[:, :, 0, :]
     return c, k_rope
+
+
+def mla_forward(
+    cfg: ModelConfig, params: dict, x: torch.Tensor, positions: torch.Tensor
+) -> torch.Tensor:
+    """Full-sequence MLA (prefill) with materialised keys and values."""
+    m = cfg.mla
+    s = x.shape[1]
+    q_nope, q_rope = _mla_q(cfg, params, x, positions)
+    c, k_rope = _mla_latent(cfg, params, x, positions)
+    k_nope = torch.einsum("bsr,rhk->bshk", c, params["w_uk"])
+    v = torch.einsum("bsr,rhk->bshk", c, params["w_uv"])
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    scores = (
+        torch.einsum("bqhk,bshk->bhqs", q_nope, k_nope)
+        + torch.einsum("bqhk,bsk->bhqs", q_rope, k_rope)
+    ).to(torch.float32) * scale
+    mask = _causal_mask(s, s, device=x.device)
+    scores = torch.where(mask[:, None, :, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bhqs,bshk->bqhk", probs, v)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"])
 
 
 def mla_decode(

@@ -1,12 +1,16 @@
-"""Per-layer block dispatch: init / cache / decode step.
+"""Per-layer block dispatch: init / cache / sequence forward / decode step.
 
-Counterpart of the reference's ``repro.models.blocks`` for the one kind
-the port runs so far:
+Counterpart of the reference's ``repro.models.blocks`` for the kinds of
+the decoder-only attention architectures:
 
-  dense  — MLA attention + dense MLP (DeepSeek's first-k layers)
+  attn / attn_global  — GQA + MLP (pre-norm, optional post-norm)
+  attn_local          — GQA with sliding window
+  dense               — MLA attention + dense MLP (DeepSeek first-k)
+  moe                 — MLA/GQA attention + MoE FFN
 
-Every other kind (``attn``, ``moe``, the SSM and encoder-decoder kinds)
-raises ``NotImplementedError``: they wait for ROADMAP Queue A item 5.
+The SSM kinds (``mamba2``, ``mlstm``, ``slstm``), Zamba2's
+``shared_attn`` and Whisper's ``enc`` / ``dec`` raise
+``NotImplementedError``: they wait for ROADMAP Queue A items 5b and 5c.
 """
 
 from __future__ import annotations
@@ -17,6 +21,17 @@ from . import attention as attn
 from .common import apply_norm, dtype_of, make_norm_params
 from .config import ModelConfig
 from .mlp import init_mlp, mlp_forward
+from .moe import init_moe, moe_apply
+
+PORTED_KINDS = ("attn", "attn_global", "attn_local", "dense", "moe")
+_WAITING = {
+    "mamba2": "the SSM kinds (ROADMAP Queue A item 5b)",
+    "mlstm": "the SSM kinds (ROADMAP Queue A item 5b)",
+    "slstm": "the SSM kinds (ROADMAP Queue A item 5b)",
+    "shared_attn": "Zamba2's shared attention block (ROADMAP Queue A item 5b)",
+    "enc": "Whisper's encoder (ROADMAP Queue A item 5c)",
+    "dec": "Whisper's decoder with cross attention (ROADMAP Queue A item 5c)",
+}
 
 
 def _uses_mla(cfg: ModelConfig, kind: str) -> bool:
@@ -24,17 +39,32 @@ def _uses_mla(cfg: ModelConfig, kind: str) -> bool:
 
 
 def _check_kind(cfg: ModelConfig, kind: str) -> None:
-    if kind != "dense" or not _uses_mla(cfg, kind):
+    if kind not in PORTED_KINDS:
         raise NotImplementedError(
-            f"block kind {kind!r} ({cfg.attn_type} attention) is not ported yet: "
-            "the port runs MLA + dense-MLP layers only (ROADMAP Queue A item 5)"
+            f"block kind {kind!r} is not ported yet: "
+            + _WAITING.get(kind, "no such kind in the reference")
         )
+
+
+def _window(cfg: ModelConfig, kind: str, force_local: bool) -> int:
+    """The reference's window rule for a GQA layer (0: full causal)."""
+    if kind == "attn_local" or (force_local and kind == "attn_global"):
+        return cfg.sliding_window
+    if cfg.sliding_window and not cfg.local_global:
+        return cfg.sliding_window
+    return 0
 
 
 def _residual(cfg: ModelConfig, p: dict, x, sub_out, post_key: str):
     if cfg.post_norm and post_key in p:
         sub_out = apply_norm(cfg, p[post_key], sub_out)
     return x + sub_out
+
+
+def _ffn(cfg: ModelConfig, kind: str, p: dict, x):
+    if kind == "moe":
+        return moe_apply(cfg, p["ffn"], x)
+    return mlp_forward(cfg, p["ffn"], x), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 # --------------------------------------------------------------------- #
@@ -46,12 +76,46 @@ def init_block(cfg: ModelConfig, kind: str, gen: torch.Generator) -> dict:
     p: dict = {"norm1": make_norm_params(cfg, dev)}
     if cfg.post_norm:
         p["post_norm1"] = make_norm_params(cfg, dev)
-    p["mixer"] = attn.init_mla(cfg, gen)
+    if _uses_mla(cfg, kind):
+        p["mixer"] = attn.init_mla(cfg, gen)
+    else:
+        p["mixer"] = attn.init_gqa(cfg, gen)
     p["norm2"] = make_norm_params(cfg, dev)
     if cfg.post_norm:
         p["post_norm2"] = make_norm_params(cfg, dev)
-    p["ffn"] = init_mlp(cfg, gen, d_ff=cfg.moe.d_ff_dense)
+    if kind == "moe":
+        p["ffn"] = init_moe(cfg, gen)
+    elif kind == "dense":
+        p["ffn"] = init_mlp(cfg, gen, d_ff=cfg.moe.d_ff_dense)
+    else:
+        p["ffn"] = init_mlp(cfg, gen)
     return p
+
+
+# --------------------------------------------------------------------- #
+# sequence forward (prefill)
+# --------------------------------------------------------------------- #
+def block_forward(
+    cfg: ModelConfig,
+    kind: str,
+    p: dict,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    force_local: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (x, aux_loss)."""
+    _check_kind(cfg, kind)
+    h = apply_norm(cfg, p["norm1"], x)
+    if _uses_mla(cfg, kind):
+        a = attn.mla_forward(cfg, p["mixer"], h, positions)
+    else:
+        a = attn.gqa_forward(cfg, p["mixer"], h, positions,
+                             window=_window(cfg, kind, force_local))
+    x = _residual(cfg, p, x, a, "post_norm1")
+    h = apply_norm(cfg, p["norm2"], x)
+    f, aux = _ffn(cfg, kind, p, h)
+    return _residual(cfg, p, x, f, "post_norm2"), aux
 
 
 # --------------------------------------------------------------------- #
@@ -61,12 +125,27 @@ def init_layer_cache(
     cfg: ModelConfig, kind: str, batch: int, seq: int, long_mode: bool = False,
     device=None,
 ) -> dict:
+    """Zeros: the MLA latent and rope key, or the GQA keys and values of
+    ``seq`` positions (the window's for ``attn_local``, for ``attn_global``
+    under ``long_mode``, and for every layer of a windowed model that is
+    not local/global)."""
     _check_kind(cfg, kind)
     dt = dtype_of(cfg)
-    m = cfg.mla
+    if _uses_mla(cfg, kind):
+        m = cfg.mla
+        return {
+            "c": torch.zeros((batch, seq, m.kv_lora_rank), dtype=dt, device=device),
+            "kr": torch.zeros((batch, seq, m.qk_rope_head_dim), dtype=dt, device=device),
+        }
+    s = seq
+    if kind == "attn_local" or (long_mode and kind == "attn_global"):
+        s = min(seq, cfg.sliding_window) if cfg.sliding_window else seq
+    elif cfg.sliding_window and not cfg.local_global:
+        s = min(seq, cfg.sliding_window)
+    shape = (batch, s, cfg.num_kv_heads, cfg.head_dim)
     return {
-        "c": torch.zeros((batch, seq, m.kv_lora_rank), dtype=dt, device=device),
-        "kr": torch.zeros((batch, seq, m.qk_rope_head_dim), dtype=dt, device=device),
+        "k": torch.zeros(shape, dtype=dt, device=device),
+        "v": torch.zeros(shape, dtype=dt, device=device),
     }
 
 
@@ -77,14 +156,22 @@ def block_decode(
     x: torch.Tensor,             # (B, 1, D)
     cache: dict,
     pos: int,
+    *,
+    force_local: bool = False,
 ) -> tuple[torch.Tensor, dict]:
     """One token through one layer; the layer's cache is updated in place
-    (see :func:`repro_torch.models.attention.mla_decode`) and returned."""
+    (see :func:`repro_torch.models.attention.mla_decode` and
+    :func:`~repro_torch.models.attention.gqa_decode`) and returned."""
     _check_kind(cfg, kind)
     h = apply_norm(cfg, p["norm1"], x)
-    a, c, kr = attn.mla_decode(cfg, p["mixer"], h, cache["c"], cache["kr"], pos)
-    cache = dict(cache, c=c, kr=kr)
+    if _uses_mla(cfg, kind):
+        a, c, kr = attn.mla_decode(cfg, p["mixer"], h, cache["c"], cache["kr"], pos)
+        cache = dict(cache, c=c, kr=kr)
+    else:
+        a, ck, cv = attn.gqa_decode(cfg, p["mixer"], h, cache["k"], cache["v"], pos,
+                                    window=_window(cfg, kind, force_local))
+        cache = dict(cache, k=ck, v=cv)
     x = _residual(cfg, p, x, a, "post_norm1")
     h = apply_norm(cfg, p["norm2"], x)
-    f = mlp_forward(cfg, p["ffn"], h)
+    f, _ = _ffn(cfg, kind, p, h)
     return _residual(cfg, p, x, f, "post_norm2"), cache

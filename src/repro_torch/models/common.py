@@ -2,10 +2,14 @@
 
 Counterpart of the reference's ``repro.models.common``, on torch tensors.
 Random initialisers draw from a ``torch.Generator``; the tensors land on
-the generator's device.
+the generator's device. A stand-in whose ``device`` is ``meta``
+(:data:`SHAPES_ONLY`) makes them return meta tensors: the shapes and
+dtypes of a tree, with no memory and no draw.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -15,6 +19,18 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 #: Vocabulary rows per float32 block of :func:`unembed`.
 UNEMBED_CHUNK = 16384
+#: Elements per float32 draw of :func:`normal` (1 GiB).
+NORMAL_CHUNK = 1 << 28
+
+
+class _ShapesOnly:
+    """Stands in for a ``torch.Generator``: the initialisers given it
+    return meta tensors."""
+
+    device = torch.device("meta")
+
+
+SHAPES_ONLY = _ShapesOnly()
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -124,6 +140,23 @@ def init_dense(gen: torch.Generator, in_dim: int, out_dims, dtype) -> torch.Tens
 
 def normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
     """``std`` × a standard normal draw of ``shape`` in float32 from ``gen``
-    (on the generator's device), cast to ``dtype``."""
-    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device)
-    return (x * std).to(dtype)
+    (on the generator's device), cast to ``dtype``.
+
+    A tensor of more than :data:`NORMAL_CHUNK` elements is allocated once
+    in ``dtype`` and drawn into in float32 pieces of that many elements,
+    so that a bf16 expert stack (256 × 7168 × 2048) never exists whole in
+    float32."""
+    dev = gen.device
+    if dev.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=dev)
+    n = math.prod(shape)
+    if n <= NORMAL_CHUNK:
+        x = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
+        return (x * std).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=dev)
+    flat = out.view(-1)
+    for i in range(0, n, NORMAL_CHUNK):
+        piece = torch.randn(min(NORMAL_CHUNK, n - i), generator=gen, dtype=torch.float32,
+                            device=dev)
+        flat[i : i + piece.numel()] = piece.mul_(std)
+    return out

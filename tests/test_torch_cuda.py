@@ -24,7 +24,9 @@ readback cadence, the staged fall-back past ``WIDE_ID_MAX``, and one
 under a telemetry session) against the same runs on the CPU, and one
 committed golden trace re-recorded on the card; the legacy runtime at
 ``scale=1`` (its GraphSAGE step on the card), the six classifiers fitted
-on the card and a 2-cell sweep, each against the CPU.
+on the card and a 2-cell sweep, each against the CPU; the zoo's MoE layer
+card vs CPU and bit-identical across two card runs, GQA serving card vs
+CPU (Gemma2, Qwen3), and prefill against decode on the card.
 """
 
 import itertools
@@ -916,3 +918,84 @@ def test_sweep_on_the_card_matches_cpu(card):
     rows = run_sweep(grid, device="cuda")
     assert rows == run_sweep(grid, device="cpu")
     assert validate_rows(rows) == []
+
+
+# --------------------------------------------------------------------------- #
+# The zoo's serving path on the card: MoE layers, GQA attention, prefill.
+def _zoo_params(arch, devices):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+
+    cfg = get_smoke_config(arch).with_overrides(dtype="float32")
+    cpu = M.init_params(cfg, 7, device="cpu")
+
+    def to(tree, dev):
+        if isinstance(tree, dict):
+            return {k: to(v, dev) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, dev) for v in tree]
+        return tree.to(dev)
+
+    return cfg, [to(cpu, dev) for dev in devices]
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "phi3.5-moe-42b-a6.6b"])
+def test_moe_forward_on_the_card_matches_cpu(card, arch):
+    """One MoE layer of the smoke config in float32: the card's output
+    allclose 1e-5 to the CPU's, and two card runs bit-identical (the
+    combine sums each token's copies in a fixed order, no atomics)."""
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+
+    cfg, (p_cpu, p_card) = _zoo_params(arch, ("cpu", card))
+    layer = next(i for i, k in enumerate(M.layer_kinds(cfg)) if k == "moe")
+    group = M._index(p_cpu["groups"][0], 0)  # a unit of every layer
+    unit = M._index(p_card["groups"][0], 0)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (3, 7, cfg.d_model)).astype(np.float32))
+    want, _ = moe.moe_forward(cfg, group[f"b{layer}"]["ffn"], x)
+    a, _ = moe.moe_forward(cfg, unit[f"b{layer}"]["ffn"], x.to(card))
+    b, _ = moe.moe_forward(cfg, unit[f"b{layer}"]["ffn"], x.to(card))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    np.testing.assert_allclose(a.cpu().numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen3-8b"])
+def test_gqa_serve_on_the_card_matches_cpu(card, arch):
+    """``serve_batch`` on the smoke config in float32 from the same
+    weights: greedy tokens equal, no native kernel launched (GQA is plain
+    PyTorch); Gemma2 decodes past its window of 8."""
+    from repro_torch.launch import serve
+
+    cfg, (p_cpu, p_card) = _zoo_params(arch, ("cpu", card))
+    kw = dict(requests=3, prompt_len=8, gen_len=10, seed=1)
+    want = serve.serve_batch(arch, cfg=cfg, params=p_cpu, device="cpu", **kw)
+    before = dict(native.LAUNCHES)
+    got = serve.serve_batch(arch, cfg=cfg, params=p_card, device="cuda", **kw)
+    assert native.LAUNCHES == before
+    np.testing.assert_array_equal(got["tokens"], want["tokens"])
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "phi3.5-moe-42b-a6.6b", "gemma2-2b"])
+def test_prefill_matches_decode_on_the_card(card, arch):
+    """``forward`` against token-by-token decode on the card (float32,
+    1e-3 x max(|logits|, 1)), 14 positions (past Gemma2's window), and
+    ``make_prefill_step`` equal to the forward's last position."""
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import model as M
+
+    cfg, (params,) = _zoo_params(arch, (card,))
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, size=(2, 14)).astype(np.int32)).to(card)
+    with torch.no_grad():
+        full, _ = M.forward(cfg, params, toks)
+        last = make_prefill_step(cfg)(params, {"tokens": toks})
+        cache = M.init_cache(cfg, 2, 16, device=card)
+        dec = []
+        for t in range(14):
+            lg, cache = M.decode_step(cfg, params, cache, toks[:, t : t + 1], t)
+            dec.append(lg[:, 0])
+    err = (torch.stack(dec, dim=1) - full).abs().max().item()
+    assert err < 1e-3 * max(full.abs().max().item(), 1.0)
+    assert torch.equal(last, full[:, -1])

@@ -1,11 +1,13 @@
-"""The port's serving path (DeepSeek-V3's MLA + dense-MLP decode) against
-the reference, on the CPU.
+"""The port's serving path for DeepSeek-V3 (MLA decode, dense and MoE
+layers) against the reference, on the CPU.
 
-The configuration is the reference's DeepSeek-V3 smoke config with both
+Most tests here run the reference's DeepSeek-V3 smoke config with both
 layers dense (``moe.first_k_dense = 2``), so that the stacked layer group
-runs with count 2. The reference's ``init_params`` (``jax.random``) are
-carried across by ``params_from_jax``, and both packages decode the same
-tokens at the same positions:
+runs with count 2; the reference's smoke config itself (its second layer
+MoE) is served by the CLI test, and every architecture's smoke config by
+``tests/test_torch_zoo.py``. The reference's ``init_params``
+(``jax.random``) are carried across by ``params_from_jax``, and both
+packages decode the same tokens at the same positions:
 
 * float32: logits allclose at ``1e-4`` (the reference's own bar for the
   latent context) and greedy tokens from ``serve_batch`` equal;
@@ -245,38 +247,46 @@ def test_get_config_equals_the_reference_field_by_field():
     )
     assert tconfigs.all_arch_ids() == jconfigs.all_arch_ids()
     with pytest.raises(ModuleNotFoundError):
-        tconfigs.get_config("qwen3-8b")
+        tconfigs.get_config("whisper-large-v3")
 
 
 def test_full_width_slice_is_the_three_dense_layers():
-    cfg = tconfigs.get_config(ARCH).with_overrides(num_layers=3)
-    assert tmodel.scan_groups(cfg) == [(("dense",), 3)]
+    """The full-width cut that ``chip_smoke.py`` serves: the first five
+    layers, the checkpoint's three dense layers and two MoE layers, as one
+    stacked unit; 54.6 GB of bf16 parameters (MTP head included)."""
+    cfg = tconfigs.get_config(ARCH).with_overrides(num_layers=5)
+    assert tmodel.scan_groups(cfg) == [(("dense", "dense", "dense", "moe", "moe"), 1)]
     m = cfg.mla
     assert (cfg.num_heads, m.q_lora_rank, m.kv_lora_rank, cfg.moe.d_ff_dense) == (
         128, 1536, 512, 18432)
+    e = cfg.moe
+    assert (e.num_experts, e.experts_per_token, e.num_shared_experts, e.d_ff_expert) == (
+        256, 8, 1, 2048)
+    assert tmodel.param_bytes(cfg) == 54_616_842_240
     assert tsteps.SHAPES["decode_32k"] == dict(kind="decode", seq=32768, batch=128)
 
 
-@pytest.mark.parametrize("what", ["init_params", "init_cache", "serve_batch", "full_cli"])
-def test_moe_layers_are_not_ported(what):
-    cfg = tconfigs.get_smoke_config(ARCH)  # layer 1 is MoE
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        if what == "init_params":
-            tmodel.init_params(cfg, 0, device="cpu")
-        elif what == "init_cache":
-            tmodel.init_cache(cfg, 2, 8, device="cpu")
-        elif what == "serve_batch":
-            tserve.serve_batch(ARCH, device="cpu")
-        else:
-            tserve.main(["--arch", ARCH, "--full", "--device", "cpu"])
-
-
 def test_cli_serves_the_dense_smoke_config(capsys):
+    """The CLI serves the reference's smoke config, its MoE layer included,
+    and ``--full`` refuses a model larger than memory by its bytes."""
     tserve.main(["--arch", ARCH, "--device", "cpu", "--requests", "2", "--prompt-len", "4",
                  "--gen", "3"])
     assert "generated (2, 3) tokens" in capsys.readouterr().out
-    cfg = tserve.dense_smoke_config(ARCH)
-    assert tmodel.layer_kinds(cfg) == ["dense", "dense"]
+    assert tmodel.layer_kinds(tconfigs.get_smoke_config(ARCH)) == ["dense", "moe"]
+    with pytest.raises(MemoryError, match="bytes of bfloat16 parameters"):
+        tserve.main(["--arch", ARCH, "--full", "--device", "cpu"])
+
+
+def test_serve_batch_with_the_moe_layer_equals_the_reference():
+    """The reference's smoke config (layer 1 MoE) in float32: greedy
+    tokens from ``serve_batch`` equal."""
+    cfg = jconfigs.get_smoke_config(ARCH).with_overrides(dtype="float32")
+    params = jmodel.init_params(cfg, jax.random.PRNGKey(0))
+    port = tmodel.params_from_jax(jax.tree_util.tree_map(np.asarray, params), "cpu")
+    kw = dict(requests=3, prompt_len=8, gen_len=10, seed=3)
+    want = jserve.serve_batch(ARCH, cfg=cfg, params=params, **kw)
+    got = tserve.serve_batch(ARCH, cfg=port_cfg(cfg), params=port, device="cpu", **kw)
+    np.testing.assert_array_equal(got["tokens"], want["tokens"])
 
 
 def test_decode_step_is_greedy():
