@@ -160,6 +160,25 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    their scale on the card, equal to the CPU's; ``run_sweep(default_grid())``
    (16 cells) on the card, rows equal to the CPU's, ``validate_rows``
    empty, the prefetch-step launches counted and each bit-exact;
+14. training at full width through ``launch.train.train``: DeepSeek-V3
+   cut to its three dense layers with its MTP head (4.29 B parameters,
+   128 MLA heads, d_model 7168, vocabulary 129,280, bf16 moments), batch 2
+   x seq 512, lr 3e-5 (at 3e-4 it diverges: ``scripts/train_lr_probe.py``);
+   Gemma2-2B whole (26 layers, float32 moments), 2 x 1024, lr 3e-4;
+   Phi-3.5-MoE cut to two layers (16 experts top-2), 2 x 512, lr 3e-4; 6
+   steps each from random weights (seed 0) on ``TokenPipeline(seed=0)``
+   batches: every loss and metric (``ce``, ``aux``, ``mtp_ce``) finite,
+   the last loss below the first, no native kernel launched; the first
+   step's ms and the median of the rest, tokens/s, peak memory, and the
+   model FLOPs a step (``train_flops``) against the 989 TFLOP/s dense bf16
+   peak; then, from the trained parameters and fresh moments on the next
+   batch, a ``remat=True`` step's loss within 1e-5 of the ``remat=False``
+   gradient pass's, each with its peak memory;
+14c. card vs CPU: the six smoke configs in float32 from the same weights
+   and batches, 3 steps of ``train``: losses within 1e-4 relative, step-1
+   gradients within 1e-4 x each leaf's largest, no native launch; the
+   card's checkpoint (``ckpt_path``) loaded on the CPU bit for bit equal to
+   the card's parameters;
 10. a ``kernels`` JSON line (the fused step's rows time the engine's form,
    the reference form's times beside them; the aggregation rows add their
    kernel alone, device operations a call, host ms, the gather's L2
@@ -168,12 +187,14 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    kernel alone, device operations and host ms, ``frontier_unique_batch``
    timing the path's compact form with the mask form and the hook's
    split beside it; rows 11-13 the legacy runs' launches, rows 1-2 the
-   launches of phases 12 and 13), and as the last line
+   launches of phases 12 and 13; every row its launches in phase 14, 0),
+   and as the last line
    the device JSON line. The aggregation kernels' in-run time (CUDA events
    around each dispatcher call) prints on phases 3, 3b, 6, 6b and 8.
 
 Each path's launch counts are zeroed just before it runs and read just
-after (the serving path launches ``mla_flash_decode`` only, phase 9d none); the device loops (phases 3, 3b, 6, 6b, 7) launch neither of the
+after (the serving path launches ``mla_flash_decode`` only, phase 9d none,
+training none); the device loops (phases 3, 3b, 6, 6b, 7) launch neither of the
 staged pipeline's kernels, and every training run launches the two
 aggregation kernels exactly once per PE, step and mean, plus the
 accuracy pass. Every phase raises on failure, so any failure exits non-zero.
@@ -236,6 +257,25 @@ WHOLE_ARCH = "qwen3-8b"
 ZOO = ("deepseek-v3-671b", "phi3.5-moe-42b-a6.6b", "qwen3-8b", "phi3-mini-3.8b",
        "minitron-4b", "gemma2-2b")
 SERVE_SMALL = dict(requests=3, prompt_len=12, gen_len=12, seed=1)
+#: Phase 14: training at full width through ``launch.train.train`` (random
+#: weights from seed 0, ``TokenPipeline(seed=0)`` batches, ``remat=False``):
+#: the architecture, its depth cut (None: whole), batch, sequence and lr.
+#: DeepSeek-V3's three dense layers with its MTP head (4.29 B parameters,
+#: 34.3 GB of state with bf16 moments), at lr 3e-5: at 3e-4 an un-warmed
+#: AdamW at d_model 7168 drives its loss from 17.13 to 90.88 in four steps
+#: (``scripts/train_lr_probe.py``); Gemma2-2B whole (26 layers: local/global
+#: GQA, the logit softcap, tied embeddings; 31.4 GB); Phi-3.5-MoE's first
+#: two layers (16 experts top-2: ``_grouped_mm``'s backward at real
+#: shapes; 34.4 GB).
+TRAIN_RUNS = (("deepseek-v3-671b", 3, 2, 512, 3e-5), ("gemma2-2b", None, 2, 1024, 3e-4),
+              ("phi3.5-moe-42b-a6.6b", 2, 2, 512, 3e-4))
+TRAIN_STEPS = 6
+#: Phase 14c: the six smoke configs in float32, card vs CPU: 3 steps at lr
+#: 3e-3 on batches of 2 x 16; losses within 1e-4 relative, step-1 gradients
+#: within 1e-4 x each leaf's largest.
+TRAIN_SMALL = dict(steps=3, batch=2, seq=16, lr=3e-3, seed=4)
+TRAIN_TOL = 1e-4
+REMAT_TOL = 1e-5
 #: Phase 2's MLA sweep, B, H, r, rr, S: the reference test's shapes,
 #: phase 9's, H 72 (not a multiple of the tensor-core kernel's 64-head
 #: block), r 32 with rr 4 (a 64-wide box over 32 columns; 8-byte kr rows,
@@ -1009,6 +1049,279 @@ def zoo_card_vs_cpu(arch, dev) -> dict:
             raise AssertionError(f"phase 9c ({arch}): two card decodes differ")
         row["moe_bit_identical"] = True
     return row
+
+
+def train_flops(cfg, batch: int, seq: int) -> int:
+    """Model FLOPs of one training step of ``lm_loss``: 3 x the forward's
+    matrix products (the backward's are twice the forward's), attention's
+    S x S products counted whole, as the plain attention computes them
+    (mask included), MoE layers at their top-k experts a token, the
+    unembedding over all S positions and DeepSeek-V3's MTP head (its
+    projection, block and unembedding over S - 1 and S - 2 positions).
+    ``tests/test_torch_train.py`` holds it to ``FlopCounterMode``'s count."""
+    from repro_torch.models import model as M
+
+    d, h = cfg.d_model, cfg.num_heads
+
+    def mlp(f):
+        return (3 if cfg.mlp_type in ("swiglu", "geglu") else 2) * d * f
+
+    def layer(kind, s):
+        if cfg.attn_type == "mla" and kind in ("dense", "moe", "attn"):
+            m = cfg.mla
+            qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+            proj = (d * m.q_lora_rank + m.q_lora_rank * h * qk + d * m.kv_lora_rank
+                    + d * m.qk_rope_head_dim
+                    + m.kv_lora_rank * h * (m.qk_nope_head_dim + m.v_head_dim)
+                    + h * m.v_head_dim * d)
+            att = batch * h * s * s * (qk + m.v_head_dim)
+        else:
+            proj = d * cfg.head_dim * 2 * (h + cfg.num_kv_heads)
+            att = batch * h * s * s * 2 * cfg.head_dim
+        e = cfg.moe
+        if kind == "moe":
+            ffn = d * e.num_experts + e.experts_per_token * mlp(e.d_ff_expert)
+            ffn += mlp(e.d_ff_expert * e.num_shared_experts) if e.num_shared_experts else 0
+        else:
+            ffn = mlp(e.d_ff_dense if kind == "dense" else cfg.d_ff)
+        return 2 * (batch * s * (proj + ffn) + att)
+
+    fwd = sum(layer(k, seq) for k in M.layer_kinds(cfg))
+    fwd += 2 * batch * seq * d * cfg.vocab_size
+    if cfg.mtp:
+        fwd += 2 * batch * (seq - 1) * 2 * d * d
+        fwd += layer("dense" if cfg.moe.num_experts else "attn", seq - 1)
+        fwd += 2 * batch * (seq - 2) * d * cfg.vocab_size
+    return 3 * fwd
+
+
+def train_full_width(arch, layers, batch, seq, lr, dev) -> dict:
+    """Phase 14 for one architecture: ``TRAIN_STEPS`` steps of
+    ``launch.train.train`` at full width (cut to ``layers`` when given),
+    every loss and metric finite, the last loss below the first, no native
+    kernel launched; the step times (the first apart), tokens/s, peak
+    memory and the model FLOPs' share of the bf16 peak; then from the
+    trained parameters and fresh moments, on the next batch, the gradient
+    with ``remat=False`` and one train step with ``remat=True``: losses
+    within ``REMAT_TOL`` relative, each pass's peak memory."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import mla_decode as md
+    from repro_torch.kernels import native
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.launch.train import train
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw_init
+
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = cfg.with_overrides(num_layers=layers)
+    tag = f"phase 14 ({arch})"
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_launches()
+    mla0 = dict(md.KERNEL_LAUNCHES)
+    t0 = time.perf_counter()
+    res = train(arch, cfg=cfg, steps=TRAIN_STEPS, batch=batch, seq=seq, lr=lr, seed=0,
+                log_every=TRAIN_STEPS, device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held
+    launches = dict(native.LAUNCHES)
+    mla = {k: v - mla0[k] for k, v in md.KERNEL_LAUNCHES.items() if v != mla0[k]}
+    if any(launches.values()) or mla:
+        raise AssertionError(f"{tag}: native launches {launches}, MLA kernels {mla}, want none")
+    bad = [m for m in res["metrics"] if not all(np.isfinite(v) for v in m.values())]
+    if bad or not res["last_loss"] < res["first_loss"]:
+        raise AssertionError(f"{tag}: metrics {res['metrics']}")
+    params = res["params"]
+    n_params = sum(t.numel() for t in _leaves(params))
+    step_s = res["step_s"]
+    median = float(np.median(step_s[1:]))
+    flops = train_flops(cfg, batch, seq)
+    row = {
+        "layers": cfg.num_layers, "groups": [list(g) for g in M.scan_groups(cfg)],
+        "params": n_params, "state_bytes": M.train_state_bytes(cfg), "batch": batch,
+        "seq": seq, "lr": lr, "losses": res["losses"], "metrics_last": res["metrics"][-1],
+        "first_step_ms": 1e3 * step_s[0], "step_ms_median": 1e3 * median,
+        "step_ms": [1e3 * t for t in step_s], "tokens_per_s": batch * seq / median,
+        "peak_bytes": peak, "held_before_bytes": held, "flops_per_step": flops,
+        "tflops_per_s": flops / median / 1e12,
+        "flop_share_of_bf16_peak": flops / median / BF16_TENSOR_OPS_PER_S, "wall_s": wall,
+        "launches": launches,
+    }
+    del res
+    # One more batch, from the trained parameters and fresh moments.
+    pipe = TokenPipeline(cfg, batch, seq, seed=0)
+    for _ in range(TRAIN_STEPS):
+        pipe.next_batch()
+    nxt = {k: torch.from_numpy(v).to(dev) for k, v in pipe.next_batch().items()}
+    opt = adamw_init(params, cfg.opt_dtype)
+    torch.cuda.reset_peak_memory_stats()
+    loss_nr, _, grads = loss_and_grads(cfg, params, nxt, remat=False)
+    loss_nr = float(loss_nr)
+    peak_nr = torch.cuda.max_memory_allocated() - held
+    del grads
+    torch.cuda.reset_peak_memory_stats()
+    remat_step = make_train_step(cfg, lr=lr, remat=True)
+    remat_ms = []
+    for i in range(2):  # the first call also sets up the checkpointing
+        t0 = time.perf_counter()
+        _, _, metrics = remat_step(params, opt, nxt)
+        loss = float(metrics["loss"])  # waits for the step
+        remat_ms.append(1e3 * (time.perf_counter() - t0))
+        if i == 0:
+            loss_r = loss
+    peak_r = torch.cuda.max_memory_allocated() - held
+    if not abs(loss_r - loss_nr) <= REMAT_TOL * abs(loss_nr):
+        raise AssertionError(f"{tag}: remat loss {loss_r} vs {loss_nr}")
+    row.update(remat_loss=loss_r, no_remat_loss=loss_nr, remat_step_ms=remat_ms,
+               remat_step_peak_bytes=peak_r, no_remat_grad_peak_bytes=peak_nr)
+    row.update(train_step_split(cfg, params, opt, nxt, lr))
+    del params, opt, metrics, nxt
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_step_split(cfg, params, opt, batch, lr) -> dict:
+    """Where a ``remat=False`` train step's time goes: the gradient pass
+    and the AdamW update by CUDA events (one step, host clock around it);
+    then one step under torch.profiler: the device's busy time (every
+    kernel, memset and copy the trace recorded) against the step's host
+    time, and the largest kernels."""
+    import torch
+    from torch.autograd import DeviceType
+
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.optim import adamw_update
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev[0].record()
+    _, _, grads = loss_and_grads(cfg, params, batch, remat=False)
+    ev[1].record()
+    adamw_update(params, grads, opt, lr)
+    ev[2].record()
+    torch.cuda.synchronize()
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    # The update's least bytes: parameters and both moments read and
+    # written once, the gradients read once.
+    update_bytes = sum(2 * t.nbytes for t in (*_leaves(params), *_leaves(opt.m), *_leaves(opt.v)))
+    update_bytes += sum(t.nbytes for t in _leaves(grads))
+    del grads
+    step = make_train_step(cfg, lr=lr, remat=False)
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    ) as prof:
+        t0 = time.perf_counter()
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+        prof_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = defaultdict(float)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            kernels[e.name[:48]] += e.time_range.elapsed_us() / 1e3
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: kv[1], reverse=True)[:6]
+    return {"grad_ms": ev[0].elapsed_time(ev[1]), "update_ms": ev[1].elapsed_time(ev[2]),
+            "update_bytes": update_bytes, "update_bound_ms": 1e3 * update_bytes / HBM_BYTES_PER_S,
+            "split_host_ms": host_ms, "profiled_step_ms": prof_ms,
+            "device_busy_ms": busy if busy else None,
+            "device_busy_share": busy / prof_ms if busy else None,
+            "top_kernels_ms": {k: round(v, 3) for k, v in top}}
+
+
+def print_train_row(arch, row) -> None:
+    """Phase 14's lines for one architecture."""
+    batch, seq = row["batch"], row["seq"]
+    print(f"phase 14: {arch} ({row['layers']} layers {row['groups']}, {row['params']} "
+          f"parameters, {row['state_bytes']} bytes of parameters, gradients and moments), "
+          f"batch {batch} x seq {seq}, {TRAIN_STEPS} steps at lr {row['lr']}: losses "
+          f"{[round(x, 4) for x in row['losses']]} (last below first, every metric "
+          f"finite; last {({k: round(v, 4) for k, v in row['metrics_last'].items()})}); "
+          f"no native kernel launched")
+    print(f"phase 14: {arch}: first step {row['first_step_ms']:.1f} ms, then median "
+          f"{row['step_ms_median']:.1f} ms a step ({[round(x, 1) for x in row['step_ms']]}), "
+          f"{row['tokens_per_s']:.0f} tokens/s; peak {row['peak_bytes'] / 1e9:.2f} GB above "
+          f"the {row['held_before_bytes'] / 1e9:.2f} GB held before; {row['flops_per_step']:.4g} "
+          f"model FLOPs a step, {row['tflops_per_s']:.1f} TFLOP/s = "
+          f"{100 * row['flop_share_of_bf16_peak']:.1f}% of the {BF16_TENSOR_OPS_PER_S / 1e12:.0f} "
+          f"TFLOP/s dense bf16 peak; wall {row['wall_s']:.1f} s")
+    print(f"phase 14: {arch}: the next batch from the trained state: remat=True step loss "
+          f"{row['remat_loss']:.6f} vs remat=False {row['no_remat_loss']:.6f} (within "
+          f"{REMAT_TOL}); peak {row['remat_step_peak_bytes'] / 1e9:.2f} GB (two remat steps, "
+          f"{row['remat_step_ms'][0]:.1f} and {row['remat_step_ms'][1]:.1f} ms) vs "
+          f"{row['no_remat_grad_peak_bytes'] / 1e9:.2f} GB (remat=False gradient)")
+    busy = (f"{row['device_busy_ms']:.1f} ms of kernels = "
+            f"{100 * row['device_busy_share']:.1f}% busy" if row["device_busy_ms"]
+            else "device time not measured")
+    print(f"phase 14: {arch}: one step split by CUDA events: gradient pass "
+          f"{row['grad_ms']:.1f} ms, AdamW update {row['update_ms']:.1f} ms (its "
+          f"{row['update_bytes']} bytes' HBM bound {row['update_bound_ms']:.1f} ms; host "
+          f"{row['split_host_ms']:.1f} ms); one step under torch.profiler "
+          f"{row['profiled_step_ms']:.1f} ms, {busy}; largest kernels (ms) "
+          + json.dumps(row["top_kernels_ms"]))
+
+
+def zoo_train_card_vs_cpu(arch, dev) -> dict:
+    """Phase 14c for one architecture: its smoke config in float32 from the
+    same weights and batches on the CPU and the card: the step-1 gradients
+    of every leaf within ``TRAIN_TOL`` x its largest, ``train``'s losses
+    over ``TRAIN_SMALL["steps"]`` steps within ``TRAIN_TOL`` relative, no
+    native launch; the card's run saves a checkpoint, which loads on the
+    CPU bit for bit equal to the card's parameters."""
+    import numpy as np
+    import torch
+
+    from repro_torch.ckpt import load_checkpoint
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import native
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.launch.train import train
+    from repro_torch.models import model as M
+
+    small = get_smoke_config(arch).with_overrides(dtype="float32")
+    tree = _numpy_tree(M.init_params(small, 7, device="cpu"))
+    first = TokenPipeline(small, TRAIN_SMALL["batch"], TRAIN_SMALL["seq"],
+                          seed=TRAIN_SMALL["seed"]).next_batch()
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "params.msgpack")
+        for where in ("cpu", DEVICE):
+            p = M.params_from_jax(tree, where)
+            _, _, grads = loss_and_grads(
+                small, p, {k: torch.from_numpy(v).to(where) for k, v in first.items()},
+                remat=False)
+            native.reset_launches()
+            res = train(arch, cfg=small, params=p, log_every=TRAIN_SMALL["steps"], device=where,
+                        ckpt_path=path if where == DEVICE else None, **TRAIN_SMALL)
+            if any(native.LAUNCHES.values()):
+                raise AssertionError(f"phase 14c ({arch}): launches {dict(native.LAUNCHES)}")
+            runs[where] = ([g.cpu() for g in _leaves(grads)], res["losses"],
+                           [t.cpu() for t in _leaves(res["params"])], res["params"])
+        loaded = load_checkpoint(path, runs["cpu"][3])
+    (g_cpu, l_cpu, _, _), (g_card, l_card, p_card, _) = runs["cpu"], runs[DEVICE]
+    grad_err = max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+                   for a, b in zip(g_card, g_cpu))
+    if not grad_err <= TRAIN_TOL:
+        raise AssertionError(f"phase 14c ({arch}): step-1 gradients differ by {grad_err:.3g} "
+                             f"of a leaf's largest")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_card, l_cpu))
+    if not loss_err <= TRAIN_TOL:
+        raise AssertionError(f"phase 14c ({arch}): losses {l_card} vs {l_cpu}")
+    got = list(_leaves(loaded))
+    if len(got) != len(p_card) or not all(
+            a.device.type == "cpu" and a.dtype == b.dtype and torch.equal(a, b)
+            for a, b in zip(got, p_card)):
+        raise AssertionError(f"phase 14c ({arch}): the card's checkpoint does not load equal")
+    return {"losses": [float(f"{x:.6g}") for x in l_card], "loss_rel_diff": loss_err,
+            "grad_rel_diff": grad_err, "leaves": len(got)}
 
 
 def _leaves(tree):
@@ -2566,7 +2879,7 @@ def main() -> int:
                              f"{tokens.min()}..{tokens.max()}")
     # The experts each step's MoE layers touch (the serve run's own routed
     # inputs, routed again).
-    moe_layers = [M._index(params["groups"][0], 0)[f"b{i}"]["ffn"]
+    moe_layers = [M._layers(params["groups"][0], 1)[0][f"b{i}"]["ffn"]
                   for i in range(n_dense, SERVE_LAYERS)]
     touched = np.array([
         experts_touched(cfg, moe_layers[i % len(moe_layers)]["router"], x)
@@ -2994,6 +3307,24 @@ def main() -> int:
     )
     del clock, rows, rows_cpu, got, ta, ra, tb, rb, tr
 
+    # -- 14. training at full width ---------------------------------------- #
+    t_phase = time.perf_counter()
+    trained = {}
+    for arch, layers, batch, seq, lr in TRAIN_RUNS:
+        row = train_full_width(arch, layers, batch, seq, lr, dev)
+        trained[arch] = row
+        print_train_row(arch, row)
+    print(f"phase 14: wall {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 14c. training card vs CPU on the six smoke configs ----------------- #
+    train_vs_cpu = {arch: zoo_train_card_vs_cpu(arch, dev) for arch in ZOO}
+    print("phase 14c: the smoke configs of " + ", ".join(ZOO) + f" (float32, TF32 off) from seed "
+          f"7, {TRAIN_SMALL['steps']} steps of train() on both devices: losses within "
+          f"{TRAIN_TOL} relative, step-1 gradients within {TRAIN_TOL} x each leaf's largest, no "
+          "native launch, the card's checkpoint loaded on the CPU bit for bit; " + json.dumps(
+              {a: {k: float(f"{v:.3g}") if isinstance(v, float) else v for k, v in r.items()}
+               for a, r in train_vs_cpu.items()}))
+
     # -- 10. results ------------------------------------------------------ #
     replaces = {
         "fused_frontier_step": "src/repro/kernels/fused_step.py:698",
@@ -3086,6 +3417,9 @@ def main() -> int:
     for name in AGGREGATION_KERNELS:  # each phase's in-run median, CUDA events
         extras[name]["in_run_ms"] = {tag: med[name] for tag, med in in_run.items()
                                      if name in med}
+    for name in native.KERNELS:  # phase 14 launches none
+        extras.setdefault(name, {})["train_launches"] = sum(
+            row["launches"].get(name, 0) for row in trained.values())
     kernels = []
     for name in native.KERNELS:
         k_ms, p_ms, l_ms, b_ms, b_by = timings[name]

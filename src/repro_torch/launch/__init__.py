@@ -1,2 +1,3 @@
-"""Launch layer of the port: the decode step and the serving loop
-(counterpart of the reference's ``repro.launch``)."""
+"""Launch layer of the port: the train, prefill and decode steps, the
+training driver and the serving loop (counterpart of the reference's
+``repro.launch``)."""

@@ -108,8 +108,78 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     return (cap * torch.tanh(x.to(torch.float32) / cap)).to(x.dtype)
 
 
+class _Embed(torch.autograd.Function):
+    """``embedding[tokens]``, whose backward sums each row's gradient in
+    float32 over the distinct ids (one ``index_put_`` with accumulate into
+    float32 rows, sorted and so the same from run to run) and rounds once
+    to the table's dtype. Autograd's own backward of the gather, and
+    ``F.embedding``'s below 3072 tokens, add in the table's dtype: on an
+    NVIDIA H100 their bf16 rows differed from the float64 sum by up to
+    0.25 and 0.19 (DeepSeek-V3's table, 1024 tokens) and 0.75 and 0.5
+    (Gemma2-2B's, 2048 tokens), this one by 0
+    (``scripts/train_backward_probe.py``)."""
+
+    @staticmethod
+    def forward(ctx, embedding, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.table = (embedding.shape, embedding.dtype)
+        return embedding[tokens]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (tokens,) = ctx.saved_tensors
+        shape, dtype = ctx.table
+        uniq, inv = torch.unique(tokens.reshape(-1), return_inverse=True)
+        rows = torch.zeros((uniq.numel(), shape[1]), dtype=torch.float32, device=grad.device)
+        rows.index_put_((inv,), grad.reshape(-1, shape[1]).to(torch.float32), accumulate=True)
+        out = torch.zeros(shape, dtype=dtype, device=grad.device)
+        out[uniq] = rows.to(dtype)
+        return out, None
+
+
 def embed_tokens(embedding: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return embedding[tokens.long()]
+    return _Embed.apply(embedding, tokens.long())
+
+
+class _Unembed(torch.autograd.Function):
+    """``x · embeddingᵀ`` in float32 over vocabulary blocks, whose backward
+    widens each block again instead of keeping it: autograd would save
+    every widened block, a float32 copy of the whole table (3.7 GB for
+    DeepSeek-V3's: a forward and backward at 2 x 512 tokens held 7.88 GB
+    above its inputs that way on an NVIDIA H100, 4.15 GB this way;
+    ``scripts/train_backward_probe.py``). The gradients are the float32
+    einsum's, cast back to each input's dtype, as the reference's
+    ``astype`` does."""
+
+    @staticmethod
+    def forward(ctx, x, embedding):
+        ctx.save_for_backward(x, embedding)
+        xf = x.to(torch.float32)
+        vocab = embedding.shape[0]
+        logits = torch.empty((*x.shape[:-1], vocab), dtype=torch.float32, device=x.device)
+        for v0 in range(0, vocab, UNEMBED_CHUNK):
+            block = embedding[v0 : v0 + UNEMBED_CHUNK].to(torch.float32)
+            logits[..., v0 : v0 + block.shape[0]] = xf @ block.T
+        return logits
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, embedding = ctx.saved_tensors
+        vocab, d = embedding.shape
+        g = grad.reshape(-1, vocab)
+        xf = x.to(torch.float32).reshape(-1, d)
+        gx = torch.zeros_like(xf) if ctx.needs_input_grad[0] else None
+        ge = torch.empty_like(embedding) if ctx.needs_input_grad[1] else None
+        for v0 in range(0, vocab, UNEMBED_CHUNK):
+            block = embedding[v0 : v0 + UNEMBED_CHUNK].to(torch.float32)
+            gb = g[:, v0 : v0 + block.shape[0]]
+            if gx is not None:
+                gx.addmm_(gb, block)
+            if ge is not None:
+                ge[v0 : v0 + block.shape[0]] = (gb.T @ xf).to(embedding.dtype)
+        if gx is not None:
+            gx = gx.reshape(x.shape).to(x.dtype)
+        return gx, ge
 
 
 def unembed(cfg: ModelConfig, embedding: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -120,14 +190,9 @@ def unembed(cfg: ModelConfig, embedding: torch.Tensor, x: torch.Tensor) -> torch
     never copied whole to float32 (129,280 × 7168 would be a 3.7 GB
     temporary per decode step). The price is one float32 block of
     ``UNEMBED_CHUNK × d_model`` (470 MB at d_model 7168) and the widening
-    pass over the table each step; a float32 table needs no copy."""
-    xf = x.to(torch.float32)
-    vocab = embedding.shape[0]
-    logits = torch.empty((*x.shape[:-1], vocab), dtype=torch.float32, device=x.device)
-    for v0 in range(0, vocab, UNEMBED_CHUNK):
-        block = embedding[v0 : v0 + UNEMBED_CHUNK].to(torch.float32)
-        logits[..., v0 : v0 + block.shape[0]] = xf @ block.T
-    return softcap(logits, cfg.logit_softcap)
+    pass over the table each step; a float32 table needs no copy. Under
+    autograd the backward widens the blocks again (:class:`_Unembed`)."""
+    return softcap(_Unembed.apply(x, embedding), cfg.logit_softcap)
 
 
 def init_dense(gen: torch.Generator, in_dim: int, out_dims, dtype) -> torch.Tensor:

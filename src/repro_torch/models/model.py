@@ -1,19 +1,23 @@
-"""Model assembly: stacked layer groups, embeddings, forward, decode.
+"""Model assembly: stacked layer groups, embeddings, forward, LM loss,
+decode.
 
-Counterpart of the reference's ``repro.models.model`` for serving the
+Counterpart of the reference's ``repro.models.model`` for the
 decoder-only attention architectures. Layers are grouped into *scan
 groups* exactly as the reference groups them (maximal runs of a
 repeating unit, e.g. DeepSeek = 3 dense + 58 moe, Gemma2 = 13 x (local,
 global)), and each group's parameters and caches are stacked with a
 leading count axis, so that the two packages' trees match leaf for leaf.
-PyTorch runs eagerly: where the reference scans a group, the port loops
-over the count axis in Python.
+PyTorch runs eagerly: where the reference scans a group, the port splits
+each stacked leaf once (``torch.unbind``, whose backward is one stack)
+and loops over the layers in Python; ``remat`` recomputes each unit in
+backward (``torch.utils.checkpoint``), as the reference's
+``jax.checkpoint`` does.
 
 Ported: :func:`layer_kinds`, :func:`scan_groups`, :func:`init_params`,
-:func:`init_cache`, :func:`forward`, :func:`decode_step`, and
-:func:`params_from_jax`, which carries the reference's parameters across.
-Waiting (ROADMAP Queue A item 5): ``lm_loss`` and training (5a), the SSM
-and hybrid kinds (5b), the encoder-decoder stack and
+:func:`init_cache`, :func:`forward`, :func:`lm_loss` (DeepSeek-V3's MTP
+head included), :func:`decode_step`, and :func:`params_from_jax`, which
+carries the reference's parameters across. Waiting (ROADMAP Queue A
+item 5): the SSM and hybrid kinds (5b), the encoder-decoder stack and
 ``prefill_cross_cache`` (5c), the vision projector (5d).
 """
 
@@ -24,10 +28,11 @@ import os
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import blocks
 from .common import (
-    SHAPES_ONLY, apply_norm, dtype_of, embed_tokens, make_norm_params, normal, unembed,
+    _DTYPES, SHAPES_ONLY, apply_norm, dtype_of, embed_tokens, make_norm_params, normal, unembed,
 )
 from .config import ModelConfig
 
@@ -103,11 +108,15 @@ def _init_group(cfg: ModelConfig, unit, count: int, gen) -> dict:
     return stacked
 
 
-def _index(tree, i: int):
-    """Leaf ``[i]`` of every tensor in a stacked tree (views, no copy)."""
+def _layers(tree, count: int) -> list:
+    """The ``count`` layers of a stacked tree: every leaf split once along
+    its leading axis (views, no copy). Under autograd the split's backward
+    is one ``stack`` per leaf; indexing each layer instead would fill a
+    zeroed stack per layer and sum ``count`` of them."""
     if isinstance(tree, dict):
-        return {k: _index(v, i) for k, v in tree.items()}
-    return tree[i]
+        split = {k: _layers(v, count) for k, v in tree.items()}
+        return [{k: v[i] for k, v in split.items()} for i in range(count)]
+    return list(torch.unbind(tree, 0))
 
 
 def _check_ported(cfg: ModelConfig) -> None:
@@ -153,10 +162,19 @@ def param_bytes(cfg: ModelConfig) -> int:
     return sum(t.nbytes for t in _leaves(_draw_params(cfg, SHAPES_ONLY)))
 
 
-def _check_room(cfg: ModelConfig, dev: torch.device) -> None:
-    """Refuse, naming the bytes, a tree larger than the device's free
-    memory (the card's) or the host's physical memory (the CPU's)."""
-    need = param_bytes(cfg)
+def train_state_bytes(cfg: ModelConfig) -> int:
+    """Bytes of a training step's state: the parameters, their gradients
+    (the parameters' dtypes) and AdamW's two moments (``cfg.opt_dtype``)."""
+    _check_ported(cfg)
+    moment = _DTYPES[cfg.opt_dtype].itemsize
+    leaves = list(_leaves(_draw_params(cfg, SHAPES_ONLY)))
+    return sum(2 * t.nbytes + 2 * t.numel() * moment for t in leaves)
+
+
+def check_room(cfg: ModelConfig, need: int, what: str, dev: torch.device) -> None:
+    """Refuse, naming the bytes, ``need`` bytes of ``what`` beyond the
+    device's free memory (the card's) or the host's physical memory (the
+    CPU's)."""
     if dev.type == "cuda":
         free, _ = torch.cuda.mem_get_info(dev)
         where = f"{free} bytes free on {torch.cuda.get_device_name(dev)}"
@@ -165,8 +183,8 @@ def _check_room(cfg: ModelConfig, dev: torch.device) -> None:
         where = f"{free} bytes of host memory"
     if need > free:
         raise MemoryError(
-            f"{cfg.name} at {cfg.num_layers} layers needs {need} bytes of "
-            f"{cfg.dtype} parameters; there are {where}"
+            f"{cfg.name} at {cfg.num_layers} layers needs {need} bytes of {what}; "
+            f"there are {where}"
         )
 
 
@@ -179,7 +197,7 @@ def init_params(cfg: ModelConfig, seed: int, *, device="cuda") -> dict:
     raises ``MemoryError`` naming the bytes before anything is drawn."""
     _check_ported(cfg)
     gen = torch.Generator(device=device).manual_seed(int(seed))
-    _check_room(cfg, gen.device)
+    check_room(cfg, param_bytes(cfg), f"{cfg.dtype} parameters", gen.device)
     return _draw_params(cfg, gen)
 
 
@@ -239,17 +257,24 @@ def _run_groups(
     remat: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Every layer of every group in order; returns ``(x, aux)``, the MoE
-    layers' auxiliary losses summed. ``remat`` is accepted and has no
-    effect: the port does not train yet (ROADMAP Queue A item 5a)."""
+    layers' auxiliary losses summed. With ``remat`` each unit of a group
+    keeps only its inputs for backward and runs again there."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for (unit, count), gparams in zip(group_structure, group_list):
-        for layer in range(count):
-            up = _index(gparams, layer)
+
+        def unit_fwd(h, aux, up, unit=unit):
             for i, kind in enumerate(unit):
-                x, a = blocks.block_forward(
-                    cfg, kind, up[f"b{i}"], x, positions, force_local=force_local
+                h, a = blocks.block_forward(
+                    cfg, kind, up[f"b{i}"], h, positions, force_local=force_local
                 )
-                aux_total = aux_total + a
+                aux = aux + a
+            return h, aux
+
+        for up in _layers(gparams, count):
+            if remat:
+                x, aux_total = checkpoint(unit_fwd, x, aux_total, up, use_reentrant=False)
+            else:
+                x, aux_total = unit_fwd(x, aux_total, up)
     return x, aux_total
 
 
@@ -266,10 +291,7 @@ def forward(
     """Full-sequence logits. Returns ``(logits, moe_aux_loss)``: float32
     logits ``(B, S, vocab)``. ``patches`` (vision) and ``frames`` (audio)
     raise ``NotImplementedError``."""
-    if patches is not None:
-        raise _not_ported("the vision projector (patches)", "5d")
-    if frames is not None:
-        raise _not_ported("the audio encoder (frames)", "5c")
+    _check_inputs(patches, frames)
     _check_ported(cfg)
     x = _embed(cfg, params, tokens)
     positions = torch.arange(x.shape[1], device=x.device)[None]
@@ -280,6 +302,61 @@ def forward(
     x = apply_norm(cfg, params["final_norm"], x)
     logits = unembed(cfg, params.get("unembed", params["embed"]), x)
     return logits, aux
+
+
+def _check_inputs(patches, frames) -> None:
+    if patches is not None:
+        raise _not_ported("the vision projector (patches)", "5d")
+    if frames is not None:
+        raise _not_ported("the audio encoder (frames)", "5c")
+
+
+# --------------------------------------------------------------------- #
+# LM loss (next-token CE) + optional MTP
+# --------------------------------------------------------------------- #
+def _ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy: float32 ``log_softmax`` and the
+    targets' entries, as the reference's."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    return -torch.mean(torch.gather(logp, -1, targets.long()[..., None]))
+
+
+def lm_loss(
+    cfg: ModelConfig,
+    params: dict,
+    batch: dict,
+    remat: bool = False,
+) -> tuple[torch.Tensor, dict]:
+    """Next-token cross entropy plus the MoE load-balance loss (weighted
+    by ``cfg.moe.router_aux_weight``), and with ``cfg.mtp`` the
+    reference's multi-token-prediction term. Returns ``(total, metrics)``
+    with 0-d float32 tensors ``ce``, ``aux`` and (MTP) ``mtp_ce``.
+
+    The MTP head is the reference's proxy, ported as written: it predicts
+    token t+2 from ``[embed(t) ; embed(t+1)]`` (the tokens embedded again,
+    not the trunk's hidden state) through ``mtp_proj``, one block (a
+    ``dense`` block for a MoE model) and ``mtp_norm``, sharing the trunk's
+    unembedding. ``patches`` and ``frames`` raise ``NotImplementedError``."""
+    _check_inputs(batch.get("patches"), batch.get("frames"))
+    tokens = batch["tokens"]
+    logits, aux = forward(cfg, params, tokens, remat=remat)
+    ce = _ce(logits[:, : tokens.shape[1] - 1], tokens[:, 1:])
+    total = ce + cfg.moe.router_aux_weight * aux
+    metrics = {"ce": ce, "aux": aux}
+    if cfg.mtp:
+        h = embed_tokens(params["embed"], tokens)
+        h2 = torch.cat([h[:, :-1], embed_tokens(params["embed"], tokens[:, 1:])], dim=-1)
+        h2 = torch.einsum("bsk,kd->bsd", h2, params["mtp_proj"])
+        positions = torch.arange(h2.shape[1], device=h2.device)[None]
+        h2, _ = blocks.block_forward(
+            cfg, "dense" if cfg.moe.num_experts else "attn", params["mtp_block"], h2, positions
+        )
+        h2 = apply_norm(cfg, params["mtp_norm"], h2)
+        mtp_logits = unembed(cfg, params.get("unembed", params["embed"]), h2[:, :-1])
+        mtp_ce = _ce(mtp_logits, tokens[:, 2:])
+        total = total + cfg.mtp_weight * mtp_ce
+        metrics["mtp_ce"] = mtp_ce
+    return total, metrics
 
 
 # --------------------------------------------------------------------- #
@@ -323,8 +400,7 @@ def decode_step(
     pos = int(pos)
     x = _embed(cfg, params, token)
     for (unit, count), gparams, gcache in zip(scan_groups(cfg), params["groups"], cache):
-        for layer in range(count):
-            up, uc = _index(gparams, layer), _index(gcache, layer)
+        for up, uc in zip(_layers(gparams, count), _layers(gcache, count)):
             for i, kind in enumerate(unit):
                 x, _ = blocks.block_decode(cfg, kind, up[f"b{i}"], x, uc[f"b{i}"], pos,
                                            force_local=force_local)

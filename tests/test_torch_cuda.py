@@ -26,7 +26,9 @@ committed golden trace re-recorded on the card; the legacy runtime at
 ``scale=1`` (its GraphSAGE step on the card), the six classifiers fitted
 on the card and a 2-cell sweep, each against the CPU; the zoo's MoE layer
 card vs CPU and bit-identical across two card runs, GQA serving card vs
-CPU (Gemma2, Qwen3), and prefill against decode on the card.
+CPU (Gemma2, Qwen3), and prefill against decode on the card; the
+training path's embedding backward (float32 sums, bit-identical runs) and
+three train steps card vs CPU with remat bit-identical on the card.
 """
 
 import itertools
@@ -949,8 +951,8 @@ def test_moe_forward_on_the_card_matches_cpu(card, arch):
 
     cfg, (p_cpu, p_card) = _zoo_params(arch, ("cpu", card))
     layer = next(i for i, k in enumerate(M.layer_kinds(cfg)) if k == "moe")
-    group = M._index(p_cpu["groups"][0], 0)  # a unit of every layer
-    unit = M._index(p_card["groups"][0], 0)
+    group = M._layers(p_cpu["groups"][0], 1)[0]  # a unit of every layer
+    unit = M._layers(p_card["groups"][0], 1)[0]
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (3, 7, cfg.d_model)).astype(np.float32))
     want, _ = moe.moe_forward(cfg, group[f"b{layer}"]["ffn"], x)
@@ -999,3 +1001,63 @@ def test_prefill_matches_decode_on_the_card(card, arch):
     err = (torch.stack(dec, dim=1) - full).abs().max().item()
     assert err < 1e-3 * max(full.abs().max().item(), 1.0)
     assert torch.equal(last, full[:, -1])
+
+
+def test_embedding_backward_sums_in_float32_on_the_card(card):
+    """``common.embed_tokens``' backward on bf16: every row the float64 sum
+    of its gradients rounded once to bf16, and two runs bit-identical."""
+    from repro_torch.models.common import embed_tokens
+
+    gen = torch.Generator(device=card).manual_seed(0)
+    table = torch.randn((5000, 96), generator=gen, device=card).to(torch.bfloat16)
+    tokens = torch.randint(0, 50, (4, 300), generator=gen, device=card)  # many repeats
+    up = torch.randn((4, 300, 96), generator=gen, device=card).to(torch.bfloat16)
+
+    def grad():
+        e = table.detach().requires_grad_()
+        return torch.autograd.grad(embed_tokens(e, tokens), e, up)[0]
+
+    a, b = grad(), grad()
+    want = torch.zeros((5000, 96), dtype=torch.float64, device=card)
+    want.index_add_(0, tokens.reshape(-1), up.reshape(-1, 96).double())
+    assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+    assert torch.equal(a, want.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "phi3.5-moe-42b-a6.6b", "gemma2-2b"])
+def test_train_steps_on_the_card_match_cpu(card, arch):
+    """The smoke config in float32 from the same weights and batches: the
+    first batch's gradients within 1e-4 x each leaf's largest, and three
+    ``make_train_step`` steps' losses within 1e-4 relative (the
+    parameters after them are not compared: AdamW's first steps move an
+    element by about lr whatever its gradient's size, so a gradient near
+    0 that differs in its last bits moves it by up to 2 lr); then on the
+    card ``remat=True`` against ``remat=False``, bit-identical."""
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import flatten, tree_map
+
+    cfg, trees = _zoo_params(arch, ("cpu", card))
+    pipe = TokenPipeline(cfg, 2, 16, seed=4)
+    batches = [pipe.next_batch() for _ in range(3)]
+    runs = []
+    for p, dev in zip(trees, ("cpu", card)):
+        p = tree_map(torch.clone, p)  # the steps write in place
+        first = {k: torch.from_numpy(v).to(dev) for k, v in batches[0].items()}
+        grads = [g.cpu() for g in flatten(loss_and_grads(cfg, p, first, remat=False)[2])[0]]
+        opt = adamw_init(p, cfg.opt_dtype)
+        step = make_train_step(cfg, lr=3e-3, remat=False)
+        losses = []
+        for b in batches:
+            p, opt, m = step(p, opt, {k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+            losses.append(float(m["loss"]))
+        runs.append((grads, losses, p))
+    (g_cpu, l_cpu, _), (g_card, l_card, tree_card) = runs
+    for a, b in zip(g_card, g_cpu):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+    np.testing.assert_allclose(l_card, l_cpu, rtol=1e-4, atol=0)
+    batch = {k: torch.from_numpy(v).to(card) for k, v in batches[0].items()}
+    plain, remat = (loss_and_grads(cfg, tree_card, batch, remat=r) for r in (False, True))
+    assert torch.equal(plain[0], remat[0])
+    assert all(torch.equal(a, b) for a, b in zip(flatten(plain[2])[0], flatten(remat[2])[0]))

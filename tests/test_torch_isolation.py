@@ -2,9 +2,11 @@
 no silent move from the card to the CPU.
 
 * an AST scan of every module of ``src/repro_torch`` and of
-  ``chip_smoke.py`` finds no import of ``jax`` or ``repro``;
+  ``chip_smoke.py`` finds no import of ``jax`` or ``repro``, nor of
+  ``msgpack`` (the reference's checkpoint dependency, which the card's
+  machine does not have);
 * every module of the port imports in a fresh interpreter in which
-  ``jax`` and ``repro`` cannot be imported;
+  ``jax``, ``repro`` and ``msgpack`` cannot be imported;
 * asking for ``device="cuda"`` where there is no card raises
   ``RuntimeError``, and ``chip_smoke.py`` exits non-zero with no result,
   both in the checkout and alone in an empty directory.
@@ -23,7 +25,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
-FORBIDDEN = {"jax", "jaxlib", "repro"}
+FORBIDDEN = {"jax", "jaxlib", "repro", "msgpack"}
 
 
 def _sources():
@@ -55,6 +57,7 @@ def test_port_imports_without_jax():
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
+        "sys.modules['msgpack'] = None\n"
         "import repro_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
         "for n in names:\n"
@@ -107,6 +110,17 @@ def test_cuda_without_a_card_raises(no_card):
         build_trainer("products_25pct_fixed")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_sweep([SweepConfig(num_parts=2, epochs=1)], scale=0.05)
+    # Training, and the modules it brought.
+    from repro_torch.launch.train import train
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train("gemma2-2b", steps=1)
+
+
+def test_the_training_modules_are_scanned():
+    names = {str(p.relative_to(PORT)) for p in _sources() if p.is_relative_to(PORT)}
+    assert {"optim/adamw.py", "data/pipeline.py", "ckpt/checkpoint.py", "launch/train.py",
+            "tree.py"} <= names
 
 
 def _run_smoke(cwd: Path):
