@@ -125,9 +125,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    plain output's largest value), timed beside the plain version,
    ``scaled_dot_product_attention`` and its bound, the split kernel alone
    by torch.profiler and the share of the bound reached;
-9c. card vs CPU: the smoke configs of the six ported architectures
+9c. card vs CPU: the smoke configs of the eight ported architectures
    (DeepSeek-V3, Phi-3.5-MoE, Qwen3-8B, Phi-3-mini, Minitron-4B,
-   Gemma2-2B) in float32, served on both devices from the same weights:
+   Gemma2-2B, xLSTM-350M, Zamba2-1.2B) in float32, served on both devices from the same weights:
    greedy tokens identical, decode and prefill logits allclose 1e-4, the
    MLA configs' launches all on the CUDA-core kernel and the GQA ones'
    none; ``forward`` vs token-by-token decode on the card within 1e-3 x
@@ -174,11 +174,30 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    peak; then, from the trained parameters and fresh moments on the next
    batch, a ``remat=True`` step's loss within 1e-5 of the ``remat=False``
    gradient pass's, each with its peak memory;
-14c. card vs CPU: the six smoke configs in float32 from the same weights
+14c. card vs CPU: the eight smoke configs in float32 from the same weights
    and batches, 3 steps of ``train``: losses within 1e-4 relative, step-1
    gradients within 1e-4 x each leaf's largest, no native launch; the
    card's checkpoint (``ckpt_path``) loaded on the CPU bit for bit equal to
    the card's parameters;
+15. xLSTM-350M (24 layers) and Zamba2-1.2B (38 layers) whole in bf16,
+   served as phase 9d (``SERVE``'s requests through ``serve_batch``, the
+   decode step alone by host clock and CUDA events, ``make_prefill_step``
+   against the decode path at position 255), with tokens/s, peak memory
+   and the decode step's bound from the bytes it must move (parameters,
+   the attention cache, the recurrent state read and written); no native
+   kernel launched;
+15b. ``shape_supported`` on every ported config and shape (the
+   reference's rule: ``long_500k`` for xLSTM-350M, Zamba2-1.2B and
+   Gemma2-2B only); both models at ``long_500k`` (batch 1, a cache of
+   524,288, ``long_mode``): 8 greedy steps from position 524,280, logits
+   finite, ms a step beside its bytes bound, the peak with Zamba2's 25.8 GB
+   of shared-attention cache; xLSTM-350M's last step again at position 5
+   from a copy of its state, bit-identical;
+15c. both models trained whole through ``launch.train.train`` at batch 2 x
+   seq 256, lr 3e-4, 6 steps (phase 14's checks, one ``remat=True`` step
+   against the ``remat=False`` gradient), the predicted bytes the
+   recurrences keep for backward beside the measured peaks, and the FLOP
+   share by ``train_flops``;
 10. a ``kernels`` JSON line (the fused step's rows time the engine's form,
    the reference form's times beside them; the aggregation rows add their
    kernel alone, device operations a call, host ms, the gather's L2
@@ -187,14 +206,15 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    kernel alone, device operations and host ms, ``frontier_unique_batch``
    timing the path's compact form with the mask form and the hook's
    split beside it; rows 11-13 the legacy runs' launches, rows 1-2 the
-   launches of phases 12 and 13; every row its launches in phase 14, 0),
+   launches of phases 12 and 13; every row its launches in phase 14 and
+   in phases 15, 15b and 15c, 0),
    and as the last line
    the device JSON line. The aggregation kernels' in-run time (CUDA events
    around each dispatcher call) prints on phases 3, 3b, 6, 6b and 8.
 
 Each path's launch counts are zeroed just before it runs and read just
-after (the serving path launches ``mla_flash_decode`` only, phase 9d none,
-training none); the device loops (phases 3, 3b, 6, 6b, 7) launch neither of the
+after (the serving path launches ``mla_flash_decode`` only, phases 9d and
+15-15b none, training none); the device loops (phases 3, 3b, 6, 6b, 7) launch neither of the
 staged pipeline's kernels, and every training run launches the two
 aggregation kernels exactly once per PE, step and mean, plus the
 accuracy pass. Every phase raises on failure, so any failure exits non-zero.
@@ -252,10 +272,10 @@ SERVE_LAYERS = 5
 SERVE = dict(requests=4, prompt_len=256, gen_len=32, seed=0)
 #: Phase 9d: Qwen3-8B whole (36 layers, 16.4 GB of bf16), the same requests.
 WHOLE_ARCH = "qwen3-8b"
-#: Phase 9c: the smoke configs of the six ported architectures on the
-#: card and the CPU.
+#: Phases 9c and 14c: the smoke configs of the eight ported architectures
+#: on the card and the CPU.
 ZOO = ("deepseek-v3-671b", "phi3.5-moe-42b-a6.6b", "qwen3-8b", "phi3-mini-3.8b",
-       "minitron-4b", "gemma2-2b")
+       "minitron-4b", "gemma2-2b", "xlstm-350m", "zamba2-1.2b")
 SERVE_SMALL = dict(requests=3, prompt_len=12, gen_len=12, seed=1)
 #: Phase 14: training at full width through ``launch.train.train`` (random
 #: weights from seed 0, ``TokenPipeline(seed=0)`` batches, ``remat=False``):
@@ -276,6 +296,17 @@ TRAIN_STEPS = 6
 TRAIN_SMALL = dict(steps=3, batch=2, seq=16, lr=3e-3, seed=4)
 TRAIN_TOL = 1e-4
 REMAT_TOL = 1e-5
+#: Phases 15-15c: the SSM and hybrid architectures whole, bf16 (xLSTM-350M:
+#: 24 layers, 3 x (7 mLSTM + sLSTM); Zamba2-1.2B: 38 layers, 6 x (5 Mamba2 +
+#: shared attention) + 2 Mamba2): served with ``SERVE``'s requests (15), at
+#: ``long_500k`` for ``LONG_STEPS`` steps (15b), trained at ``SSM_TRAIN``
+#: for ``TRAIN_STEPS`` steps (15c; S = 256 puts mLSTM on its 64-step chunk
+#: path). ``long_500k`` is allowed for these two and Gemma2-2B only
+#: (``launch.steps.shape_supported``, the reference's rule).
+SSM_ARCHES = ("xlstm-350m", "zamba2-1.2b")
+LONG_STEPS = 8
+SSM_TRAIN = dict(batch=2, seq=256, lr=3e-4)
+LONG_500K_OK = ("gemma2-2b", "xlstm-350m", "zamba2-1.2b")
 #: Phase 2's MLA sweep, B, H, r, rr, S: the reference test's shapes,
 #: phase 9's, H 72 (not a multiple of the tensor-core kernel's 64-head
 #: block), r 32 with rr 4 (a 64-wide box over 32 columns; 8-byte kr rows,
@@ -1058,8 +1089,14 @@ def train_flops(cfg, batch: int, seq: int) -> int:
     (mask included), MoE layers at their top-k experts a token, the
     unembedding over all S positions and DeepSeek-V3's MTP head (its
     projection, block and unembedding over S - 1 and S - 2 positions).
+    The recurrent layers count their projections and their scans' products
+    a step (Mamba2's state read, mLSTM's ``C q`` and ``n q``, sLSTM's input
+    and recurrent gate products); mLSTM's scan products count 4 x, since
+    its chunk checkpoint runs them again in backward, and sLSTM's first
+    recurrent product has no input gradient (its ``h`` starts at zeros).
     ``tests/test_torch_train.py`` holds it to ``FlopCounterMode``'s count."""
     from repro_torch.models import model as M
+    from repro_torch.models import ssm
 
     d, h = cfg.d_model, cfg.num_heads
 
@@ -1067,6 +1104,17 @@ def train_flops(cfg, batch: int, seq: int) -> int:
         return (3 if cfg.mlp_type in ("swiglu", "geglu") else 2) * d * f
 
     def layer(kind, s):
+        """The forward's products, and what the backward runs beyond 2 x."""
+        if kind == "mamba2":
+            e, heads, n = ssm.mamba2_dims(cfg)
+            return 2 * batch * s * (d * (2 * e + 2 * n + heads) + e * n + e * d), 0
+        if kind == "mlstm":
+            e, heads, hd = ssm.mlstm_dims(cfg)
+            scan = 2 * batch * s * e * (hd + 1)
+            return 2 * batch * s * (2 * d * e + 3 * e * e + 2 * e * heads + e * d) + scan, scan
+        if kind == "slstm":
+            f = int(cfg.ssm.proj_factor_slstm * d)
+            return 2 * batch * s * (8 * d * d + 3 * d * f), -2 * batch * d * 4 * d
         if cfg.attn_type == "mla" and kind in ("dense", "moe", "attn"):
             m = cfg.mla
             qk = m.qk_nope_head_dim + m.qk_rope_head_dim
@@ -1084,26 +1132,30 @@ def train_flops(cfg, batch: int, seq: int) -> int:
             ffn += mlp(e.d_ff_expert * e.num_shared_experts) if e.num_shared_experts else 0
         else:
             ffn = mlp(e.d_ff_dense if kind == "dense" else cfg.d_ff)
-        return 2 * (batch * s * (proj + ffn) + att)
+        return 2 * (batch * s * (proj + ffn) + att), 0
 
-    fwd = sum(layer(k, seq) for k in M.layer_kinds(cfg))
+    counts = [layer(k, seq) for k in M.layer_kinds(cfg)]
+    fwd = sum(c[0] for c in counts)
     fwd += 2 * batch * seq * d * cfg.vocab_size
     if cfg.mtp:
         fwd += 2 * batch * (seq - 1) * 2 * d * d
-        fwd += layer("dense" if cfg.moe.num_experts else "attn", seq - 1)
+        fwd += layer("dense" if cfg.moe.num_experts else "attn", seq - 1)[0]
         fwd += 2 * batch * (seq - 2) * d * cfg.vocab_size
-    return 3 * fwd
+    return 3 * fwd + sum(c[1] for c in counts)
 
 
-def train_full_width(arch, layers, batch, seq, lr, dev) -> dict:
-    """Phase 14 for one architecture: ``TRAIN_STEPS`` steps of
+def train_full_width(arch, layers, batch, seq, lr, dev, tag="phase 14", remat_steps=2,
+                     split=True) -> dict:
+    """Phase 14 (and 15c) for one architecture: ``TRAIN_STEPS`` steps of
     ``launch.train.train`` at full width (cut to ``layers`` when given),
     every loss and metric finite, the last loss below the first, no native
     kernel launched; the step times (the first apart), tokens/s, peak
     memory and the model FLOPs' share of the bf16 peak; then from the
     trained parameters and fresh moments, on the next batch, the gradient
-    with ``remat=False`` and one train step with ``remat=True``: losses
-    within ``REMAT_TOL`` relative, each pass's peak memory."""
+    with ``remat=False`` and ``remat_steps`` train steps with
+    ``remat=True``: losses within ``REMAT_TOL`` relative, each pass's peak
+    memory; with ``split``, one step split by CUDA events and one under
+    torch.profiler (``train_step_split``)."""
     import numpy as np
     import torch
 
@@ -1119,7 +1171,7 @@ def train_full_width(arch, layers, batch, seq, lr, dev) -> dict:
     cfg = get_config(arch)
     if layers is not None:
         cfg = cfg.with_overrides(num_layers=layers)
-    tag = f"phase 14 ({arch})"
+    tag = f"{tag} ({arch})"
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1169,7 +1221,7 @@ def train_full_width(arch, layers, batch, seq, lr, dev) -> dict:
     torch.cuda.reset_peak_memory_stats()
     remat_step = make_train_step(cfg, lr=lr, remat=True)
     remat_ms = []
-    for i in range(2):  # the first call also sets up the checkpointing
+    for i in range(remat_steps):  # the first call also sets up the checkpointing
         t0 = time.perf_counter()
         _, _, metrics = remat_step(params, opt, nxt)
         loss = float(metrics["loss"])  # waits for the step
@@ -1181,7 +1233,8 @@ def train_full_width(arch, layers, batch, seq, lr, dev) -> dict:
         raise AssertionError(f"{tag}: remat loss {loss_r} vs {loss_nr}")
     row.update(remat_loss=loss_r, no_remat_loss=loss_nr, remat_step_ms=remat_ms,
                remat_step_peak_bytes=peak_r, no_remat_grad_peak_bytes=peak_nr)
-    row.update(train_step_split(cfg, params, opt, nxt, lr))
+    if split:
+        row.update(train_step_split(cfg, params, opt, nxt, lr))
     del params, opt, metrics, nxt
     torch.cuda.empty_cache()
     return row
@@ -1236,31 +1289,34 @@ def train_step_split(cfg, params, opt, batch, lr) -> dict:
             "top_kernels_ms": {k: round(v, 3) for k, v in top}}
 
 
-def print_train_row(arch, row) -> None:
-    """Phase 14's lines for one architecture."""
+def print_train_row(arch, row, tag="phase 14") -> None:
+    """Phase 14's (or 15c's) lines for one architecture."""
     batch, seq = row["batch"], row["seq"]
-    print(f"phase 14: {arch} ({row['layers']} layers {row['groups']}, {row['params']} "
+    print(f"{tag}: {arch} ({row['layers']} layers {row['groups']}, {row['params']} "
           f"parameters, {row['state_bytes']} bytes of parameters, gradients and moments), "
           f"batch {batch} x seq {seq}, {TRAIN_STEPS} steps at lr {row['lr']}: losses "
           f"{[round(x, 4) for x in row['losses']]} (last below first, every metric "
           f"finite; last {({k: round(v, 4) for k, v in row['metrics_last'].items()})}); "
           f"no native kernel launched")
-    print(f"phase 14: {arch}: first step {row['first_step_ms']:.1f} ms, then median "
+    print(f"{tag}: {arch}: first step {row['first_step_ms']:.1f} ms, then median "
           f"{row['step_ms_median']:.1f} ms a step ({[round(x, 1) for x in row['step_ms']]}), "
           f"{row['tokens_per_s']:.0f} tokens/s; peak {row['peak_bytes'] / 1e9:.2f} GB above "
           f"the {row['held_before_bytes'] / 1e9:.2f} GB held before; {row['flops_per_step']:.4g} "
           f"model FLOPs a step, {row['tflops_per_s']:.1f} TFLOP/s = "
           f"{100 * row['flop_share_of_bf16_peak']:.1f}% of the {BF16_TENSOR_OPS_PER_S / 1e12:.0f} "
           f"TFLOP/s dense bf16 peak; wall {row['wall_s']:.1f} s")
-    print(f"phase 14: {arch}: the next batch from the trained state: remat=True step loss "
+    print(f"{tag}: {arch}: the next batch from the trained state: remat=True step loss "
           f"{row['remat_loss']:.6f} vs remat=False {row['no_remat_loss']:.6f} (within "
-          f"{REMAT_TOL}); peak {row['remat_step_peak_bytes'] / 1e9:.2f} GB (two remat steps, "
-          f"{row['remat_step_ms'][0]:.1f} and {row['remat_step_ms'][1]:.1f} ms) vs "
+          f"{REMAT_TOL}); peak {row['remat_step_peak_bytes'] / 1e9:.2f} GB "
+          f"({len(row['remat_step_ms'])} remat steps, "
+          + " and ".join(f"{x:.1f}" for x in row["remat_step_ms"]) + " ms) vs "
           f"{row['no_remat_grad_peak_bytes'] / 1e9:.2f} GB (remat=False gradient)")
+    if "grad_ms" not in row:
+        return
     busy = (f"{row['device_busy_ms']:.1f} ms of kernels = "
             f"{100 * row['device_busy_share']:.1f}% busy" if row["device_busy_ms"]
             else "device time not measured")
-    print(f"phase 14: {arch}: one step split by CUDA events: gradient pass "
+    print(f"{tag}: {arch}: one step split by CUDA events: gradient pass "
           f"{row['grad_ms']:.1f} ms, AdamW update {row['update_ms']:.1f} ms (its "
           f"{row['update_bytes']} bytes' HBM bound {row['update_bound_ms']:.1f} ms; host "
           f"{row['split_host_ms']:.1f} ms); one step under torch.profiler "
@@ -1322,6 +1378,200 @@ def zoo_train_card_vs_cpu(arch, dev) -> dict:
         raise AssertionError(f"phase 14c ({arch}): the card's checkpoint does not load equal")
     return {"losses": [float(f"{x:.6g}") for x in l_card], "loss_rel_diff": loss_err,
             "grad_rel_diff": grad_err, "leaves": len(got)}
+
+
+def cache_bytes(cache) -> tuple[int, int]:
+    """Bytes of a decode cache: the attention keys and values (``k``,
+    ``v``), and the recurrent state (every other leaf)."""
+    kv = state = 0
+    for group in cache:
+        for layer in group.values():
+            for name, t in layer.items():
+                if name in ("k", "v"):
+                    kv += t.nbytes
+                else:
+                    state += t.nbytes
+    return kv, state
+
+
+def decode_bound(param_bytes, cache, slots) -> dict:
+    """The least bytes a decode step moves: every parameter read once (the
+    tied unembedding reads the whole table), the whole attention cache
+    read (the plain attention scores every slot and masks) and one slot of
+    it written, the recurrent state read and written; over the card's HBM
+    rate."""
+    kv, state = cache_bytes(cache)
+    nbytes = param_bytes + kv + kv // slots + 2 * state
+    return {"bytes": nbytes, "kv_bytes": kv, "state_bytes": state,
+            "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
+
+
+def saved_bytes(cfg, batch: int, seq: int, remat: bool) -> int:
+    """Predicted bytes the recurrences keep for backward at their largest,
+    beyond the parameters, gradients and moments: a Mamba2 layer keeps one
+    float32 state (B, H, hd, N) a step; an mLSTM layer keeps its carry at
+    each chunk's start and, while one chunk runs again in backward, two
+    (B, H, hd, hd) float32 tensors a step of it (the memory before the
+    forget gate and the outer product's); sLSTM's (B, D) tensors are left
+    out. With ``remat`` only the unit running again in backward keeps its
+    steps: its layers of the largest group."""
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm
+
+    _, heads, n = ssm.mamba2_dims(cfg)
+    _, m_heads, m_hd = ssm.mlstm_dims(cfg)
+    memory = batch * m_heads * m_hd * m_hd * 4
+    ck = ssm.MLSTM_CHUNK if seq % ssm.MLSTM_CHUNK == 0 else 1
+    kept = {"mamba2": seq * batch * heads * cfg.ssm.head_dim * n * 4,
+            "mlstm": (seq // ck) * memory}
+    kinds = max((u for u, _ in M.scan_groups(cfg)), key=len) if remat else M.layer_kinds(cfg)
+    chunk = 2 * ck * memory if "mlstm" in kinds else 0
+    return sum(kept.get(k, 0) for k in kinds) + chunk
+
+
+def ssm_serve(arch, dev) -> dict:
+    """Phase 15 for one architecture: the published config whole in bf16
+    (random weights from ``SERVE["seed"]``) through ``serve_batch`` with
+    ``SERVE``'s requests; the decode step alone (host and CUDA-event ms),
+    ``make_prefill_step`` against the decode path at the prompt's last
+    position, tokens/s, peak memory and the step's bytes bound; no native
+    kernel launched in the phase."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import mla_decode as md
+    from repro_torch.kernels import native
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import model as M
+
+    tag = f"phase 15 ({arch})"
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, SERVE["seed"], device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"{tag}: {cfg.num_layers} layers {M.scan_groups(cfg)}, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab_size}, {cfg.dtype}: {n_params} parameters, {M.param_bytes(cfg)} bytes "
+          f"from seed {SERVE['seed']} in {time.perf_counter() - t0:.3f} s")
+    native.reset_launches()
+    mla0 = dict(md.KERNEL_LAUNCHES)
+    t0 = time.perf_counter()
+    served = serve_mod.serve_batch(arch, cfg=cfg, params=params, device=DEVICE, **SERVE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tokens = served["tokens"]
+    if tokens.shape != (SERVE["requests"], SERVE["gen_len"]) or not (
+            (tokens >= 0) & (tokens < cfg.vocab_size)).all():
+        raise AssertionError(f"{tag}: tokens {tokens.shape}, range {tokens.min()}..{tokens.max()}")
+    prompts = serve_prompts(cfg, dev)
+    host_ms, dev_ms, moe_ms, at_prompt = decode_alone(cfg, params, prompts, SERVE["gen_len"],
+                                                      ServeCapture(timed=True))
+    peak = torch.cuda.max_memory_allocated() - held
+    serve_numbers(tag, cfg, served, host_ms, dev_ms, moe_ms, peak / 1e9)
+    slots = SERVE["prompt_len"] + SERVE["gen_len"] + 1
+    bound = decode_bound(M.param_bytes(cfg), M.init_cache(cfg, SERVE["requests"], slots,
+                                                          device="meta"), slots)
+    print(f"{tag}: serve_batch wall {wall:.2f} s; the decode step's bound: {bound['bytes']} "
+          f"bytes (parameters {M.param_bytes(cfg)}, attention cache {bound['kv_bytes']} read, "
+          f"recurrent state {bound['state_bytes']} read and written) at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s = {bound['bound_ms']:.4f} ms, "
+          f"{100 * bound['bound_ms'] / np.median(dev_ms):.2f}% of the CUDA-event median, "
+          f"{100 * bound['bound_ms'] / np.median(host_ms):.2f}% of the host median")
+    pre = prefill_check(tag, cfg, params, prompts, at_prompt, ServeCapture())
+    launches = dict(native.LAUNCHES)
+    mla = {k: v - mla0[k] for k, v in md.KERNEL_LAUNCHES.items() if v != mla0[k]}
+    if any(launches.values()) or mla:
+        raise AssertionError(f"{tag}: native launches {launches}, MLA kernels {mla}, want none")
+    print(f"{tag}: no native kernel launched (the recurrences and attention are plain "
+          f"PyTorch, as the reference's are plain jnp)")
+    del params
+    torch.cuda.empty_cache()
+    return {"launches": launches, "tokens_per_s": served["tokens_per_s"],
+            "step_host_ms": float(np.median(host_ms)), "step_dev_ms": float(np.median(dev_ms)),
+            "bound_ms": bound["bound_ms"], "peak_bytes": peak, "prefill": pre}
+
+
+def long_context(arch, dev) -> dict:
+    """Phase 15b for one architecture: ``long_500k`` (batch 1, a cache of
+    524,288 positions, ``long_mode=True``), ``LONG_STEPS`` greedy decode
+    steps from position 524,288 - ``LONG_STEPS``: logits finite, ms a
+    step (host and CUDA events), the step's bytes bound, the peak memory
+    with the cache. xLSTM-350M's last step is taken again at position 5
+    from a copy of the same state: logits and state bit-identical (its
+    decode does not read ``pos``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import native
+    from repro_torch.launch.steps import SHAPES
+    from repro_torch.models import model as M
+
+    tag = f"phase 15b ({arch})"
+    cfg = get_config(arch)
+    shape = SHAPES["long_500k"]
+    B, S = shape["batch"], shape["seq"]
+    force_local = shape["long"] and cfg.local_global
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, SERVE["seed"], device=dev)
+    t0 = time.perf_counter()
+    cache = M.init_cache(cfg, B, S, long_mode=shape["long"], device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    kv, state = cache_bytes(cache)
+    bound = decode_bound(M.param_bytes(cfg), cache, S)
+    native.reset_launches()
+    tok = torch.ones((B, 1), dtype=torch.int32, device=dev)
+    host_ms, dev_ms, same = [], [], None
+    with torch.no_grad():
+        for i in range(LONG_STEPS):
+            pos = S - LONG_STEPS + i
+            last = i == LONG_STEPS - 1 and cfg.arch_type == "ssm"
+            if last:
+                twin = [{b: {k: t.clone() for k, t in layer.items()} for b, layer in g.items()}
+                        for g in cache]
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            logits, cache = M.decode_step(cfg, params, cache, tok, pos, force_local=force_local)
+            end.record()
+            torch.cuda.synchronize()
+            host_ms.append(1e3 * (time.perf_counter() - t0))
+            dev_ms.append(start.elapsed_time(end))
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"{tag}: logits at position {pos} not all finite")
+            if last:
+                early, twin = M.decode_step(cfg, params, twin, tok, 5, force_local=force_local)
+                same = torch.equal(early, logits) and all(
+                    torch.equal(a, b) for a, b in zip(_leaves(twin), _leaves(cache)))
+                if not same:
+                    raise AssertionError(f"{tag}: the step at position {pos} and at 5 differ")
+            tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    peak = torch.cuda.max_memory_allocated() - held
+    if any(native.LAUNCHES.values()):
+        raise AssertionError(f"{tag}: native launches {dict(native.LAUNCHES)}, want none")
+    print(f"{tag}: batch {B}, cache {S} (long_mode): {LONG_STEPS} steps from position "
+          f"{S - LONG_STEPS}, logits finite, no native launch; cache {kv} bytes of keys and "
+          f"values + {state} bytes of recurrent state, made in {init_s:.3f} s; a step: host "
+          f"median {np.median(host_ms):.3f} ms, CUDA events median {np.median(dev_ms):.3f} ms "
+          f"({[round(x, 3) for x in dev_ms]}); bound {bound['bytes']} bytes = "
+          f"{bound['bound_ms']:.4f} ms ({100 * bound['bound_ms'] / np.median(dev_ms):.1f}% of "
+          f"the CUDA-event median); peak {peak / 1e9:.3f} GB with the parameters and cache"
+          + ("; the last step again at position 5 from a copy of its state: logits and state "
+             "bit-identical" if same else ""))
+    del params, cache
+    torch.cuda.empty_cache()
+    return {"launches": dict(native.LAUNCHES), "step_host_ms": float(np.median(host_ms)),
+            "step_dev_ms": float(np.median(dev_ms)), "bound_ms": bound["bound_ms"],
+            "cache_bytes": kv + state, "peak_bytes": peak, "pos_independent": same}
 
 
 def _leaves(tree):
@@ -3325,6 +3575,58 @@ def main() -> int:
               {a: {k: float(f"{v:.3g}") if isinstance(v, float) else v for k, v in r.items()}
                for a, r in train_vs_cpu.items()}))
 
+    # -- 15. the SSM and hybrid models served whole ------------------------- #
+    t_phase = time.perf_counter()
+    ssm_launches = {}
+    served_ssm = {}
+    for arch in SSM_ARCHES:
+        served_ssm[arch] = ssm_serve(arch, dev)
+        ssm_launches[f"phase 15 ({arch})"] = served_ssm[arch]["launches"]
+    print(f"phase 15: wall {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 15b. long_500k ----------------------------------------------------- #
+    t_phase = time.perf_counter()
+    from repro_torch.configs import all_arch_ids
+    from repro_torch.launch.steps import shape_supported
+
+    ported = [a for a in all_arch_ids() if a not in ("whisper-large-v3", "phi-3-vision-4.2b")]
+    for arch in ported:
+        for shape in SHAPES:
+            ok, reason = shape_supported(get_config(arch), shape)
+            want = shape != "long_500k" or arch in LONG_500K_OK
+            if ok != want or (not ok and "full-attention" not in reason):
+                raise AssertionError(f"phase 15b: shape_supported({arch}, {shape}) = "
+                                     f"{(ok, reason)}")
+    print(f"phase 15b: shape_supported on {len(ported)} configs x {len(SHAPES)} shapes: the "
+          f"reference's rule (long_500k for {', '.join(LONG_500K_OK)} only)")
+    long_rows = {}
+    for arch in SSM_ARCHES:
+        long_rows[arch] = long_context(arch, dev)
+        ssm_launches[f"phase 15b ({arch})"] = long_rows[arch]["launches"]
+    print(f"phase 15b: wall {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 15c. the SSM and hybrid models trained whole ------------------------ #
+    t_phase = time.perf_counter()
+    for arch in SSM_ARCHES:
+        cfg = get_config(arch)
+        b, sq = SSM_TRAIN["batch"], SSM_TRAIN["seq"]
+        pred = {r: saved_bytes(cfg, b, sq, r) for r in (False, True)}
+        print(f"phase 15c ({arch}): predicted, before the run: the recurrences keep "
+              f"{pred[False] / 1e9:.2f} GB for backward without remat, {pred[True] / 1e9:.2f} GB "
+              f"with it, beyond {M.train_state_bytes(cfg) / 1e9:.2f} GB of parameters, "
+              f"gradients and moments")
+        row = train_full_width(arch, None, b, sq, SSM_TRAIN["lr"], dev, tag="phase 15c",
+                               remat_steps=1, split=False)
+        trained[arch] = row
+        ssm_launches[f"phase 15c ({arch})"] = row["launches"]
+        print_train_row(arch, row, tag="phase 15c")
+        print(f"phase 15c ({arch}): peaks above the state held before: train (remat=False) "
+              f"{row['peak_bytes'] / 1e9:.2f} GB, remat=False gradient "
+              f"{row['no_remat_grad_peak_bytes'] / 1e9:.2f} GB, remat=True step "
+              f"{row['remat_step_peak_bytes'] / 1e9:.2f} GB; predicted saved bytes "
+              f"{pred[False] / 1e9:.2f} / {pred[True] / 1e9:.2f} GB (no remat / remat)")
+    print(f"phase 15c: wall {time.perf_counter() - t_phase:.1f} s")
+
     # -- 10. results ------------------------------------------------------ #
     replaces = {
         "fused_frontier_step": "src/repro/kernels/fused_step.py:698",
@@ -3417,9 +3719,18 @@ def main() -> int:
     for name in AGGREGATION_KERNELS:  # each phase's in-run median, CUDA events
         extras[name]["in_run_ms"] = {tag: med[name] for tag, med in in_run.items()
                                      if name in med}
-    for name in native.KERNELS:  # phase 14 launches none
+    for name in native.KERNELS:  # phases 14 and 15c launch none
         extras.setdefault(name, {})["train_launches"] = sum(
-            row["launches"].get(name, 0) for row in trained.values())
+            row["launches"].get(name, 0) for arch, row in trained.items()
+            if arch not in SSM_ARCHES)
+        extras[name]["ssm_launches"] = {  # phases 15-15c launch none
+            "phase 15": sum(l.get(name, 0) for t, l in ssm_launches.items()
+                            if t.startswith("phase 15 ")),
+            "phase 15b": sum(l.get(name, 0) for t, l in ssm_launches.items()
+                             if t.startswith("phase 15b")),
+            "phase 15c": sum(l.get(name, 0) for t, l in ssm_launches.items()
+                             if t.startswith("phase 15c")),
+        }
     kernels = []
     for name in native.KERNELS:
         k_ms, p_ms, l_ms, b_ms, b_by = timings[name]

@@ -6,11 +6,14 @@ dense layers with its MTP head at 2 x 512, Gemma2-2B whole at 2 x 1024,
 Phi-3.5-MoE's first two layers at 2 x 512; random weights from seed 0,
 ``TokenPipeline(seed=0)`` batches) for 8 steps of ``launch.train.train``
 at each of lr 3e-4, 1e-4, 3e-5 and 1e-5, and prints every step's loss,
-``ce`` and host ms. AdamW runs un-warmed, as the reference's driver runs
+``ce`` and host ms. With ``--ssm`` it trains phase 15c's models instead
+(``chip_smoke.SSM_ARCHES``, xLSTM-350M and Zamba2-1.2B whole at
+``chip_smoke.SSM_TRAIN``'s 2 x 256) for ``chip_smoke.TRAIN_STEPS`` steps
+at each of lr 3e-4, 1e-4 and 3e-5. AdamW runs un-warmed, as the reference's driver runs
 it: at DeepSeek-V3's d_model of 7168 its first steps move every logit by
 about ``lr x d_model`` and the loss can climb before it falls.
 
-    PYTHONPATH=src python3 scripts/train_lr_probe.py [--out FILE]
+    PYTHONPATH=src python3 scripts/train_lr_probe.py [--ssm] [--out FILE]
 """
 
 from __future__ import annotations
@@ -29,24 +32,29 @@ from repro_torch.launch.train import train  # noqa: E402
 
 LRS = (3e-4, 1e-4, 3e-5, 1e-5)
 STEPS = 8
+SSM_LRS = (3e-4, 1e-4, 3e-5)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None)
+    ap.add_argument("--ssm", action="store_true", help="phase 15c's models")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     print(cs.card_line(), flush=True)
     out = {}
-    for arch, layers, batch, seq, _ in cs.TRAIN_RUNS:
+    runs = [(a, None, cs.SSM_TRAIN["batch"], cs.SSM_TRAIN["seq"], None)
+            for a in cs.SSM_ARCHES] if args.ssm else cs.TRAIN_RUNS
+    lrs, steps = (SSM_LRS, cs.TRAIN_STEPS) if args.ssm else (LRS, STEPS)
+    for arch, layers, batch, seq, _ in runs:
         cfg = get_config(arch)
         if layers:
             cfg = cfg.with_overrides(num_layers=layers)
-        for lr in LRS:
+        for lr in lrs:
             torch.cuda.empty_cache()
-            res = train(arch, cfg=cfg, steps=STEPS, batch=batch, seq=seq, lr=lr, seed=0,
+            res = train(arch, cfg=cfg, steps=steps, batch=batch, seq=seq, lr=lr, seed=0,
                         log_every=100, device="cuda")
             out[f"{arch} {lr}"] = {"losses": [round(x, 4) for x in res["losses"]],
                                    "ce": [round(m["ce"], 4) for m in res["metrics"]],

@@ -2,7 +2,8 @@
 shapes of the reference's assignment.
 
 Counterpart of the reference's ``repro.launch.steps``: ``SHAPES`` is
-copied as data, :func:`make_train_step` is one AdamW step on
+copied as data, :func:`shape_supported` is the reference's rule for
+``long_500k``, :func:`make_train_step` is one AdamW step on
 :func:`repro_torch.models.model.lm_loss`, :func:`make_prefill_step`
 returns the last position's logits of a full forward, and
 :func:`make_decode_step` is the greedy one-token decode step. PyTorch
@@ -31,6 +32,18 @@ SHAPES = {
     "decode_32k": dict(kind="decode", seq=32768, batch=128),
     "long_500k": dict(kind="decode", seq=524288, batch=1, long=True),
 }
+
+
+def shape_supported(cfg: ModelConfig, shape_name: str) -> tuple[bool, str]:
+    """long_500k requires sub-quadratic decode (DESIGN.md §skips)."""
+    if shape_name != "long_500k":
+        return True, ""
+    if cfg.supports_long_context:
+        return True, ""
+    return False, (
+        f"{cfg.name} is pure full-attention; 524k-token decode is "
+        "quadratic-cost — skipped per DESIGN.md"
+    )
 
 
 def loss_and_grads(cfg: ModelConfig, params, batch: dict, remat: bool = True):

@@ -2,10 +2,11 @@
 decode.
 
 Counterpart of the reference's ``repro.models.model`` for the
-decoder-only attention architectures. Layers are grouped into *scan
-groups* exactly as the reference groups them (maximal runs of a
-repeating unit, e.g. DeepSeek = 3 dense + 58 moe, Gemma2 = 13 x (local,
-global)), and each group's parameters and caches are stacked with a
+decoder-only attention, SSM (xLSTM) and hybrid (Zamba2) architectures.
+Layers are grouped into *scan groups* exactly as the reference groups
+them (maximal runs of a repeating unit, e.g. DeepSeek = 3 dense + 58 moe,
+Gemma2 = 13 x (local, global), Zamba2 = 6 x (5 mamba2 + shared_attn) + 2
+mamba2), and each group's parameters and caches are stacked with a
 leading count axis, so that the two packages' trees match leaf for leaf.
 PyTorch runs eagerly: where the reference scans a group, the port splits
 each stacked leaf once (``torch.unbind``, whose backward is one stack)
@@ -16,8 +17,9 @@ backward (``torch.utils.checkpoint``), as the reference's
 Ported: :func:`layer_kinds`, :func:`scan_groups`, :func:`init_params`,
 :func:`init_cache`, :func:`forward`, :func:`lm_loss` (DeepSeek-V3's MTP
 head included), :func:`decode_step`, and :func:`params_from_jax`, which
-carries the reference's parameters across. Waiting (ROADMAP Queue A
-item 5): the SSM and hybrid kinds (5b), the encoder-decoder stack and
+carries the reference's parameters across; Zamba2's shared block lives
+once, at ``params["shared_block"]``, and every ``shared_attn`` slot reads
+it. Waiting (ROADMAP Queue A item 5): the encoder-decoder stack and
 ``prefill_cross_cache`` (5c), the vision projector (5d).
 """
 
@@ -120,8 +122,6 @@ def _layers(tree, count: int) -> list:
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.shared_attn_every:
-        raise _not_ported("the shared attention block (Zamba2)", "5b")
     if cfg.encoder_layers or cfg.arch_type == "audio":
         raise _not_ported("the encoder-decoder stack (Whisper)", "5c")
     if cfg.frontend == "vision":
@@ -145,6 +145,8 @@ def _draw_params(cfg: ModelConfig, gen) -> dict:
     params["groups"] = [
         _init_group(cfg, unit, count, gen) for unit, count in scan_groups(cfg)
     ]
+    if cfg.shared_attn_every:
+        params["shared_block"] = blocks.init_shared_block(cfg, gen)
     if cfg.mtp:
         params["mtp_proj"] = normal(
             gen, (2 * cfg.d_model, cfg.d_model), (0.5 / cfg.d_model) ** 0.5, dt
@@ -260,12 +262,14 @@ def _run_groups(
     layers' auxiliary losses summed. With ``remat`` each unit of a group
     keeps only its inputs for backward and runs again there."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    shared = params.get("shared_block")
     for (unit, count), gparams in zip(group_structure, group_list):
 
         def unit_fwd(h, aux, up, unit=unit):
             for i, kind in enumerate(unit):
                 h, a = blocks.block_forward(
-                    cfg, kind, up[f"b{i}"], h, positions, force_local=force_local
+                    cfg, kind, up[f"b{i}"], h, positions, shared=shared,
+                    force_local=force_local,
                 )
                 aux = aux + a
             return h, aux
@@ -365,7 +369,8 @@ def lm_loss(
 def init_cache(
     cfg: ModelConfig, batch: int, seq: int, long_mode: bool = False, *, device="cuda"
 ) -> list:
-    """Stacked per-group caches (zeros), as the reference's. Under
+    """Stacked per-group caches holding each layer's initial cache, as the
+    reference's: zeros, but the xLSTM stabiliser ``m`` at -1e30. Under
     ``long_mode`` the global layers of a local/global model keep only
     the window."""
     _check_ported(cfg)
@@ -399,11 +404,12 @@ def decode_step(
     _check_ported(cfg)
     pos = int(pos)
     x = _embed(cfg, params, token)
+    shared = params.get("shared_block")
     for (unit, count), gparams, gcache in zip(scan_groups(cfg), params["groups"], cache):
         for up, uc in zip(_layers(gparams, count), _layers(gcache, count)):
             for i, kind in enumerate(unit):
                 x, _ = blocks.block_decode(cfg, kind, up[f"b{i}"], x, uc[f"b{i}"], pos,
-                                           force_local=force_local)
+                                           shared=shared, force_local=force_local)
     x = apply_norm(cfg, params["final_norm"], x)
     logits = unembed(cfg, params.get("unembed", params["embed"]), x)
     return logits, cache

@@ -28,7 +28,11 @@ on the card and a 2-cell sweep, each against the CPU; the zoo's MoE layer
 card vs CPU and bit-identical across two card runs, GQA serving card vs
 CPU (Gemma2, Qwen3), and prefill against decode on the card; the
 training path's embedding backward (float32 sums, bit-identical runs) and
-three train steps card vs CPU with remat bit-identical on the card.
+three train steps card vs CPU with remat bit-identical on the card; the
+recurrent mixers (Mamba2, mLSTM, sLSTM: forward, decode with its state,
+gradients) card vs CPU, mLSTM's chunk checkpoint bit-identical to the plain
+loop on the card, and xLSTM-350M's and Zamba2-1.2B's serving, prefill and
+train steps card vs CPU.
 """
 
 import itertools
@@ -963,11 +967,11 @@ def test_moe_forward_on_the_card_matches_cpu(card, arch):
     np.testing.assert_allclose(a.cpu().numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen3-8b"])
+@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen3-8b", "xlstm-350m", "zamba2-1.2b"])
 def test_gqa_serve_on_the_card_matches_cpu(card, arch):
     """``serve_batch`` on the smoke config in float32 from the same
-    weights: greedy tokens equal, no native kernel launched (GQA is plain
-    PyTorch); Gemma2 decodes past its window of 8."""
+    weights: greedy tokens equal, no native kernel launched (GQA and the
+    recurrences are plain PyTorch); Gemma2 decodes past its window of 8."""
     from repro_torch.launch import serve
 
     cfg, (p_cpu, p_card) = _zoo_params(arch, ("cpu", card))
@@ -979,7 +983,8 @@ def test_gqa_serve_on_the_card_matches_cpu(card, arch):
     np.testing.assert_array_equal(got["tokens"], want["tokens"])
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "phi3.5-moe-42b-a6.6b", "gemma2-2b"])
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "phi3.5-moe-42b-a6.6b", "gemma2-2b",
+                                  "xlstm-350m", "zamba2-1.2b"])
 def test_prefill_matches_decode_on_the_card(card, arch):
     """``forward`` against token-by-token decode on the card (float32,
     1e-3 x max(|logits|, 1)), 14 positions (past Gemma2's window), and
@@ -1024,7 +1029,8 @@ def test_embedding_backward_sums_in_float32_on_the_card(card):
     assert torch.equal(a, want.to(torch.bfloat16))
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "phi3.5-moe-42b-a6.6b", "gemma2-2b"])
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "phi3.5-moe-42b-a6.6b", "gemma2-2b",
+                                  "xlstm-350m", "zamba2-1.2b"])
 def test_train_steps_on_the_card_match_cpu(card, arch):
     """The smoke config in float32 from the same weights and batches: the
     first batch's gradients within 1e-4 x each leaf's largest, and three
@@ -1061,3 +1067,82 @@ def test_train_steps_on_the_card_match_cpu(card, arch):
     plain, remat = (loss_and_grads(cfg, tree_card, batch, remat=r) for r in (False, True))
     assert torch.equal(plain[0], remat[0])
     assert all(torch.equal(a, b) for a, b in zip(flatten(plain[2])[0], flatten(remat[2])[0]))
+
+
+# --------------------------------------------------------------------------- #
+# The recurrent mixers on the card.
+_MIXERS = {"mamba2": ("zamba2-1.2b", 0), "mlstm": ("xlstm-350m", 0), "slstm": ("xlstm-350m", 1)}
+
+
+def _mixer(name, devices):
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm
+
+    arch, index = _MIXERS[name]
+    cfg, trees = _zoo_params(arch, devices)
+    assert M.layer_kinds(cfg)[index] == name
+    fns = tuple(getattr(ssm, f"{name}_{what}") for what in ("forward", "init_state", "decode"))
+    return cfg, [M._layers(t["groups"][0], 1)[0][f"b{index}"]["mixer"] for t in trees], fns
+
+
+@pytest.mark.parametrize("name", list(_MIXERS))
+def test_ssm_mixers_on_the_card_match_cpu(card, name):
+    """Each mixer of the smoke configs in float32 from the same weights:
+    the sequence form (S = 12), six decode steps with every state leaf
+    after each, and the gradients of ``sum(forward(x) * w)`` with respect
+    to the parameters and ``x``, card against CPU within 1e-4 (gradients
+    within 1e-4 x each one's largest); the card's state written in place."""
+    cfg, (p_cpu, p_card), (fwd, init_state, decode) = _mixer(name, ("cpu", card))
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((2, 12, cfg.d_model)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((2, 12, cfg.d_model)).astype(np.float32))
+    runs = []
+    for p, dev in ((p_cpu, "cpu"), (p_card, card)):
+        with torch.no_grad():
+            out = fwd(cfg, p, x.to(dev)).cpu()
+            state = init_state(cfg, 2, device=dev)
+            held = dict(state)
+            steps = []
+            for t in range(6):
+                y, state = decode(cfg, p, x[:, t : t + 1].to(dev), state)
+                assert all(state[k] is held[k] for k in held)
+                # copies: on the CPU ``.cpu()`` would alias the state,
+                # which the next step overwrites in place
+                steps.append((y.cpu(), {k: v.to("cpu", copy=True) for k, v in state.items()}))
+        live = {k: v.clone().requires_grad_() for k, v in p.items()}
+        xl = x.to(dev).requires_grad_()
+        grads = torch.autograd.grad((fwd(cfg, live, xl) * w.to(dev)).sum(),
+                                    [*live.values(), xl], allow_unused=True)
+        runs.append((out, steps, [None if g is None else g.cpu() for g in grads]))
+    (o_cpu, s_cpu, g_cpu), (o_card, s_card, g_card) = runs
+    torch.testing.assert_close(o_card, o_cpu, rtol=1e-4, atol=1e-4)
+    for (ya, sa), (yb, sb) in zip(s_card, s_cpu):
+        torch.testing.assert_close(ya, yb, rtol=1e-4, atol=1e-4)
+        for k in sb:
+            torch.testing.assert_close(sa[k], sb[k], rtol=1e-4, atol=1e-4)
+    for a, b in zip(g_card, g_cpu):
+        assert (a is None) == (b is None)
+        if b is not None:
+            assert (a - b).abs().max() <= 1e-4 * b.abs().max() + 1e-7
+
+
+def test_mlstm_chunk_checkpoint_is_bit_identical_on_the_card(card, monkeypatch):
+    """S = 128 (two checkpointed chunks of 64 steps): the gradients equal
+    the plain loop's (the checkpoint replaced by a plain call) bit for bit
+    on the card."""
+    from repro_torch.models import ssm
+
+    cfg, (p,), _ = _mixer("mlstm", (card,))
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (2, 2 * ssm.MLSTM_CHUNK, cfg.d_model)).astype(np.float32)).to(card)
+
+    def grads():
+        live = {k: v.clone().requires_grad_() for k, v in p.items()}
+        xl = x.clone().requires_grad_()
+        out = ssm.mlstm_forward(cfg, live, xl)
+        return torch.autograd.grad(out.square().sum(), [*live.values(), xl], allow_unused=True)
+
+    checkpointed = grads()
+    monkeypatch.setattr(ssm, "checkpoint", lambda fn, *args, **kw: fn(*args))
+    for a, b in zip(checkpointed, grads()):
+        assert (a is None and b is None) or torch.equal(a, b)

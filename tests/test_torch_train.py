@@ -1,6 +1,7 @@
 """The port's training path against the reference, on the CPU: the six
 decoder-only attention architectures (DeepSeek-V3, Phi-3.5-MoE,
-Qwen3-8B, Phi-3-mini, Minitron-4B, Gemma2-2B) at their smoke configs.
+Qwen3-8B, Phi-3-mini, Minitron-4B, Gemma2-2B), xLSTM-350M and
+Zamba2-1.2B at their smoke configs.
 
 The reference's ``init_params`` (``jax.random``) are carried across by
 ``params_from_jax`` in float32, the tokens are made with numpy from a
@@ -13,7 +14,7 @@ seed, and both packages run them:
   gradient bit-identical;
 * the mirrors of the reference's ``test_train_step_reduces_loss`` and
   ``test_lm_training_driver_learns`` (``train(..., device="cpu")``);
-* the four architectures still to port raise, naming their ROADMAP item;
+* the two architectures still to port raise, naming their ROADMAP item;
   ``device="cuda"`` without a card raises ``RuntimeError``, and a state
   larger than the device raises ``MemoryError`` naming its bytes.
 
@@ -42,9 +43,8 @@ from repro_torch.optim import adamw_init
 from repro_torch.tree import flatten
 
 ARCHES = ("deepseek-v3-671b", "phi3.5-moe-42b-a6.6b", "qwen3-8b", "phi3-mini-3.8b",
-          "minitron-4b", "gemma2-2b")
-MISSING = {"xlstm-350m": "5b", "zamba2-1.2b": "5b", "whisper-large-v3": "5c",
-           "phi-3-vision-4.2b": "5d"}
+          "minitron-4b", "gemma2-2b", "xlstm-350m", "zamba2-1.2b")
+MISSING = {"whisper-large-v3": "5c", "phi-3-vision-4.2b": "5d"}
 LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-4
 

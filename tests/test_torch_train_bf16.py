@@ -1,5 +1,6 @@
 """``lm_loss`` in bf16 against the reference's, on the CPU, for the six
-decoder-only attention architectures' smoke configs: the reference run
+decoder-only attention architectures', xLSTM-350M's and Zamba2-1.2B's
+smoke configs: the reference run
 op by op (``jax.disable_jit()``, as ``tests/test_torch_zoo.py`` runs it:
 its jitted layer scan keeps some bf16 intermediates in float32, and a MoE
 router near-tie then flips), from the same parameters
@@ -21,7 +22,7 @@ from repro_torch.models import config as tconfig
 from repro_torch.models import model as tmodel
 
 ARCHES = ("deepseek-v3-671b", "phi3.5-moe-42b-a6.6b", "qwen3-8b", "phi3-mini-3.8b",
-          "minitron-4b", "gemma2-2b")
+          "minitron-4b", "gemma2-2b", "xlstm-350m", "zamba2-1.2b")
 BF16_RTOL = 1e-2
 
 

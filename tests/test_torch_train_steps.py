@@ -1,5 +1,6 @@
 """The port's train step against the reference's, on the CPU, for the six
-decoder-only attention architectures' smoke configs: three
+decoder-only attention architectures', xLSTM-350M's and Zamba2-1.2B's
+smoke configs: three
 ``make_train_step`` steps (float32, ``remat=False``) against the
 reference's jitted ``make_train_step(remat=False)`` from the same
 parameters (``params_from_jax``) on the same ``TokenPipeline`` batches,
@@ -30,7 +31,7 @@ from repro_torch.models import model as tmodel
 from repro_torch.optim import adamw_init
 
 ARCHES = ("deepseek-v3-671b", "phi3.5-moe-42b-a6.6b", "qwen3-8b", "phi3-mini-3.8b",
-          "minitron-4b", "gemma2-2b")
+          "minitron-4b", "gemma2-2b", "xlstm-350m", "zamba2-1.2b")
 STEPS = 3
 TRAJECTORY_RTOL = 1e-4
 
