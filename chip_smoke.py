@@ -125,9 +125,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    plain output's largest value), timed beside the plain version,
    ``scaled_dot_product_attention`` and its bound, the split kernel alone
    by torch.profiler and the share of the bound reached;
-9c. card vs CPU: the smoke configs of the eight ported architectures
+9c. card vs CPU: the smoke configs of the ten architectures
    (DeepSeek-V3, Phi-3.5-MoE, Qwen3-8B, Phi-3-mini, Minitron-4B,
-   Gemma2-2B, xLSTM-350M, Zamba2-1.2B) in float32, served on both devices from the same weights:
+   Gemma2-2B, xLSTM-350M, Zamba2-1.2B, Whisper-large-v3 with the same
+   frames, Phi-3-vision-4.2B with the same patches in its prefill) in
+   float32, served on both devices from the same weights:
    greedy tokens identical, decode and prefill logits allclose 1e-4, the
    MLA configs' launches all on the CUDA-core kernel and the GQA ones'
    none; ``forward`` vs token-by-token decode on the card within 1e-3 x
@@ -174,7 +176,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    peak; then, from the trained parameters and fresh moments on the next
    batch, a ``remat=True`` step's loss within 1e-5 of the ``remat=False``
    gradient pass's, each with its peak memory;
-14c. card vs CPU: the eight smoke configs in float32 from the same weights
+14c. card vs CPU: the ten smoke configs in float32 from the same weights
    and batches, 3 steps of ``train``: losses within 1e-4 relative, step-1
    gradients within 1e-4 x each leaf's largest, no native launch; the
    card's checkpoint (``ckpt_path``) loaded on the CPU bit for bit equal to
@@ -198,6 +200,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    against the ``remat=False`` gradient), the predicted bytes the
    recurrences keep for backward beside the measured peaks, and the FLOP
    share by ``train_flops``;
+16. Whisper-large-v3 whole in bf16 (32 encoder + 32 decoder layers,
+   1,534,809,600 parameters from a seed) served with phase 9's requests,
+   each with 1500 seeded frames (the encoder once, the cross cache
+   filled, then the decode steps): the encoder's ms (host and CUDA
+   events), the decode step alone by host clock and CUDA events against
+   its bound (the decoder's parameters, the self-attention cache and
+   0.98 GB of cross keys and values read), tokens/s, peak memory,
+   ``make_prefill_step`` with the frames against the decode path at
+   position 255; no native kernel launched;
+16b. Phi-3-vision-4.2B whole in bf16 (3,824,225,280 parameters):
+   ``forward`` on 2 x (576 patches + 256 tokens), logits (2, 832, 32064)
+   finite, and ``make_prefill_step`` (wall s, peak memory); no native
+   kernel launched;
+16c. both trained whole through ``launch.train.train`` (Whisper 2 x 256
+   tokens with 1500 frames at lr 3e-4, Phi-3-vision 2 x 256 tokens with
+   576 patches each at lr 6e-5), 6 steps with phase 14's checks and
+   split, two ``remat=True`` steps against the ``remat=False`` gradient;
 10. a ``kernels`` JSON line (the fused step's rows time the engine's form,
    the reference form's times beside them; the aggregation rows add their
    kernel alone, device operations a call, host ms, the gather's L2
@@ -206,15 +225,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    kernel alone, device operations and host ms, ``frontier_unique_batch``
    timing the path's compact form with the mask form and the hook's
    split beside it; rows 11-13 the legacy runs' launches, rows 1-2 the
-   launches of phases 12 and 13; every row its launches in phase 14 and
-   in phases 15, 15b and 15c, 0),
+   launches of phases 12 and 13; every row its launches in phase 14,
+   in phases 15, 15b and 15c (``ssm_launches``) and in phases 16, 16b
+   and 16c (``whisper_launches``), 0),
    and as the last line
    the device JSON line. The aggregation kernels' in-run time (CUDA events
    around each dispatcher call) prints on phases 3, 3b, 6, 6b and 8.
 
 Each path's launch counts are zeroed just before it runs and read just
-after (the serving path launches ``mla_flash_decode`` only, phases 9d and
-15-15b none, training none); the device loops (phases 3, 3b, 6, 6b, 7) launch neither of the
+after (the serving path launches ``mla_flash_decode`` only, phases 9d,
+15-15b, 16 and 16b none, training none); the device loops (phases 3, 3b, 6, 6b, 7) launch neither of the
 staged pipeline's kernels, and every training run launches the two
 aggregation kernels exactly once per PE, step and mean, plus the
 accuracy pass. Every phase raises on failure, so any failure exits non-zero.
@@ -272,10 +292,11 @@ SERVE_LAYERS = 5
 SERVE = dict(requests=4, prompt_len=256, gen_len=32, seed=0)
 #: Phase 9d: Qwen3-8B whole (36 layers, 16.4 GB of bf16), the same requests.
 WHOLE_ARCH = "qwen3-8b"
-#: Phases 9c and 14c: the smoke configs of the eight ported architectures
-#: on the card and the CPU.
+#: Phases 9c and 14c: the smoke configs of the ten architectures on the
+#: card and the CPU.
 ZOO = ("deepseek-v3-671b", "phi3.5-moe-42b-a6.6b", "qwen3-8b", "phi3-mini-3.8b",
-       "minitron-4b", "gemma2-2b", "xlstm-350m", "zamba2-1.2b")
+       "minitron-4b", "gemma2-2b", "xlstm-350m", "zamba2-1.2b", "whisper-large-v3",
+       "phi-3-vision-4.2b")
 SERVE_SMALL = dict(requests=3, prompt_len=12, gen_len=12, seed=1)
 #: Phase 14: training at full width through ``launch.train.train`` (random
 #: weights from seed 0, ``TokenPipeline(seed=0)`` batches, ``remat=False``):
@@ -307,6 +328,22 @@ SSM_ARCHES = ("xlstm-350m", "zamba2-1.2b")
 LONG_STEPS = 8
 SSM_TRAIN = dict(batch=2, seq=256, lr=3e-4)
 LONG_500K_OK = ("gemma2-2b", "xlstm-350m", "zamba2-1.2b")
+#: Phases 16-16c: the encoder-decoder and vision configs whole, bf16.
+#: Whisper-large-v3 (32 encoder + 32 decoder layers, d_model 1280, 1500
+#: frames) served with ``SERVE``'s requests (16); Phi-3-vision-4.2B
+#: (Phi-3-mini's 32 layers, 576 patch tokens through ``vision_proj``):
+#: ``make_prefill_step`` on ``VISION_PREFILL``'s batch of patches and text
+#: (16b); both trained whole at their ``MEDIA_TRAIN`` row (arch, depth
+#: cut, batch, text tokens, lr) for ``TRAIN_STEPS`` steps (16c). From
+#: ``scripts/train_lr_probe.py --media``: Whisper learns at 3e-4, 1e-4 and
+#: 3e-5 (2 x 256); Phi-3-vision at 1 x 256 spikes at 3e-4 and 1e-4 (to
+#: 15.94 and 13.34 from 10.93) and stays within its batches' spread from
+#: 6e-5 down to 1e-5, while at 2 x 256 and 6e-5 it falls from 11.01 to
+#: 10.70 (peak 56.0 GB).
+AUDIO_ARCH, VISION_ARCH = "whisper-large-v3", "phi-3-vision-4.2b"
+VISION_PREFILL = dict(batch=2, seq=256)
+MEDIA_TRAIN = (("whisper-large-v3", None, 2, 256, 3e-4),
+               ("phi-3-vision-4.2b", None, 2, 256, 6e-5))
 #: Phase 2's MLA sweep, B, H, r, rr, S: the reference test's shapes,
 #: phase 9's, H 72 (not a multiple of the tensor-core kernel's 64-head
 #: block), r 32 with rr 4 (a 64-wide box over 32 columns; 8-byte kr rows,
@@ -916,11 +953,12 @@ def moe_layer_alone(cfg, p, x, flush, reps=5) -> dict:
             "count_read_ms": float(np.median(reads))}
 
 
-def decode_alone(cfg, params, prompts, gen_len, session):
+def decode_alone(cfg, params, prompts, gen_len, session, frames=None):
     """The decode step alone over the prompt (teacher-forced) and
     ``gen_len`` greedy tokens, each step ending in a sync: host ms and
     CUDA-event ms per step, the ``moe_forward`` event ms inside each step
-    (``session`` timed), and the logits at the prompt's last position."""
+    (``session`` timed), and the logits at the prompt's last position.
+    Whisper's cross cache is filled from ``frames`` first (not timed)."""
     import torch
 
     from repro_torch import telemetry
@@ -929,6 +967,8 @@ def decode_alone(cfg, params, prompts, gen_len, session):
     B, P = prompts.shape
     steps = P + gen_len
     cache = M.init_cache(cfg, B, steps + 1, device=prompts.device)
+    if frames is not None:
+        M.prefill_cross_cache(cfg, params, cache, frames)
     host_ms, dev_ms, moe_ms, at_prompt = [], [], [], None
     tok = prompts[:, :1]
     with torch.no_grad(), telemetry.active(session):
@@ -954,10 +994,10 @@ def decode_alone(cfg, params, prompts, gen_len, session):
     return host_ms, dev_ms, moe_ms, at_prompt
 
 
-def prefill_check(tag, cfg, params, prompts, at_prompt, session, runs=2) -> dict:
-    """``make_prefill_step`` on the prompts (``runs`` times, each synced:
-    wall s), its last-position logits against the decode path's at the
-    same position."""
+def prefill_check(tag, cfg, params, prompts, at_prompt, session, runs=2, extra=None) -> dict:
+    """``make_prefill_step`` on the prompts and ``extra`` inputs (Whisper's
+    frames; ``runs`` times, each synced: wall s), its last-position logits
+    against the decode path's at the same position."""
     import torch
 
     from repro_torch import telemetry
@@ -969,7 +1009,7 @@ def prefill_check(tag, cfg, params, prompts, at_prompt, session, runs=2) -> dict
         for _ in range(runs):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            last = prefill(params, {"tokens": prompts})
+            last = prefill(params, {"tokens": prompts, **(extra or {})})
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
     if tuple(last.shape) != (prompts.shape[0], cfg.vocab_size) or not bool(
@@ -1008,7 +1048,10 @@ def zoo_card_vs_cpu(arch, dev) -> dict:
     card's MLA launches all on the CUDA-core kernel (GQA: none);
     ``forward`` vs token-by-token decode on the card within 1e-3 x
     max(|logits|, 1) (S = 14 past the window of 8 for a windowed
-    config); a MoE config's decode twice on the card, bit-identical."""
+    config); a MoE config's decode twice on the card, bit-identical.
+    Whisper's decode attends to the cross cache of the same frames on both
+    devices, and its prefill and forward read them; Phi-3-vision's prefill
+    reads the same patches."""
     import numpy as np
     import torch
 
@@ -1023,9 +1066,21 @@ def zoo_card_vs_cpu(arch, dev) -> dict:
     tree = _numpy_tree(M.init_params(small, 7, device="cpu"))
     B = SERVE_SMALL["requests"]
     toks_np = np.random.default_rng(5).integers(1, small.vocab_size, size=(B, 8)).astype(np.int32)
+    media = {}  # Whisper's frames, Phi-3-vision's patches
+    if small.encoder_layers:
+        media["frames"] = np.random.default_rng(8).normal(
+            0, 0.02, size=(B, small.encoder_seq, small.d_model)).astype(np.float32)
+    if small.frontend == "vision":
+        media["patches"] = np.random.default_rng(8).normal(
+            0, 0.02, size=(B, small.num_patches, M.VISION_EMBED_DIM)).astype(np.float32)
+
+    def on(where, rows=B):
+        return {k: torch.from_numpy(v[:rows]).to(where) for k, v in media.items()}
 
     def decode_logits(p, where, toks):
         cache = M.init_cache(small, toks.shape[0], toks.shape[1] + 2, device=where)
+        if small.encoder_layers:
+            M.prefill_cross_cache(small, p, cache, on(where, toks.shape[0])["frames"])
         out = []
         with torch.no_grad():
             for t in range(toks.shape[1]):
@@ -1042,7 +1097,7 @@ def zoo_card_vs_cpu(arch, dev) -> dict:
         res = serve_mod.serve_batch(arch, cfg=small, params=p_dev, device=where, **SERVE_SMALL)
         logits = decode_logits(p_dev, where, toks)
         with torch.no_grad():
-            last = make_prefill_step(small)(p_dev, {"tokens": toks})
+            last = make_prefill_step(small)(p_dev, {"tokens": toks, **on(where)})
         mla = {k: v - mla0[k] for k, v in md.KERNEL_LAUNCHES.items()}
         runs.append((res["tokens"], logits.cpu(), last.cpu(), dict(native.LAUNCHES), mla, p_dev))
     (tok_cpu, log_cpu, last_cpu, l_cpu, _, _), (tok_card, log_card, last_card, l_card, mla,
@@ -1065,7 +1120,7 @@ def zoo_card_vs_cpu(arch, dev) -> dict:
     seq = torch.from_numpy(np.random.default_rng(6).integers(
         0, small.vocab_size, size=(1, S)).astype(np.int32)).to(dev)
     with torch.no_grad():
-        full, _ = M.forward(small, p_card, seq)
+        full, _ = M.forward(small, p_card, seq, frames=on(dev, 1).get("frames"))
     dec = decode_logits(p_card, dev, seq)
     err = (dec - full).abs().max().item()
     scale = full.abs().max().item()
@@ -1094,7 +1149,13 @@ def train_flops(cfg, batch: int, seq: int) -> int:
     and recurrent gate products); mLSTM's scan products count 4 x, since
     its chunk checkpoint runs them again in backward, and sLSTM's first
     recurrent product has no input gradient (its ``h`` starts at zeros).
-    ``tests/test_torch_train.py`` holds it to ``FlopCounterMode``'s count."""
+    Whisper adds its encoder layers over ``encoder_seq`` frames and each
+    decoder layer's cross attention (queries and output over the tokens,
+    keys and values over the frames, S x ``encoder_seq`` products);
+    Phi-3-vision runs its layers and unembedding over the patches and the
+    text, and its projector's backward has no input gradient (the patches
+    are data). ``tests/test_torch_train.py``, ``test_torch_whisper.py`` and
+    ``test_torch_vision.py`` hold it to ``FlopCounterMode``'s count."""
     from repro_torch.models import model as M
     from repro_torch.models import ssm
 
@@ -1132,16 +1193,25 @@ def train_flops(cfg, batch: int, seq: int) -> int:
             ffn += mlp(e.d_ff_expert * e.num_shared_experts) if e.num_shared_experts else 0
         else:
             ffn = mlp(e.d_ff_dense if kind == "dense" else cfg.d_ff)
-        return 2 * (batch * s * (proj + ffn) + att), 0
+        cross = 0
+        if kind == "dec":
+            hd, se = cfg.head_dim, cfg.encoder_seq
+            cross = 2 * (batch * s * 2 * d * h * hd + batch * se * 2 * d * cfg.num_kv_heads * hd
+                         + batch * h * s * se * 2 * hd)
+        return 2 * (batch * s * (proj + ffn) + att) + cross, 0
 
-    counts = [layer(k, seq) for k in M.layer_kinds(cfg)]
+    prefix = cfg.num_patches if cfg.frontend == "vision" else 0
+    counts = [layer(k, seq + prefix) for k in M.layer_kinds(cfg)]
+    counts += [layer("enc", cfg.encoder_seq)] * cfg.encoder_layers
     fwd = sum(c[0] for c in counts)
-    fwd += 2 * batch * seq * d * cfg.vocab_size
+    fwd += 2 * batch * (seq + prefix) * d * cfg.vocab_size
+    projector = 2 * batch * prefix * M.VISION_EMBED_DIM * d
+    fwd += projector
     if cfg.mtp:
         fwd += 2 * batch * (seq - 1) * 2 * d * d
         fwd += layer("dense" if cfg.moe.num_experts else "attn", seq - 1)[0]
         fwd += 2 * batch * (seq - 2) * d * cfg.vocab_size
-    return 3 * fwd + sum(c[1] for c in counts)
+    return 3 * fwd + sum(c[1] for c in counts) - projector
 
 
 def train_full_width(arch, layers, batch, seq, lr, dev, tag="phase 14", remat_steps=2,
@@ -1183,10 +1253,7 @@ def train_full_width(arch, layers, batch, seq, lr, dev, tag="phase 14", remat_st
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() - held
-    launches = dict(native.LAUNCHES)
-    mla = {k: v - mla0[k] for k, v in md.KERNEL_LAUNCHES.items() if v != mla0[k]}
-    if any(launches.values()) or mla:
-        raise AssertionError(f"{tag}: native launches {launches}, MLA kernels {mla}, want none")
+    launches = no_launches(tag, mla0)
     bad = [m for m in res["metrics"] if not all(np.isfinite(v) for v in m.values())]
     if bad or not res["last_loss"] < res["first_loss"]:
         raise AssertionError(f"{tag}: metrics {res['metrics']}")
@@ -1380,29 +1447,32 @@ def zoo_train_card_vs_cpu(arch, dev) -> dict:
             "grad_rel_diff": grad_err, "leaves": len(got)}
 
 
-def cache_bytes(cache) -> tuple[int, int]:
+def cache_bytes(cache) -> tuple[int, int, int]:
     """Bytes of a decode cache: the attention keys and values (``k``,
-    ``v``), and the recurrent state (every other leaf)."""
-    kv = state = 0
+    ``v``), the recurrent state, and Whisper's cross keys and values
+    (``ck``, ``cv``)."""
+    kv = state = cross = 0
     for group in cache:
         for layer in group.values():
             for name, t in layer.items():
                 if name in ("k", "v"):
                     kv += t.nbytes
+                elif name in ("ck", "cv"):
+                    cross += t.nbytes
                 else:
                     state += t.nbytes
-    return kv, state
+    return kv, state, cross
 
 
 def decode_bound(param_bytes, cache, slots) -> dict:
-    """The least bytes a decode step moves: every parameter read once (the
-    tied unembedding reads the whole table), the whole attention cache
-    read (the plain attention scores every slot and masks) and one slot of
-    it written, the recurrent state read and written; over the card's HBM
-    rate."""
-    kv, state = cache_bytes(cache)
-    nbytes = param_bytes + kv + kv // slots + 2 * state
-    return {"bytes": nbytes, "kv_bytes": kv, "state_bytes": state,
+    """The least bytes a decode step moves: every parameter the step reads
+    once (the tied unembedding reads the whole table), the whole attention
+    cache read (the plain attention scores every slot and masks) and one
+    slot of it written, the recurrent state read and written, the cross
+    keys and values read; over the card's HBM rate."""
+    kv, state, cross = cache_bytes(cache)
+    nbytes = param_bytes + kv + kv // slots + 2 * state + cross
+    return {"bytes": nbytes, "kv_bytes": kv, "state_bytes": state, "cross_bytes": cross,
             "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
 
 
@@ -1482,10 +1552,7 @@ def ssm_serve(arch, dev) -> dict:
           f"{100 * bound['bound_ms'] / np.median(dev_ms):.2f}% of the CUDA-event median, "
           f"{100 * bound['bound_ms'] / np.median(host_ms):.2f}% of the host median")
     pre = prefill_check(tag, cfg, params, prompts, at_prompt, ServeCapture())
-    launches = dict(native.LAUNCHES)
-    mla = {k: v - mla0[k] for k, v in md.KERNEL_LAUNCHES.items() if v != mla0[k]}
-    if any(launches.values()) or mla:
-        raise AssertionError(f"{tag}: native launches {launches}, MLA kernels {mla}, want none")
+    launches = no_launches(tag, mla0)
     print(f"{tag}: no native kernel launched (the recurrences and attention are plain "
           f"PyTorch, as the reference's are plain jnp)")
     del params
@@ -1524,7 +1591,7 @@ def long_context(arch, dev) -> dict:
     cache = M.init_cache(cfg, B, S, long_mode=shape["long"], device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    kv, state = cache_bytes(cache)
+    kv, state, _ = cache_bytes(cache)
     bound = decode_bound(M.param_bytes(cfg), cache, S)
     native.reset_launches()
     tok = torch.ones((B, 1), dtype=torch.int32, device=dev)
@@ -1572,6 +1639,195 @@ def long_context(arch, dev) -> dict:
     return {"launches": dict(native.LAUNCHES), "step_host_ms": float(np.median(host_ms)),
             "step_dev_ms": float(np.median(dev_ms)), "bound_ms": bound["bound_ms"],
             "cache_bytes": kv + state, "peak_bytes": peak, "pos_independent": same}
+
+
+def serve_frames(cfg, device):
+    """The frames ``serve_batch`` draws for ``SERVE``: from its generator
+    after the prompts, in the model's dtype."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.common import dtype_of
+
+    rng = np.random.default_rng(SERVE["seed"])
+    rng.integers(1, min(cfg.vocab_size, 1000), size=(SERVE["requests"], SERVE["prompt_len"]))
+    frames = rng.normal(0, 0.02, size=(SERVE["requests"], cfg.encoder_seq, cfg.d_model))
+    return torch.from_numpy(frames).to(dtype_of(cfg)).to(device)
+
+
+def no_launches(tag, mla0) -> dict:
+    """The native launches since the last ``reset_launches`` (and the MLA
+    kernels' since ``mla0``); raises unless there are none."""
+    from repro_torch.kernels import mla_decode as md
+    from repro_torch.kernels import native
+
+    launches = dict(native.LAUNCHES)
+    mla = {k: v - mla0[k] for k, v in md.KERNEL_LAUNCHES.items() if v != mla0[k]}
+    if any(launches.values()) or mla:
+        raise AssertionError(f"{tag}: native launches {launches}, MLA kernels {mla}, want none")
+    return launches
+
+
+def audio_serve(dev) -> dict:
+    """Phase 16: Whisper-large-v3 whole in bf16 (random weights from
+    ``SERVE["seed"]``) through ``serve_batch`` with ``SERVE``'s requests,
+    each with 1500 frames: the encoder and cross cache (``serve_batch``'s
+    ``encode_s``, and ``prefill_cross_cache`` again alone: host and
+    CUDA-event ms), the decode step alone (host and CUDA-event ms),
+    ``make_prefill_step`` with the frames against the decode path at the
+    prompt's last position, tokens/s, peak memory and the decode step's
+    bound (the decoder's parameters read once, the self-attention cache,
+    the cross keys and values); no native kernel launched."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import mla_decode as md
+    from repro_torch.kernels import native
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import model as M
+
+    tag = f"phase 16 ({AUDIO_ARCH})"
+    cfg = get_config(AUDIO_ARCH)
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, SERVE["seed"], device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    enc_bytes = sum(t.nbytes for k in ("enc_groups", "enc_final_norm")
+                    for t in _leaves(params[k]))
+    print(f"{tag}: {cfg.encoder_layers} encoder + {cfg.num_layers} decoder layers "
+          f"{M.scan_groups(cfg)}, d_model {cfg.d_model}, {cfg.num_heads} heads of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, {cfg.encoder_seq} frames, "
+          f"{cfg.dtype}: {n_params} parameters, {M.param_bytes(cfg)} bytes ({enc_bytes} of them "
+          f"the encoder's) from seed {SERVE['seed']} in {time.perf_counter() - t0:.3f} s")
+    native.reset_launches()
+    mla0 = dict(md.KERNEL_LAUNCHES)
+    t0 = time.perf_counter()
+    served = serve_mod.serve_batch(AUDIO_ARCH, cfg=cfg, params=params, device=DEVICE, **SERVE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tokens = served["tokens"]
+    if tokens.shape != (SERVE["requests"], SERVE["gen_len"]) or not (
+            (tokens >= 0) & (tokens < cfg.vocab_size)).all():
+        raise AssertionError(f"{tag}: tokens {tokens.shape}, range {tokens.min()}..{tokens.max()}")
+    prompts, frames = serve_prompts(cfg, dev), serve_frames(cfg, dev)
+    slots = SERVE["prompt_len"] + SERVE["gen_len"] + 1
+    cache = M.init_cache(cfg, SERVE["requests"], slots, device=dev)
+    enc_host, enc_dev = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        M.prefill_cross_cache(cfg, params, cache, frames)
+        end.record()
+        torch.cuda.synchronize()
+        enc_host.append(1e3 * (time.perf_counter() - t0))
+        enc_dev.append(start.elapsed_time(end))
+    bound = decode_bound(M.param_bytes(cfg) - enc_bytes, cache, slots)
+    del cache
+    host_ms, dev_ms, moe_ms, at_prompt = decode_alone(
+        cfg, params, prompts, SERVE["gen_len"], ServeCapture(timed=True), frames=frames)
+    peak = torch.cuda.max_memory_allocated() - held
+    serve_numbers(tag, cfg, served, host_ms, dev_ms, moe_ms, peak / 1e9)
+    print(f"{tag}: the encoder over {SERVE['requests']} x {cfg.encoder_seq} frames and the "
+          f"cross cache: {1e3 * served['encode_s']:.3f} ms in serve_batch (host, the first "
+          f"call); prefill_cross_cache alone (synced) host {enc_host[0]:.3f} / "
+          f"{enc_host[1]:.3f} ms, CUDA events {enc_dev[0]:.3f} / {enc_dev[1]:.3f} ms")
+    print(f"{tag}: serve_batch wall {wall:.2f} s; the decode step's bound: {bound['bytes']} "
+          f"bytes (the decoder's parameters {M.param_bytes(cfg) - enc_bytes}, self-attention "
+          f"cache {bound['kv_bytes']} read, cross keys and values {bound['cross_bytes']} read) "
+          f"at {HBM_BYTES_PER_S / 1e12:.2f} TB/s = {bound['bound_ms']:.4f} ms, "
+          f"{100 * bound['bound_ms'] / np.median(dev_ms):.2f}% of the CUDA-event median, "
+          f"{100 * bound['bound_ms'] / np.median(host_ms):.2f}% of the host median")
+    pre = prefill_check(tag, cfg, params, prompts, at_prompt, ServeCapture(),
+                        extra={"frames": frames})
+    launches = no_launches(tag, mla0)
+    print(f"{tag}: no native kernel launched (the encoder, the cross attention and GQA are "
+          f"plain PyTorch, as the reference's are plain jnp)")
+    del params, frames
+    torch.cuda.empty_cache()
+    return {"launches": launches, "tokens_per_s": served["tokens_per_s"],
+            "encode_s": served["encode_s"], "encode_dev_ms": enc_dev,
+            "step_host_ms": float(np.median(host_ms)), "step_dev_ms": float(np.median(dev_ms)),
+            "bound_ms": bound["bound_ms"], "peak_bytes": peak, "prefill": pre}
+
+
+def vision_prefill(dev) -> dict:
+    """Phase 16b: Phi-3-vision-4.2B whole in bf16 (random weights from
+    ``SERVE["seed"]``) on ``VISION_PREFILL``'s batch: the prompts drawn as
+    ``serve_batch`` draws them, then 576 patches each
+    (``models.frontend.synth_vision_patches`` from the same generator).
+    ``forward``'s logits ``(B, 576 + S, vocab)`` finite;
+    ``make_prefill_step`` twice (synced wall s), its logits the forward's
+    last position; peak memory; no native kernel launched."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import mla_decode as md
+    from repro_torch.kernels import native
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import model as M
+    from repro_torch.models.frontend import synth_vision_patches
+
+    tag = f"phase 16b ({VISION_ARCH})"
+    cfg = get_config(VISION_ARCH)
+    B, S = VISION_PREFILL["batch"], VISION_PREFILL["seq"]
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, SERVE["seed"], device=dev)
+    torch.cuda.synchronize()
+    print(f"{tag}: {cfg.num_layers} layers {M.scan_groups(cfg)}, d_model {cfg.d_model}, "
+          f"{cfg.num_patches} patches through vision_proj {tuple(params['vision_proj'].shape)}, "
+          f"vocab {cfg.vocab_size}, {cfg.dtype}: {sum(t.numel() for t in _leaves(params))} "
+          f"parameters, {M.param_bytes(cfg)} bytes from seed {SERVE['seed']} in "
+          f"{time.perf_counter() - t0:.3f} s")
+    rng = np.random.default_rng(SERVE["seed"])
+    prompts = torch.from_numpy(rng.integers(1, min(cfg.vocab_size, 1000), size=(B, S)).astype(
+        np.int32)).to(dev)
+    patches = torch.from_numpy(synth_vision_patches(cfg, B, rng)).to(dev)
+    native.reset_launches()
+    mla0 = dict(md.KERNEL_LAUNCHES)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = M.forward(cfg, params, prompts, patches=patches)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        shape = tuple(logits.shape)
+        if shape != (B, cfg.num_patches + S, cfg.vocab_size) or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError(f"{tag}: forward logits {shape}, not all finite")
+        last_fwd = logits[:, -1].clone()
+        del logits
+        prefill = make_prefill_step(cfg)
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            last = prefill(params, {"tokens": prompts, "patches": patches})
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    if not torch.equal(last, last_fwd):
+        raise AssertionError(f"{tag}: the prefill step's logits are not the forward's last "
+                             f"position's (max |diff| {(last - last_fwd).abs().max().item()})")
+    peak = torch.cuda.max_memory_allocated() - held
+    launches = no_launches(tag, mla0)
+    print(f"{tag}: forward on {B} x ({cfg.num_patches} patches + {S} tokens): logits {shape} "
+          f"finite in {fwd_s:.3f} s (the first call); make_prefill_step "
+          + ", ".join(f"{w:.3f}" for w in walls) + " s, its logits the forward's last position "
+          f"bit for bit; peak {peak / 1e9:.2f} GB with the parameters; no native kernel "
+          f"launched")
+    del params, patches, prompts
+    torch.cuda.empty_cache()
+    return {"launches": launches, "logits_shape": list(shape), "forward_s": fwd_s,
+            "prefill_s": walls, "peak_bytes": peak}
 
 
 def _leaves(tree):
@@ -3589,7 +3845,7 @@ def main() -> int:
     from repro_torch.configs import all_arch_ids
     from repro_torch.launch.steps import shape_supported
 
-    ported = [a for a in all_arch_ids() if a not in ("whisper-large-v3", "phi-3-vision-4.2b")]
+    ported = all_arch_ids()
     for arch in ported:
         for shape in SHAPES:
             ok, reason = shape_supported(get_config(arch), shape)
@@ -3626,6 +3882,28 @@ def main() -> int:
               f"{row['remat_step_peak_bytes'] / 1e9:.2f} GB; predicted saved bytes "
               f"{pred[False] / 1e9:.2f} / {pred[True] / 1e9:.2f} GB (no remat / remat)")
     print(f"phase 15c: wall {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 16. Whisper-large-v3 served whole ----------------------------------- #
+    media_launches = {}
+    t_phase = time.perf_counter()
+    served_audio = audio_serve(dev)
+    media_launches[f"phase 16 ({AUDIO_ARCH})"] = served_audio["launches"]
+    print(f"phase 16: wall {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 16b. Phi-3-vision-4.2B's prefill step whole ------------------------- #
+    t_phase = time.perf_counter()
+    vision_row = vision_prefill(dev)
+    media_launches[f"phase 16b ({VISION_ARCH})"] = vision_row["launches"]
+    print(f"phase 16b: wall {time.perf_counter() - t_phase:.1f} s")
+
+    # -- 16c. both trained ------------------------------------------------- #
+    t_phase = time.perf_counter()
+    for arch, layers, b, sq, lr in MEDIA_TRAIN:
+        row = train_full_width(arch, layers, b, sq, lr, dev, tag="phase 16c")
+        trained[arch] = row
+        media_launches[f"phase 16c ({arch})"] = row["launches"]
+        print_train_row(arch, row, tag="phase 16c")
+    print(f"phase 16c: wall {time.perf_counter() - t_phase:.1f} s")
 
     # -- 10. results ------------------------------------------------------ #
     replaces = {
@@ -3719,10 +3997,14 @@ def main() -> int:
     for name in AGGREGATION_KERNELS:  # each phase's in-run median, CUDA events
         extras[name]["in_run_ms"] = {tag: med[name] for tag, med in in_run.items()
                                      if name in med}
-    for name in native.KERNELS:  # phases 14 and 15c launch none
+    for name in native.KERNELS:  # phases 14 and 15c-16c launch none
         extras.setdefault(name, {})["train_launches"] = sum(
             row["launches"].get(name, 0) for arch, row in trained.items()
-            if arch not in SSM_ARCHES)
+            if arch not in SSM_ARCHES and arch not in (AUDIO_ARCH, VISION_ARCH))
+        extras[name]["whisper_launches"] = {  # phases 16-16c (Whisper, Phi-3-vision)
+            phase: sum(l.get(name, 0) for t, l in media_launches.items()
+                       if t.startswith(phase + " "))
+            for phase in ("phase 16", "phase 16b", "phase 16c")}
         extras[name]["ssm_launches"] = {  # phases 15-15c launch none
             "phase 15": sum(l.get(name, 0) for t, l in ssm_launches.items()
                             if t.startswith("phase 15 ")),

@@ -4,13 +4,12 @@ Each module defines ``CONFIG`` (the exact assigned full-scale config,
 with its source citation) and ``smoke_config()`` (the reduced variant
 used by CPU smoke tests: 2 layers, d_model<=512, <=4 experts).
 
-The port's copy of ``repro.configs``. It holds the six decoder-only
+The port's copy of ``repro.configs``, all ten ids: the decoder-only
 attention architectures (``deepseek_v3_671b``, ``phi3_5_moe_42b``,
 ``qwen3_8b``, ``phi3_mini_3_8b``, ``minitron_4b``, ``gemma2_2b``), the
-SSM one (``xlstm_350m``) and the hybrid one (``zamba2_1_2b``); the
-encoder-decoder and vision ones (``whisper_large_v3``,
-``phi_3_vision_4_2b``) wait for ROADMAP Queue A items 5c and 5d, so
-:func:`get_config` on their ids raises ``ModuleNotFoundError``.
+SSM one (``xlstm_350m``), the hybrid one (``zamba2_1_2b``), the
+encoder-decoder one (``whisper_large_v3``) and the vision one
+(``phi_3_vision_4_2b``).
 """
 
 from __future__ import annotations

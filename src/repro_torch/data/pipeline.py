@@ -16,8 +16,7 @@ import numpy as np
 import torch
 
 from ..models.config import ModelConfig
-
-VISION_EMBED_DIM = 1024  # CLIP ViT-L/14 output width (the reference model's constant)
+from ..models.model import VISION_EMBED_DIM
 
 
 @dataclass

@@ -3,8 +3,10 @@
 Counterpart of the reference's ``repro.launch.serve``. Prefills each
 request's prompt (token-by-token decode into the cache), then decodes
 greedily; DeepSeek-V3's MLA latent context runs on the card's
-``mla_flash_decode`` kernel at every step. Weights are random (made from
-``seed``) unless ``params`` is given; nothing is downloaded.
+``mla_flash_decode`` kernel at every step. Whisper first runs its
+encoder once over each request's (stubbed) audio frames and fills the
+decoder's cross-attention cache. Weights are random (made from ``seed``)
+unless ``params`` is given; nothing is downloaded.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-2b \
         --requests 4 --prompt-len 16 --gen 32 [--full] [--device cpu]
@@ -28,6 +30,7 @@ import torch
 
 from ..configs import all_arch_ids, get_config, get_smoke_config
 from ..models import model as M
+from ..models.common import dtype_of
 from ..runtime.engine import resolve_device
 from .steps import make_decode_step
 
@@ -51,10 +54,14 @@ def serve_batch(
 ) -> dict:
     """Serve ``requests`` prompts of ``prompt_len`` tokens (drawn from
     ``np.random.default_rng(seed)`` as the reference draws them) and
-    generate ``gen_len`` tokens each, greedily. Returns the tokens
-    ``(requests, gen_len)`` and the host-clock prefill and decode seconds
-    (each ending in a device sync) with the decode rate. ``device="cuda"``
-    without a card raises ``RuntimeError``."""
+    generate ``gen_len`` tokens each, greedily. An encoder-decoder config
+    draws each request's frames ``(encoder_seq, d_model)`` from the same
+    generator after the prompts, in the model's dtype, and fills the cross
+    cache (:func:`~repro_torch.models.model.prefill_cross_cache`) before
+    the prompts. Returns the tokens ``(requests, gen_len)`` and the
+    host-clock seconds of the encoder (0 without one), the prefill and the
+    decode (each ending in a device sync) with the decode rate.
+    ``device="cuda"`` without a card raises ``RuntimeError``."""
     dev = resolve_device(device)
     if cfg is None:
         cfg = get_smoke_config(arch) if smoke else get_config(arch)
@@ -67,7 +74,16 @@ def serve_batch(
     max_seq = prompt_len + gen_len + 1
     cache = M.init_cache(cfg, requests, max_seq, device=dev)
     step = make_decode_step(cfg)
+    t_encode = 0.0
     with torch.no_grad():
+        if cfg.encoder_layers:
+            frames = rng.normal(0, 0.02, size=(requests, cfg.encoder_seq, cfg.d_model))
+            frames = torch.from_numpy(frames).to(dtype_of(cfg)).to(dev)
+            _sync(dev)
+            t0 = time.perf_counter()
+            cache = M.prefill_cross_cache(cfg, params, cache, frames)
+            _sync(dev)
+            t_encode = time.perf_counter() - t0
         _sync(dev)
         t0 = time.perf_counter()
         # Prefill: feed prompt tokens through the decode path.
@@ -87,6 +103,7 @@ def serve_batch(
     out_tokens = torch.stack(generated, dim=1).cpu().numpy()
     return {
         "tokens": out_tokens,
+        "encode_s": t_encode,
         "prefill_s": t_prefill,
         "decode_s": t_gen,
         "tokens_per_s": requests * gen_len / max(t_gen, 1e-9),

@@ -1,5 +1,5 @@
-"""Step functions of the training and serving paths, and the input
-shapes of the reference's assignment.
+"""Step functions of the training and serving paths, and the abstract
+inputs of every (architecture x input shape).
 
 Counterpart of the reference's ``repro.launch.steps``: ``SHAPES`` is
 copied as data, :func:`shape_supported` is the reference's rule for
@@ -7,8 +7,11 @@ copied as data, :func:`shape_supported` is the reference's rule for
 :func:`repro_torch.models.model.lm_loss`, :func:`make_prefill_step`
 returns the last position's logits of a full forward, and
 :func:`make_decode_step` is the greedy one-token decode step. PyTorch
-runs eagerly, so there is nothing to jit; the abstract input specs
-(``dryrun.py``'s, ROADMAP Queue A item 5f) are not ported.
+runs eagerly, so there is nothing to jit. The abstract inputs
+(:func:`abstract_params`, :func:`abstract_opt_state`,
+:func:`abstract_cache`, :func:`input_specs`) are ``meta`` tensors: the
+shapes and dtypes the reference's ``ShapeDtypeStruct`` trees hold, with
+no memory.
 
 INPUT SHAPES (assignment):
     train_4k     seq 4096,    global batch 256   (training)
@@ -21,9 +24,11 @@ from __future__ import annotations
 
 import torch
 
+from ..data.pipeline import make_batch_specs
 from ..models import model as M
+from ..models.common import SHAPES_ONLY
 from ..models.config import ModelConfig
-from ..optim.adamw import AdamWState, adamw_update
+from ..optim.adamw import AdamWState, adamw_init, adamw_update
 from ..tree import flatten, unflatten
 
 SHAPES = {
@@ -79,8 +84,9 @@ def make_train_step(cfg: ModelConfig, lr: float = 3e-4, remat: bool = True):
 def make_prefill_step(cfg: ModelConfig):
     """``prefill_step(params, batch) -> logits (B, vocab)``: float32
     logits of the last position of :func:`repro_torch.models.model.forward`
-    over ``batch["tokens"]`` (``patches`` / ``frames`` are passed on, and
-    refused there)."""
+    over ``batch["tokens"]`` (``patches`` / ``frames`` are passed on: a
+    vision config's logits cover the patch prefix too, the last position
+    is the text's)."""
 
     def prefill_step(params, batch: dict):
         logits, _ = M.forward(
@@ -111,3 +117,48 @@ def make_decode_step(cfg: ModelConfig, long_mode: bool = False):
         return next_token[:, None], cache
 
     return decode_step
+
+
+# --------------------------------------------------------------------- #
+# abstract inputs
+# --------------------------------------------------------------------- #
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The parameter tree of ``init_params`` as ``meta`` tensors."""
+    return M._draw_params(cfg, SHAPES_ONLY)
+
+
+def abstract_opt_state(cfg: ModelConfig) -> AdamWState:
+    """AdamW's state for :func:`abstract_params`, as ``meta`` tensors."""
+    return adamw_init_like(cfg, abstract_params(cfg))
+
+
+def adamw_init_like(cfg: ModelConfig, params) -> AdamWState:
+    return adamw_init(params, moment_dtype=cfg.opt_dtype)
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, seq: int, long_mode: bool) -> list:
+    """The decode cache of ``init_cache`` as ``meta`` tensors."""
+    return M.init_cache(cfg, batch, seq, long_mode=long_mode, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape_name: str) -> dict:
+    """``meta`` stand-ins for every model input of this shape.
+
+    Audio/VLM frontends are stubs: frames/patches arrive as precomputed
+    embeddings of the documented shape (DESIGN.md carve-out). Whisper's
+    prefill is the start of a transcription: the whole audio and at most
+    448 text tokens, its decoder's length.
+    """
+    info = SHAPES[shape_name]
+    b, s = info["batch"], info["seq"]
+    if info["kind"] in ("train", "prefill"):
+        batch = make_batch_specs(cfg, b, s)
+        if cfg.encoder_layers and info["kind"] == "prefill":
+            batch["tokens"] = torch.empty((b, min(s, 448)), dtype=torch.int32, device="meta")
+        return {"batch": batch}
+    long_mode = bool(info.get("long"))
+    return {
+        "cache": abstract_cache(cfg, b, s, long_mode),
+        "token": torch.empty((b, 1), dtype=torch.int32, device="meta"),
+        "pos": torch.empty((), dtype=torch.int32, device="meta"),
+    }

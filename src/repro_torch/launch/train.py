@@ -14,8 +14,10 @@ with ``--full`` the whole published config. A state (parameters,
 gradients and AdamW's two moments) larger than the device stops with
 ``MemoryError`` naming its bytes before anything is drawn: there is no
 fall-back to a smaller config or to the CPU. Gemma2-2B whole fits one
-card (31.4 GB of state); DeepSeek-V3 at full width fits only cut in
-depth (``cfg=CONFIG.with_overrides(num_layers=3)``, 34.3 GB).
+card (31.4 GB of state), Whisper-large-v3 (18.4 GB) and
+Phi-3-vision-4.2B (45.9 GB) too, their batches carrying the pipeline's
+frames and patches; DeepSeek-V3 at full width fits only cut in depth
+(``cfg=CONFIG.with_overrides(num_layers=3)``, 34.3 GB).
 """
 
 from __future__ import annotations
@@ -50,7 +52,8 @@ def train(
     device="cuda",
 ) -> dict:
     """``steps`` AdamW steps (``remat=False``) on ``TokenPipeline(cfg,
-    batch, seq, seed)``'s batches. ``cfg`` overrides the config (a
+    batch, seq, seed)``'s batches (with Whisper's frames and Phi-3-vision's
+    patches, uploaded with the tokens). ``cfg`` overrides the config (a
     depth-cut one, say); ``params`` is a parameter tree of the port on
     ``device`` (for the reference's, ``models.model.params_from_jax``),
     which the steps update in place. Returns the reference's dict (the

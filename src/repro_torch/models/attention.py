@@ -1,9 +1,8 @@
-"""Attention variants: GQA (with qk-norm, softcap, sliding window) and MLA
-(DeepSeek-V3), with their KV-cache decode paths.
+"""Attention variants: GQA (with qk-norm, softcap, sliding window), MLA
+(DeepSeek-V3), and encoder / cross attention (Whisper), with their
+KV-cache decode paths.
 
-Counterpart of the reference's ``repro.models.attention``. Cross
-attention (``cross_forward``, ``cross_memory``) waits for Whisper
-(ROADMAP Queue A item 5c).
+Counterpart of the reference's ``repro.models.attention``.
 
 Conventions:
   x            (B, S, D)
@@ -99,11 +98,19 @@ def gqa_forward(
     x: torch.Tensor,
     positions: torch.Tensor,
     window: int = 0,
+    causal: bool = True,
 ) -> torch.Tensor:
-    """Full-sequence causal attention (prefill)."""
+    """Full-sequence attention (training / prefill): causal, or with
+    ``causal=False`` over every position (Whisper's encoder; an all-true
+    mask, as the reference's). RoPE applies either way, as in the
+    reference."""
     q, k, v = _project_qkv(cfg, params, x, x, positions, positions)
     s = x.shape[1]
-    out = _sdpa(cfg, q, k, v, _causal_mask(s, s, window, x.device))
+    if causal:
+        mask = _causal_mask(s, s, window, x.device)
+    else:
+        mask = torch.ones((1, s, s), dtype=torch.bool, device=x.device)
+    out = _sdpa(cfg, q, k, v, mask)
     return torch.einsum("bshk,hkd->bsd", out, params["wo"])
 
 
@@ -136,6 +143,32 @@ def gqa_decode(
         valid = kpos <= pos
     out = _sdpa(cfg, q, cache_k, cache_v, valid[None, None, :])
     return torch.einsum("bshk,hkd->bsd", out, params["wo"]), cache_k, cache_v
+
+
+# --------------------------------------------------------------------- #
+# Cross attention (Whisper decoder over encoder memory)
+# --------------------------------------------------------------------- #
+def cross_forward(
+    cfg: ModelConfig,
+    params: dict,
+    x: torch.Tensor,            # (B, Sq, D)
+    memory_k: torch.Tensor,     # (B, Senc, Hkv, hd) — precomputed
+    memory_v: torch.Tensor,
+) -> torch.Tensor:
+    """The decoder's queries (``wq`` only: no RoPE, no qk-norm) over the
+    encoder's keys and values, every position visible."""
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    mask = torch.ones((1, x.shape[1], memory_k.shape[1]), dtype=torch.bool, device=x.device)
+    out = _sdpa(cfg, q, memory_k, memory_v, mask)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+
+
+def cross_memory(cfg: ModelConfig, params: dict, memory: torch.Tensor):
+    """Encoder keys and values, computed once per request (no RoPE:
+    Whisper's positions are the sinusoid added at embedding time)."""
+    k = torch.einsum("bsd,dhk->bshk", memory, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", memory, params["wv"])
+    return k, v
 
 
 # --------------------------------------------------------------------- #

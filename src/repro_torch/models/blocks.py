@@ -1,7 +1,6 @@
 """Per-layer block dispatch: init / cache / sequence forward / decode step.
 
-Counterpart of the reference's ``repro.models.blocks`` for the kinds of
-the decoder-only attention, SSM and hybrid architectures:
+Counterpart of the reference's ``repro.models.blocks``, every kind:
 
   attn / attn_global  — GQA + MLP (pre-norm, optional post-norm)
   attn_local          — GQA with sliding window
@@ -12,10 +11,8 @@ the decoder-only attention, SSM and hybrid architectures:
   shared_attn         — Zamba2 shared transformer block (weights shared
                         across occurrences, at the model's
                         ``shared_block``; each slot holds only its norms)
-
-Whisper's ``enc`` / ``dec`` raise ``NotImplementedError``: they wait for
-ROADMAP Queue A item 5c (Phi-3-vision's projector, 5d, is refused by
-:mod:`repro_torch.models.model`).
+  enc                 — bidirectional attention + MLP (Whisper encoder)
+  dec                 — causal self-attn + cross-attn + MLP (Whisper)
 """
 
 from __future__ import annotations
@@ -29,30 +26,16 @@ from .config import ModelConfig
 from .mlp import init_mlp, mlp_forward
 from .moe import init_moe, moe_apply
 
-PORTED_KINDS = ("attn", "attn_global", "attn_local", "dense", "moe", "mamba2", "mlstm",
-                "slstm", "shared_attn")
 #: The recurrent mixers: (init, sequence form, decode form, state init).
 _SSM = {
     "mamba2": (ssm.init_mamba2, ssm.mamba2_forward, ssm.mamba2_decode, ssm.mamba2_init_state),
     "mlstm": (ssm.init_mlstm, ssm.mlstm_forward, ssm.mlstm_decode, ssm.mlstm_init_state),
     "slstm": (ssm.init_slstm, ssm.slstm_forward, ssm.slstm_decode, ssm.slstm_init_state),
 }
-_WAITING = {
-    "enc": "Whisper's encoder (ROADMAP Queue A item 5c)",
-    "dec": "Whisper's decoder with cross attention (ROADMAP Queue A item 5c)",
-}
 
 
 def _uses_mla(cfg: ModelConfig, kind: str) -> bool:
     return cfg.attn_type == "mla" and kind in ("dense", "moe", "attn")
-
-
-def _check_kind(cfg: ModelConfig, kind: str) -> None:
-    if kind not in PORTED_KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet: "
-            + _WAITING.get(kind, "no such kind in the reference")
-        )
 
 
 def _window(cfg: ModelConfig, kind: str, force_local: bool) -> int:
@@ -84,7 +67,6 @@ def _ffn(cfg: ModelConfig, kind: str, p: dict, x):
 # init
 # --------------------------------------------------------------------- #
 def init_block(cfg: ModelConfig, kind: str, gen: torch.Generator) -> dict:
-    _check_kind(cfg, kind)
     dev = gen.device
     p: dict = {"norm1": make_norm_params(cfg, dev)}
     if cfg.post_norm:
@@ -99,6 +81,9 @@ def init_block(cfg: ModelConfig, kind: str, gen: torch.Generator) -> dict:
         p["mixer"] = attn.init_mla(cfg, gen)
     else:
         p["mixer"] = attn.init_gqa(cfg, gen)
+    if kind == "dec":
+        p["norm_cross"] = make_norm_params(cfg, dev)
+        p["cross"] = attn.init_gqa(cfg, gen)
     p["norm2"] = make_norm_params(cfg, dev)
     if cfg.post_norm:
         p["post_norm2"] = make_norm_params(cfg, dev)
@@ -142,11 +127,13 @@ def block_forward(
     positions: torch.Tensor,
     *,
     shared: dict | None = None,
+    memory_kv: tuple | None = None,
     force_local: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (x, aux_loss). ``shared`` is the model's ``shared_block``
-    (read by the ``shared_attn`` kind only)."""
-    _check_kind(cfg, kind)
+    (read by the ``shared_attn`` kind only); ``memory_kv`` the encoder's
+    keys and values (``cross_memory``) a ``dec`` layer attends to after
+    its self attention."""
     if kind == "shared_attn":
         x = _shared(cfg, shared, x, lambda h: attn.gqa_forward(cfg, shared["mixer"], h,
                                                                positions))
@@ -156,10 +143,15 @@ def block_forward(
         return _residual(cfg, p, x, _SSM[kind][1](cfg, p["mixer"], h), "post_norm1"), _zero(x)
     if _uses_mla(cfg, kind):
         a = attn.mla_forward(cfg, p["mixer"], h, positions)
+    elif kind == "enc":
+        a = attn.gqa_forward(cfg, p["mixer"], h, positions, causal=False)
     else:
         a = attn.gqa_forward(cfg, p["mixer"], h, positions,
                              window=_window(cfg, kind, force_local))
     x = _residual(cfg, p, x, a, "post_norm1")
+    if kind == "dec":
+        x = x + attn.cross_forward(cfg, p["cross"], apply_norm(cfg, p["norm_cross"], x),
+                                   *memory_kv)
     h = apply_norm(cfg, p["norm2"], x)
     f, aux = _ffn(cfg, kind, p, h)
     return _residual(cfg, p, x, f, "post_norm2"), aux
@@ -177,8 +169,10 @@ def init_layer_cache(
     key, or the GQA keys and values of ``seq`` positions (the window's for
     ``attn_local``, for ``attn_global`` under ``long_mode``, and for every
     layer of a windowed model that is not local/global; a ``shared_attn``
-    slot's are the full length's)."""
-    _check_kind(cfg, kind)
+    slot's are the full length's); a ``dec`` layer also holds the
+    encoder's keys and values ``ck`` / ``cv`` of ``cfg.encoder_seq``
+    positions, which :func:`repro_torch.models.model.prefill_cross_cache`
+    fills."""
     if kind in _SSM:
         return _SSM[kind][3](cfg, batch, device=device)
     dt = dtype_of(cfg)
@@ -194,10 +188,15 @@ def init_layer_cache(
     elif cfg.sliding_window and not cfg.local_global:
         s = min(seq, cfg.sliding_window)
     shape = (batch, s, cfg.num_kv_heads, cfg.head_dim)
-    return {
+    cache = {
         "k": torch.zeros(shape, dtype=dt, device=device),
         "v": torch.zeros(shape, dtype=dt, device=device),
     }
+    if kind == "dec":
+        shape = (batch, cfg.encoder_seq, cfg.num_kv_heads, cfg.head_dim)
+        cache["ck"] = torch.zeros(shape, dtype=dt, device=device)
+        cache["cv"] = torch.zeros(shape, dtype=dt, device=device)
+    return cache
 
 
 def block_decode(
@@ -215,7 +214,6 @@ def block_decode(
     (see :func:`repro_torch.models.attention.mla_decode`,
     :func:`~repro_torch.models.attention.gqa_decode` and the decode forms
     of :mod:`repro_torch.models.ssm`) and returned."""
-    _check_kind(cfg, kind)
     if kind == "shared_attn":
         def attend(h):
             a, _, _ = attn.gqa_decode(cfg, shared["mixer"], h, cache["k"], cache["v"], pos)
@@ -234,6 +232,9 @@ def block_decode(
                                     window=_window(cfg, kind, force_local))
         cache = dict(cache, k=ck, v=cv)
     x = _residual(cfg, p, x, a, "post_norm1")
+    if kind == "dec":
+        x = x + attn.cross_forward(cfg, p["cross"], apply_norm(cfg, p["norm_cross"], x),
+                                   cache["ck"], cache["cv"])
     h = apply_norm(cfg, p["norm2"], x)
     f, _ = _ffn(cfg, kind, p, h)
     return _residual(cfg, p, x, f, "post_norm2"), cache

@@ -1,8 +1,9 @@
 """Model assembly: stacked layer groups, embeddings, forward, LM loss,
 decode.
 
-Counterpart of the reference's ``repro.models.model`` for the
-decoder-only attention, SSM (xLSTM) and hybrid (Zamba2) architectures.
+Counterpart of the reference's ``repro.models.model`` for every
+architecture of the zoo: decoder-only attention, SSM (xLSTM), hybrid
+(Zamba2), encoder-decoder (Whisper) and vision-prefixed (Phi-3-vision).
 Layers are grouped into *scan groups* exactly as the reference groups
 them (maximal runs of a repeating unit, e.g. DeepSeek = 3 dense + 58 moe,
 Gemma2 = 13 x (local, global), Zamba2 = 6 x (5 mamba2 + shared_attn) + 2
@@ -15,16 +16,17 @@ backward (``torch.utils.checkpoint``), as the reference's
 ``jax.checkpoint`` does.
 
 Ported: :func:`layer_kinds`, :func:`scan_groups`, :func:`init_params`,
-:func:`init_cache`, :func:`forward`, :func:`lm_loss` (DeepSeek-V3's MTP
-head included), :func:`decode_step`, and :func:`params_from_jax`, which
-carries the reference's parameters across; Zamba2's shared block lives
-once, at ``params["shared_block"]``, and every ``shared_attn`` slot reads
-it. Waiting (ROADMAP Queue A item 5): the encoder-decoder stack and
-``prefill_cross_cache`` (5c), the vision projector (5d).
+:func:`init_cache`, :func:`encode`, :func:`forward` (Whisper's ``frames``,
+Phi-3-vision's ``patches``), :func:`lm_loss` (DeepSeek-V3's MTP head
+included), :func:`decode_step`, :func:`prefill_cross_cache`, and
+:func:`params_from_jax`, which carries the reference's parameters across;
+Zamba2's shared block lives once, at ``params["shared_block"]``, and every
+``shared_attn`` slot reads it.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 
@@ -32,15 +34,14 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from . import attention as attn
 from . import blocks
 from .common import (
     _DTYPES, SHAPES_ONLY, apply_norm, dtype_of, embed_tokens, make_norm_params, normal, unembed,
 )
 from .config import ModelConfig
 
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue A item {item})")
+VISION_EMBED_DIM = 1024  # CLIP ViT-L/14 output width (projector input)
 
 
 # --------------------------------------------------------------------- #
@@ -121,15 +122,6 @@ def _layers(tree, count: int) -> list:
     return list(torch.unbind(tree, 0))
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.encoder_layers or cfg.arch_type == "audio":
-        raise _not_ported("the encoder-decoder stack (Whisper)", "5c")
-    if cfg.frontend == "vision":
-        raise _not_ported("the vision projector (Phi-3-vision)", "5d")
-    for kind in dict.fromkeys(layer_kinds(cfg)):
-        blocks._check_kind(cfg, kind)
-
-
 # --------------------------------------------------------------------- #
 # init
 # --------------------------------------------------------------------- #
@@ -147,6 +139,13 @@ def _draw_params(cfg: ModelConfig, gen) -> dict:
     ]
     if cfg.shared_attn_every:
         params["shared_block"] = blocks.init_shared_block(cfg, gen)
+    if cfg.encoder_layers:
+        params["enc_groups"] = [_init_group(cfg, ("enc",), cfg.encoder_layers, gen)]
+        params["enc_final_norm"] = make_norm_params(cfg, dev)
+    if cfg.frontend == "vision":
+        params["vision_proj"] = normal(
+            gen, (VISION_EMBED_DIM, cfg.d_model), (1.0 / VISION_EMBED_DIM) ** 0.5, dt
+        )
     if cfg.mtp:
         params["mtp_proj"] = normal(
             gen, (2 * cfg.d_model, cfg.d_model), (0.5 / cfg.d_model) ** 0.5, dt
@@ -160,14 +159,12 @@ def _draw_params(cfg: ModelConfig, gen) -> dict:
 
 def param_bytes(cfg: ModelConfig) -> int:
     """Bytes of :func:`init_params`' tree (shapes only; nothing drawn)."""
-    _check_ported(cfg)
     return sum(t.nbytes for t in _leaves(_draw_params(cfg, SHAPES_ONLY)))
 
 
 def train_state_bytes(cfg: ModelConfig) -> int:
     """Bytes of a training step's state: the parameters, their gradients
     (the parameters' dtypes) and AdamW's two moments (``cfg.opt_dtype``)."""
-    _check_ported(cfg)
     moment = _DTYPES[cfg.opt_dtype].itemsize
     leaves = list(_leaves(_draw_params(cfg, SHAPES_ONLY)))
     return sum(2 * t.nbytes + 2 * t.numel() * moment for t in leaves)
@@ -197,7 +194,6 @@ def init_params(cfg: ModelConfig, seed: int, *, device="cuda") -> dict:
     ``jax.random`` draws: to start from the reference's parameters, use
     :func:`params_from_jax`. A tree larger than the device's memory
     raises ``MemoryError`` naming the bytes before anything is drawn."""
-    _check_ported(cfg)
     gen = torch.Generator(device=device).manual_seed(int(seed))
     check_room(cfg, param_bytes(cfg), f"{cfg.dtype} parameters", gen.device)
     return _draw_params(cfg, gen)
@@ -238,11 +234,43 @@ def params_from_jax(tree, device) -> dict:
 
 
 # --------------------------------------------------------------------- #
-# forward (prefill)
+# positions
 # --------------------------------------------------------------------- #
-def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+@functools.cache
+def _sin_divisors(d: int, device: torch.device) -> torch.Tensor:
+    """``10000 ** (dim / d)`` for ``dim = 0, 2, ..., d - 2`` as the
+    reference's float32 power gives them: the exponent a float32 quotient,
+    the power taken in float64 and rounded to float32 (``torch.pow`` in
+    float32 differs in 11 of Whisper's 640 divisors). Kept per device."""
+    expo = np.arange(0, d, 2, dtype=np.float32) / np.float32(d)
+    div = np.power(10_000.0, expo.astype(np.float64)).astype(np.float32)
+    return torch.from_numpy(div).to(device)
+
+
+def _sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """The reference's sinusoid at ``positions`` (S,): ``(S, d)`` float32,
+    the sines then the cosines of the float32 angles ``pos / divisor``."""
+    angles = positions.to(torch.float32)[:, None] / _sin_divisors(d, positions.device)[None]
+    return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
+
+
+def _sinusoidal(seq: int, d: int, device=None) -> torch.Tensor:
+    """``(1, seq, d)``: the sinusoid at positions ``0 .. seq - 1``."""
+    return _sinusoid(torch.arange(seq, device=device), d)[None]
+
+
+# --------------------------------------------------------------------- #
+# forward (training / prefill)
+# --------------------------------------------------------------------- #
+def _embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor, start: int) -> torch.Tensor:
+    """The tokens' embeddings at positions ``start, start + 1, ...``: with
+    the sinusoid added for Whisper, scaled by sqrt(d) for Gemma2 (its
+    tied embedding), as they are."""
     x = embed_tokens(params["embed"], tokens)
-    if cfg.logit_softcap:  # Gemma2 scales its (tied) embedding by sqrt(d)
+    if cfg.arch_type == "audio" or cfg.encoder_layers:
+        positions = torch.arange(start, start + tokens.shape[1], device=x.device)
+        return x + _sinusoid(positions, cfg.d_model)[None].to(x.dtype)
+    if cfg.logit_softcap:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32).to(x.dtype)
     return x
 
@@ -255,21 +283,28 @@ def _run_groups(
     x: torch.Tensor,
     positions: torch.Tensor,
     *,
+    memory: torch.Tensor | None = None,
     force_local: bool = False,
     remat: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Every layer of every group in order; returns ``(x, aux)``, the MoE
-    layers' auxiliary losses summed. With ``remat`` each unit of a group
-    keeps only its inputs for backward and runs again there."""
+    layers' auxiliary losses summed. A ``dec`` layer computes its cross
+    keys and values from the encoder's output ``memory`` inside its unit.
+    With ``remat`` each unit of a group keeps only its inputs for backward
+    and runs again there (the cross keys and values included, as the
+    reference's ``jax.checkpoint`` recomputes them)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     shared = params.get("shared_block")
     for (unit, count), gparams in zip(group_structure, group_list):
 
         def unit_fwd(h, aux, up, unit=unit):
             for i, kind in enumerate(unit):
+                mem_kv = None
+                if kind == "dec":
+                    mem_kv = attn.cross_memory(cfg, up[f"b{i}"]["cross"], memory)
                 h, a = blocks.block_forward(
                     cfg, kind, up[f"b{i}"], h, positions, shared=shared,
-                    force_local=force_local,
+                    memory_kv=mem_kv, force_local=force_local,
                 )
                 aux = aux + a
             return h, aux
@@ -280,6 +315,19 @@ def _run_groups(
             else:
                 x, aux_total = unit_fwd(x, aux_total, up)
     return x, aux_total
+
+
+def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor) -> torch.Tensor:
+    """Whisper's encoder over the (stubbed) post-conv frame embeddings
+    ``(B, encoder_seq, d_model)``: cast to the model's dtype, the sinusoid
+    added, the ``enc`` layers (never rematerialised, as in the reference)
+    and ``enc_final_norm``."""
+    frames = frames.to(dtype_of(cfg))
+    x = frames + _sinusoidal(frames.shape[1], cfg.d_model, frames.device).to(frames.dtype)
+    positions = torch.arange(frames.shape[1], device=frames.device)[None]
+    x, _ = _run_groups(cfg, params, params["enc_groups"], [(("enc",), cfg.encoder_layers)],
+                       x, positions)
+    return apply_norm(cfg, params["enc_final_norm"], x)
 
 
 def forward(
@@ -293,26 +341,29 @@ def forward(
     remat: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence logits. Returns ``(logits, moe_aux_loss)``: float32
-    logits ``(B, S, vocab)``. ``patches`` (vision) and ``frames`` (audio)
-    raise ``NotImplementedError``."""
-    _check_inputs(patches, frames)
-    _check_ported(cfg)
-    x = _embed(cfg, params, tokens)
+    logits ``(B, P + S, vocab)``. An encoder-decoder config needs
+    ``frames`` ``(B, encoder_seq, d_model)`` (``ValueError`` without);
+    ``patches`` ``(B, P, VISION_EMBED_DIM)`` go through ``vision_proj`` in
+    the promoted dtype of the two (float32 patches and a bf16 projector
+    multiply in float32, as the reference's einsum promotes them), are cast
+    to the model's dtype and come before the text."""
+    if cfg.encoder_layers and frames is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: forward needs frames")
+    x = _embed(cfg, params, tokens, 0)
+    memory = encode(cfg, params, frames) if cfg.encoder_layers else None
+    if patches is not None:
+        proj = params["vision_proj"]
+        dt = torch.promote_types(patches.dtype, proj.dtype)
+        pe = torch.einsum("bpv,vd->bpd", patches.to(dt), proj.to(dt)).to(x.dtype)
+        x = torch.cat([pe, x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)[None]
     x, aux = _run_groups(
-        cfg, params, params["groups"], scan_groups(cfg), x, positions,
+        cfg, params, params["groups"], scan_groups(cfg), x, positions, memory=memory,
         force_local=force_local, remat=remat,
     )
     x = apply_norm(cfg, params["final_norm"], x)
     logits = unembed(cfg, params.get("unembed", params["embed"]), x)
     return logits, aux
-
-
-def _check_inputs(patches, frames) -> None:
-    if patches is not None:
-        raise _not_ported("the vision projector (patches)", "5d")
-    if frames is not None:
-        raise _not_ported("the audio encoder (frames)", "5c")
 
 
 # --------------------------------------------------------------------- #
@@ -340,11 +391,15 @@ def lm_loss(
     token t+2 from ``[embed(t) ; embed(t+1)]`` (the tokens embedded again,
     not the trunk's hidden state) through ``mtp_proj``, one block (a
     ``dense`` block for a MoE model) and ``mtp_norm``, sharing the trunk's
-    unembedding. ``patches`` and ``frames`` raise ``NotImplementedError``."""
-    _check_inputs(batch.get("patches"), batch.get("frames"))
+    unembedding. ``batch["patches"]`` and ``batch["frames"]`` go to
+    :func:`forward`; the loss reads the text positions only, after the
+    patch prefix."""
     tokens = batch["tokens"]
-    logits, aux = forward(cfg, params, tokens, remat=remat)
-    ce = _ce(logits[:, : tokens.shape[1] - 1], tokens[:, 1:])
+    patches = batch.get("patches")
+    logits, aux = forward(cfg, params, tokens, patches=patches, frames=batch.get("frames"),
+                          remat=remat)
+    n_prefix = 0 if patches is None else patches.shape[1]
+    ce = _ce(logits[:, n_prefix : n_prefix + tokens.shape[1] - 1], tokens[:, 1:])
     total = ce + cfg.moe.router_aux_weight * aux
     metrics = {"ce": ce, "aux": aux}
     if cfg.mtp:
@@ -372,8 +427,8 @@ def init_cache(
     """Stacked per-group caches holding each layer's initial cache, as the
     reference's: zeros, but the xLSTM stabiliser ``m`` at -1e30. Under
     ``long_mode`` the global layers of a local/global model keep only
-    the window."""
-    _check_ported(cfg)
+    the window. Whisper's ``dec`` layers also hold the encoder's keys and
+    values (``ck`` / ``cv``, zeros until :func:`prefill_cross_cache`)."""
     caches = []
     for unit, count in scan_groups(cfg):
         caches.append({
@@ -400,10 +455,11 @@ def decode_step(
     """One-token decode over the full stack. Returns ``(logits, cache)``:
     float32 logits ``(B, 1, vocab)`` and the cache, updated in place.
     ``force_local`` runs the global layers of a local/global model
-    windowed (the reference's long-context decode)."""
-    _check_ported(cfg)
+    windowed (the reference's long-context decode). Whisper adds the
+    sinusoid at ``pos`` to the token's embedding and attends to the cross
+    cache that :func:`prefill_cross_cache` filled."""
     pos = int(pos)
-    x = _embed(cfg, params, token)
+    x = _embed(cfg, params, token, pos)
     shared = params.get("shared_block")
     for (unit, count), gparams, gcache in zip(scan_groups(cfg), params["groups"], cache):
         for up, uc in zip(_layers(gparams, count), _layers(gcache, count)):
@@ -413,3 +469,21 @@ def decode_step(
     x = apply_norm(cfg, params["final_norm"], x)
     logits = unembed(cfg, params.get("unembed", params["embed"]), x)
     return logits, cache
+
+
+@torch.no_grad()
+def prefill_cross_cache(
+    cfg: ModelConfig, params: dict, cache: list, frames: torch.Tensor
+) -> list:
+    """Whisper: run the encoder once over ``frames`` and write every
+    ``dec`` layer's cross keys and values into the cache's ``ck`` / ``cv``
+    in place (the reference returns an updated copy); the same cache is
+    returned."""
+    memory = encode(cfg, params, frames)
+    (_, count), gparams = scan_groups(cfg)[0], params["groups"][0]
+    c = cache[0]["b0"]
+    for i, up in enumerate(_layers(gparams, count)):
+        k, v = attn.cross_memory(cfg, up["b0"]["cross"], memory)
+        c["ck"][i].copy_(k)
+        c["cv"][i].copy_(v)
+    return cache

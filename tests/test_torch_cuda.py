@@ -934,15 +934,15 @@ def _zoo_params(arch, devices):
 
     cfg = get_smoke_config(arch).with_overrides(dtype="float32")
     cpu = M.init_params(cfg, 7, device="cpu")
+    return cfg, [_to(cpu, dev) for dev in devices]
 
-    def to(tree, dev):
-        if isinstance(tree, dict):
-            return {k: to(v, dev) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to(v, dev) for v in tree]
-        return tree.to(dev)
 
-    return cfg, [to(cpu, dev) for dev in devices]
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v3-671b", "phi3.5-moe-42b-a6.6b"])
@@ -967,11 +967,13 @@ def test_moe_forward_on_the_card_matches_cpu(card, arch):
     np.testing.assert_allclose(a.cpu().numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen3-8b", "xlstm-350m", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["gemma2-2b", "qwen3-8b", "xlstm-350m", "zamba2-1.2b",
+                                  "whisper-large-v3", "phi-3-vision-4.2b"])
 def test_gqa_serve_on_the_card_matches_cpu(card, arch):
     """``serve_batch`` on the smoke config in float32 from the same
-    weights: greedy tokens equal, no native kernel launched (GQA and the
-    recurrences are plain PyTorch); Gemma2 decodes past its window of 8."""
+    weights: greedy tokens equal, no native kernel launched (GQA, the
+    recurrences and Whisper's encoder and cross attention are plain
+    PyTorch); Gemma2 decodes past its window of 8."""
     from repro_torch.launch import serve
 
     cfg, (p_cpu, p_card) = _zoo_params(arch, ("cpu", card))
@@ -984,7 +986,7 @@ def test_gqa_serve_on_the_card_matches_cpu(card, arch):
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v3-671b", "phi3.5-moe-42b-a6.6b", "gemma2-2b",
-                                  "xlstm-350m", "zamba2-1.2b"])
+                                  "xlstm-350m", "zamba2-1.2b", "phi-3-vision-4.2b"])
 def test_prefill_matches_decode_on_the_card(card, arch):
     """``forward`` against token-by-token decode on the card (float32,
     1e-3 x max(|logits|, 1)), 14 positions (past Gemma2's window), and
@@ -1006,6 +1008,71 @@ def test_prefill_matches_decode_on_the_card(card, arch):
     err = (torch.stack(dec, dim=1) - full).abs().max().item()
     assert err < 1e-3 * max(full.abs().max().item(), 1.0)
     assert torch.equal(last, full[:, -1])
+
+
+def test_whisper_on_the_card_matches_cpu(card):
+    """Whisper's smoke config in float32 from the same weights and frames:
+    ``encode``, ``forward`` and the cross cache of ``prefill_cross_cache``
+    allclose 1e-4 to the CPU's; on the card, ``forward`` against
+    token-by-token decode within 1e-3 x max(|logits|, 1) and
+    ``make_prefill_step`` equal to the forward's last position; no native
+    kernel launched."""
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import model as M
+
+    cfg, trees = _zoo_params("whisper-large-v3", ("cpu", card))
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 10)).astype(np.int32))
+    frames = torch.from_numpy(rng.normal(0, 0.02, size=(2, cfg.encoder_seq, cfg.d_model)).astype(
+        np.float32))
+    before = dict(native.LAUNCHES)
+    runs = []
+    with torch.no_grad():
+        for p, dev in zip(trees, ("cpu", card)):
+            t, f = toks.to(dev), frames.to(dev)
+            memory = M.encode(cfg, p, f)
+            full, _ = M.forward(cfg, p, t, frames=f)
+            last = make_prefill_step(cfg)(p, {"tokens": t, "frames": f})
+            cache = M.prefill_cross_cache(cfg, p, M.init_cache(cfg, 2, 12, device=dev), f)
+            cross = (cache[0]["b0"]["ck"].clone(), cache[0]["b0"]["cv"].clone())
+            dec = []
+            for i in range(10):
+                lg, cache = M.decode_step(cfg, p, cache, t[:, i : i + 1], i)
+                dec.append(lg[:, 0])
+            runs.append((memory, full, last, *cross, torch.stack(dec, dim=1)))
+    assert native.LAUNCHES == before
+    for a, b in zip(runs[1], runs[0]):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4, atol=1e-4)
+    _, full, last, _, _, dec = runs[1]
+    assert (dec - full).abs().max().item() < 1e-3 * max(full.abs().max().item(), 1.0)
+    assert torch.equal(last, full[:, -1])
+
+
+def test_vision_prefix_on_the_card_matches_cpu(card):
+    """Phi-3-vision's smoke config in bf16 from the same weights and
+    float32 patches: the prefix goes through the projector in float32 on
+    both devices; logits allclose 3e-2, and the loss over the text
+    positions within 1e-2 relative."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+
+    cfg = get_smoke_config("phi-3-vision-4.2b")
+    p_cpu = M.init_params(cfg, 7, device="cpu")
+    rng = np.random.default_rng(4)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(2, 10)).astype(
+        np.int32)), "patches": torch.from_numpy(rng.normal(0, 0.02, size=(
+            2, cfg.num_patches, M.VISION_EMBED_DIM)).astype(np.float32))}
+    out = []
+    with torch.no_grad():
+        for dev in ("cpu", card):
+            p = _to(p_cpu, dev)
+            b = {k: v.to(dev) for k, v in batch.items()}
+            logits, _ = M.forward(cfg, p, b["tokens"], patches=b["patches"])
+            loss, _ = M.lm_loss(cfg, p, b)
+            out.append((logits.cpu(), float(loss)))
+    assert tuple(out[1][0].shape) == (2, cfg.num_patches + 10, cfg.vocab_size)
+    np.testing.assert_allclose(out[1][0].numpy(), out[0][0].numpy(), rtol=3e-2, atol=3e-2)
+    np.testing.assert_allclose(out[1][1], out[0][1], rtol=1e-2)
 
 
 def test_embedding_backward_sums_in_float32_on_the_card(card):
@@ -1030,7 +1097,8 @@ def test_embedding_backward_sums_in_float32_on_the_card(card):
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v3-671b", "phi3.5-moe-42b-a6.6b", "gemma2-2b",
-                                  "xlstm-350m", "zamba2-1.2b"])
+                                  "xlstm-350m", "zamba2-1.2b", "whisper-large-v3",
+                                  "phi-3-vision-4.2b"])
 def test_train_steps_on_the_card_match_cpu(card, arch):
     """The smoke config in float32 from the same weights and batches: the
     first batch's gradients within 1e-4 x each leaf's largest, and three

@@ -167,9 +167,8 @@ class TestPipeline:
 
     @pytest.mark.parametrize("arch", ["phi-3-vision-4.2b", "whisper-large-v3"])
     def test_modality_extras(self, arch):
-        """The port holds no config of these yet: the reference's, as the
-        port's dataclass."""
-        cfg = _port_smoke(arch)
+        """The port's own smoke configs of the two."""
+        cfg = get_smoke_config(arch)
         batch = TokenPipeline(cfg, 2, 16).next_batch()
         if cfg.frontend == "vision":
             assert batch["patches"].shape == (2, cfg.num_patches, 1024)

@@ -246,8 +246,9 @@ def test_get_config_equals_the_reference_field_by_field():
         jconfigs.get_smoke_config(ARCH)
     )
     assert tconfigs.all_arch_ids() == jconfigs.all_arch_ids()
-    with pytest.raises(ModuleNotFoundError):
-        tconfigs.get_config("whisper-large-v3")
+    for arch in ("whisper-large-v3", "phi-3-vision-4.2b"):
+        assert dataclasses.asdict(tconfigs.get_config(arch)) == dataclasses.asdict(
+            jconfigs.get_config(arch)), arch
 
 
 def test_full_width_slice_is_the_three_dense_layers():

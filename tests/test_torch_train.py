@@ -14,12 +14,13 @@ seed, and both packages run them:
   gradient bit-identical;
 * the mirrors of the reference's ``test_train_step_reduces_loss`` and
   ``test_lm_training_driver_learns`` (``train(..., device="cpu")``);
-* the two architectures still to port raise, naming their ROADMAP item;
-  ``device="cuda"`` without a card raises ``RuntimeError``, and a state
+* ``device="cuda"`` without a card raises ``RuntimeError``, and a state
   larger than the device raises ``MemoryError`` naming its bytes.
 
 The bf16 loss and the three-step trajectories are in
-``tests/test_torch_train_steps.py``.
+``tests/test_torch_train_steps.py``; Whisper-large-v3's and
+Phi-3-vision-4.2B's training tests are in ``tests/test_torch_whisper.py``
+and ``test_torch_vision.py``.
 """
 
 import dataclasses
@@ -44,7 +45,6 @@ from repro_torch.tree import flatten
 
 ARCHES = ("deepseek-v3-671b", "phi3.5-moe-42b-a6.6b", "qwen3-8b", "phi3-mini-3.8b",
           "minitron-4b", "gemma2-2b", "xlstm-350m", "zamba2-1.2b")
-MISSING = {"whisper-large-v3": "5c", "phi-3-vision-4.2b": "5d"}
 LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-4
 
@@ -180,21 +180,6 @@ def test_driver_cli_and_checkpoint(tmp_path, capsys):
     template = tmodel.init_params(tconfigs.get_smoke_config("qwen3-8b"), 1, device="cpu")
     loaded = load_checkpoint(path, template)
     assert [t.shape for t in flatten(loaded)[0]] == [t.shape for t in flatten(template)[0]]
-
-
-@pytest.mark.parametrize("arch", sorted(MISSING))
-def test_architectures_still_to_port_raise(arch):
-    item = MISSING[arch]
-    cfg = port_cfg(jconfigs.get_smoke_config(arch))
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        ttrain.train(arch, cfg=cfg, steps=1, device="cpu")
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
-    if cfg.frontend == "vision":
-        batch["patches"] = torch.zeros((1, cfg.num_patches, 1024))
-    if cfg.encoder_layers:
-        batch["frames"] = torch.zeros((1, cfg.encoder_seq, cfg.d_model))
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        tmodel.lm_loss(cfg, {}, batch)
 
 
 def test_cuda_without_a_card_raises(monkeypatch):

@@ -5,9 +5,9 @@ window, softcap; decode past the window through the ring buffer), the
 full-sequence MLA, ``block_forward`` for every ported kind (``dense``,
 ``moe`` with MLA and with GQA, ``attn``, ``attn_local``, ``attn_global``,
 ``mamba2``, ``shared_attn`` with the model's shared block, ``mlstm``,
-``slstm``; with and without ``force_local``), and the refusals of the
-kinds and inputs still to port. The mixers alone are in
-``tests/test_torch_ssm.py``.
+``slstm``; with and without ``force_local``). The mixers alone are in
+``tests/test_torch_ssm.py``; Whisper's ``enc`` and ``dec`` kinds and its
+cross attention in ``tests/test_torch_whisper.py``.
 
 The reference's parameters are carried across by ``params_from_jax``;
 inputs are made with numpy from a seed. Bars: 1e-5 for the attention
@@ -30,7 +30,6 @@ from repro import configs as jconfigs
 from repro.models import attention as jattn
 from repro.models import blocks as jblocks
 from repro.models import model as jmodel
-from repro_torch import configs as tconfigs
 from repro_torch.models import attention as tattn
 from repro_torch.models import blocks as tblocks
 from repro_torch.models import config as tconfig
@@ -183,20 +182,3 @@ def test_block_forward_matches_the_reference(block, dtype, force_local):
     np.testing.assert_allclose(float(gaux), float(waux), rtol=1e-5, atol=1e-7)
 
 
-@pytest.mark.parametrize("kind", ["enc", "dec"])
-def test_kinds_still_to_port_raise(kind):
-    cfg = tconfigs.get_smoke_config("qwen3-8b")
-    item = "5c"
-    with pytest.raises(NotImplementedError, match=f"Queue A item {item}"):
-        tblocks.init_block(cfg, kind, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match=f"Queue A item {item}"):
-        tblocks.init_layer_cache(cfg, kind, 1, 4)
-
-
-@pytest.mark.parametrize("what", ["patches", "frames"])
-def test_forward_refuses_vision_and_audio_inputs(what):
-    cfg, _, port = model_pair("qwen3-8b", "float32")
-    item = "5d" if what == "patches" else "5c"
-    with pytest.raises(NotImplementedError, match=f"Queue A item {item}"):
-        tmodel.forward(port_cfg(cfg), port, torch.zeros((1, 3), dtype=torch.int32),
-                       **{what: torch.zeros((1, 2, 8))})
