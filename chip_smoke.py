@@ -217,6 +217,24 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    tokens with 1500 frames at lr 3e-4, Phi-3-vision 2 x 256 tokens with
    576 patches each at lr 6e-5), 6 steps with phase 14's checks and
    split, two ``remat=True`` steps against the ``remat=False`` gradient;
+17. expert parallelism on a mesh of one: a ``torch.distributed`` world of
+   one over a ``FileStore`` (gloo for CPU tensors, NCCL for the card's),
+   its (1, 1) mesh registered with ``moe.set_ep_mesh``; both MoE smoke
+   configs in float32 through ``moe_apply`` with ``ep_axis="model"``, each
+   combine (psum, a2a) at capacity 8 and 1.25: ``y``, ``aux`` and every
+   gradient on the card within 1e-4 of the CPU's, two card runs
+   bit-identical, the 1.25 cases dropping copies; then phases 9c's and
+   14c's checks on both smoke models with each of those settings;
+17b. one MoE layer at published width (DeepSeek-V3's 256 experts, 22.5 GB;
+   Phi-3.5-MoE's 16, 2.5 GB) at decode (4 tokens) and prefill (2 x 256):
+   ``moe_forward_ep`` (psum) at capacity E / k against ``moe_forward``
+   within 3e-2 of max |y|, both timed beside their bytes bounds, the copies
+   dropped at capacity 1.25;
+17c. ``serve_batch`` on phase 9's DeepSeek-V3 cut with ``ep_axis="model"``
+   (ms a step, greedy agreement with phase 9's tokens, the MLA launches;
+   one decode step on one cache against the dropless step within 3e-2),
+   and 2 steps of ``make_train_step`` on phase 14's Phi-3.5-MoE cut with
+   it (losses, copies dropped, ms a step, peak);
 10. a ``kernels`` JSON line (the fused step's rows time the engine's form,
    the reference form's times beside them; the aggregation rows add their
    kernel alone, device operations a call, host ms, the gather's L2
@@ -227,7 +245,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    split beside it; rows 11-13 the legacy runs' launches, rows 1-2 the
    launches of phases 12 and 13; every row its launches in phase 14,
    in phases 15, 15b and 15c (``ssm_launches``) and in phases 16, 16b
-   and 16c (``whisper_launches``), 0),
+   and 16c (``whisper_launches``), 0, and in phases 17-17c
+   (``ep_launches``: ``mla_flash_decode`` serves 17c's decode steps),
    and as the last line
    the device JSON line. The aggregation kernels' in-run time (CUDA events
    around each dispatcher call) prints on phases 3, 3b, 6, 6b and 8.
@@ -244,6 +263,7 @@ exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -256,15 +276,15 @@ from collections import defaultdict
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, and the float32 rate
-#: outside the tensor cores, used as the roof for the kernels' integer and
-#: compare work too.
-HBM_BYTES_PER_S = 3.35e12
-SCALAR_OPS_PER_S = 67e12
-#: The bf16 rate of the tensor cores (dense), the roof of the MLA decode's
-#: products on bfloat16 inputs.
-BF16_TENSOR_OPS_PER_S = 989e12
+# The card's peaks, from the one place that holds them (NVIDIA H100 80GB
+# HBM3, 700 W, spec sheet): HBM bandwidth; the float32 rate outside the
+# tensor cores, the roof for the kernels' integer and compare work too; the
+# bf16 rate of the tensor cores (dense), the roof of bf16 products.
+from repro_torch.launch.mesh import HBM_BW as HBM_BYTES_PER_S  # noqa: E402
+from repro_torch.launch.mesh import PEAK_FLOPS_BF16 as BF16_TENSOR_OPS_PER_S  # noqa: E402
+from repro_torch.launch.mesh import PEAK_FLOPS_FP32 as SCALAR_OPS_PER_S  # noqa: E402
 
 #: The raw main path (phase 3), the ragged path (3b) and the card-vs-CPU
 #: runs (phase 4).
@@ -341,6 +361,24 @@ LONG_500K_OK = ("gemma2-2b", "xlstm-350m", "zamba2-1.2b")
 #: 6e-5 down to 1e-5, while at 2 x 256 and 6e-5 it falls from 11.01 to
 #: 10.70 (peak 56.0 GB).
 AUDIO_ARCH, VISION_ARCH = "whisper-large-v3", "phi-3-vision-4.2b"
+#: Phases 17-17c: expert parallelism on a mesh of one (a torch.distributed
+#: world of one: gloo for CPU tensors, NCCL for the card's). 17: both MoE
+#: smoke configs in float32, each combine at capacity 8 (nothing can drop)
+#: and 1.25 (the default: copies drop), the card against the CPU on inputs
+#: of ``EP_X`` tokens with a common offset of ``EP_SKEW`` normals (routing
+#: that favours some experts). 17b: one MoE layer at published width at
+#: each of ``EP_SHAPES`` (batch, seq). 17c: phase 9's DeepSeek-V3 cut
+#: served, and ``EP_TRAIN``'s Phi-3.5-MoE cut trained, with ``ep_axis``.
+EP_ARCHES = ("phi3.5-moe-42b-a6.6b", "deepseek-v3-671b")
+EP_CASES = tuple((c, cf) for c in ("psum", "a2a") for cf in (8.0, 1.25))
+EP_X = (4, 8)
+EP_SKEW = 2.0
+EP_TOL = 1e-4
+EP_SHAPES = (("decode", 4, 1), ("prefill", 2, 256))
+EP_TRAIN = dict(arch="phi3.5-moe-42b-a6.6b", layers=2, batch=2, seq=512, lr=3e-4, steps=2)
+#: Positions of phase 9's prompts that fill the cache before 17c's one
+#: decode step, EP against dropless.
+EP_FILL = 32
 VISION_PREFILL = dict(batch=2, seq=256)
 MEDIA_TRAIN = (("whisper-large-v3", None, 2, 256, 3e-4),
                ("phi-3-vision-4.2b", None, 2, 256, 6e-5))
@@ -1041,7 +1079,7 @@ def serve_numbers(tag, cfg, served, host_ms, dev_ms, moe_ms, peak_gb) -> None:
              if any(moe_ms) else ""))
 
 
-def zoo_card_vs_cpu(arch, dev) -> dict:
+def zoo_card_vs_cpu(arch, dev, overrides=None) -> dict:
     """Phase 9c for one architecture: its smoke config in float32 from the
     same weights on the CPU and the card. ``serve_batch`` tokens equal;
     8 decode positions' logits and the prefill step's allclose 1e-4; the
@@ -1051,7 +1089,10 @@ def zoo_card_vs_cpu(arch, dev) -> dict:
     config); a MoE config's decode twice on the card, bit-identical.
     Whisper's decode attends to the cross cache of the same frames on both
     devices, and its prefill and forward read them; Phi-3-vision's prefill
-    reads the same patches."""
+    reads the same patches. ``overrides`` change the config (phase 17:
+    expert parallelism); forward vs decode runs only where no MoE copy can
+    be dropped (a capacity drop in the forward's longer sequence is a
+    different result)."""
     import numpy as np
     import torch
 
@@ -1062,7 +1103,7 @@ def zoo_card_vs_cpu(arch, dev) -> dict:
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import model as M
 
-    small = get_smoke_config(arch).with_overrides(dtype="float32")
+    small = get_smoke_config(arch).with_overrides(dtype="float32", **(overrides or {}))
     tree = _numpy_tree(M.init_params(small, 7, device="cpu"))
     B = SERVE_SMALL["requests"]
     toks_np = np.random.default_rng(5).integers(1, small.vocab_size, size=(B, 8)).astype(np.int32)
@@ -1115,7 +1156,30 @@ def zoo_card_vs_cpu(arch, dev) -> dict:
         if not torch.allclose(a, b, rtol=1e-4, atol=1e-4):
             raise AssertionError(f"phase 9c ({arch}): {what} logits differ beyond 1e-4 (max "
                                  f"|diff| {(a - b).abs().max().item():.3g})")
-    # forward vs token-by-token decode, on the card.
+    row = {"tokens": list(tok_card.shape), "decode_diff": (log_card - log_cpu).abs().max().item(),
+           "prefill_diff": (last_card - last_cpu).abs().max().item(), "mla_launches": n_small}
+    m = small.moe
+    if small.ep_axis and small.ep_capacity_factor * m.experts_per_token < m.num_experts:
+        row["fwd_vs_dec"] = "not run: copies can drop"
+    else:
+        row.update(forward_vs_decode(small, p_card, dev, decode_logits, on))
+    if small.moe.num_experts:
+        twice = [decode_logits(p_card, dev, torch.from_numpy(toks_np).to(dev)) for _ in range(2)]
+        if not torch.equal(*twice):
+            raise AssertionError(f"phase 9c ({arch}): two card decodes differ")
+        row["moe_bit_identical"] = True
+    return row
+
+
+def forward_vs_decode(small, p_card, dev, decode_logits, on) -> dict:
+    """``forward`` against token-by-token decode on the card, within 1e-3
+    x max(|logits|, 1) (S = 14 past the window of 8 for a windowed
+    config)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import model as M
+
     S = 14 if small.sliding_window else 10
     seq = torch.from_numpy(np.random.default_rng(6).integers(
         0, small.vocab_size, size=(1, S)).astype(np.int32)).to(dev)
@@ -1125,16 +1189,8 @@ def zoo_card_vs_cpu(arch, dev) -> dict:
     err = (dec - full).abs().max().item()
     scale = full.abs().max().item()
     if not err < 1e-3 * max(scale, 1.0):
-        raise AssertionError(f"phase 9c ({arch}): forward vs decode {err} at scale {scale}")
-    row = {"tokens": list(tok_card.shape), "decode_diff": (log_card - log_cpu).abs().max().item(),
-           "prefill_diff": (last_card - last_cpu).abs().max().item(),
-           "mla_launches": n_small, "fwd_vs_dec": err, "S": S}
-    if small.moe.num_experts:
-        twice = [decode_logits(p_card, dev, torch.from_numpy(toks_np).to(dev)) for _ in range(2)]
-        if not torch.equal(*twice):
-            raise AssertionError(f"phase 9c ({arch}): two card decodes differ")
-        row["moe_bit_identical"] = True
-    return row
+        raise AssertionError(f"phase 9c ({small.name}): forward vs decode {err} at scale {scale}")
+    return {"fwd_vs_dec": err, "S": S}
 
 
 def train_flops(cfg, batch: int, seq: int) -> int:
@@ -1391,13 +1447,14 @@ def print_train_row(arch, row, tag="phase 14") -> None:
           + json.dumps(row["top_kernels_ms"]))
 
 
-def zoo_train_card_vs_cpu(arch, dev) -> dict:
+def zoo_train_card_vs_cpu(arch, dev, overrides=None) -> dict:
     """Phase 14c for one architecture: its smoke config in float32 from the
     same weights and batches on the CPU and the card: the step-1 gradients
     of every leaf within ``TRAIN_TOL`` x its largest, ``train``'s losses
     over ``TRAIN_SMALL["steps"]`` steps within ``TRAIN_TOL`` relative, no
     native launch; the card's run saves a checkpoint, which loads on the
-    CPU bit for bit equal to the card's parameters."""
+    CPU bit for bit equal to the card's parameters. ``overrides`` change
+    the config (phase 17: expert parallelism)."""
     import numpy as np
     import torch
 
@@ -1409,7 +1466,7 @@ def zoo_train_card_vs_cpu(arch, dev) -> dict:
     from repro_torch.launch.train import train
     from repro_torch.models import model as M
 
-    small = get_smoke_config(arch).with_overrides(dtype="float32")
+    small = get_smoke_config(arch).with_overrides(dtype="float32", **(overrides or {}))
     tree = _numpy_tree(M.init_params(small, 7, device="cpu"))
     first = TokenPipeline(small, TRAIN_SMALL["batch"], TRAIN_SMALL["seq"],
                           seed=TRAIN_SMALL["seed"]).next_batch()
@@ -1830,6 +1887,412 @@ def vision_prefill(dev) -> dict:
             "prefill_s": walls, "peak_bytes": peak}
 
 
+@contextlib.contextmanager
+def ep_world_of_one():
+    """A ``torch.distributed`` world of one over a ``FileStore`` in a
+    temporary directory (no TCP): gloo for CPU tensors, NCCL for the
+    card's. Its (1, 1) mesh is registered for ``moe_forward_ep``; the group
+    is destroyed on the way out."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import moe
+
+    backend = "gloo" if DEVICE == "cpu" else "cpu:gloo,cuda:nccl"
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(backend, store=dist.FileStore(str(Path(tmp) / "store"), 1),
+                                rank=0, world_size=1, timeout=datetime.timedelta(seconds=120))
+        try:
+            mesh = make_test_mesh(1, 1, device_type=DEVICE)
+            moe.set_ep_mesh(mesh)
+            yield mesh
+        finally:
+            moe.set_ep_mesh(None)
+            dist.destroy_process_group()
+
+
+def ep_drops(cfg, router, x) -> int:
+    """Token copies ``moe_forward_ep`` drops on a mesh of one at
+    ``cfg.ep_capacity_factor``: each expert's copies past its capacity
+    block (both combines: on one rank the all-to-all sends every copy and
+    the receiver's blocks are the psum form's)."""
+    import torch
+
+    from repro_torch.models import moe
+
+    m = cfg.moe
+    idx = moe._route(cfg, router, x.reshape(-1, x.shape[-1]))[1].reshape(-1)
+    cap = moe._capacity(idx.numel(), m.num_experts, cfg.ep_capacity_factor, floor=True)
+    counts = torch.bincount(idx, minlength=m.num_experts)
+    return int((counts - cap).clamp(min=0).sum())
+
+
+def ep_grads(cfg, params, x, ct, where) -> dict:
+    """``moe_apply`` on ``where`` (``cfg.ep_axis`` set): ``y``, ``aux`` and
+    the gradients of ``sum(y * ct) + aux`` with respect to every parameter
+    and ``x``, on the CPU."""
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.tree import flatten, unflatten
+
+    leaves, spec = flatten(params)
+    live = [t.to(where).requires_grad_() for t in leaves]
+    xx = x.to(where).requires_grad_()
+    y, aux = moe.moe_apply(cfg, unflatten(spec, live), xx)
+    grads = torch.autograd.grad((y * ct.to(where)).sum() + aux, [*live, xx])
+    return {"y": y.detach().cpu(), "aux": aux.detach().cpu(),
+            **{f"g{i}": g.cpu() for i, g in enumerate(grads)}}
+
+
+def ep_small_inputs(arch):
+    """Phase 17's inputs for one MoE smoke config, on the CPU from a seed:
+    ``(cfg, params, x, ct)``, ``cfg`` in float32 with ``ep_axis="model"``,
+    ``x`` with a shared skew so that routing is uneven."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import moe
+
+    seed = EP_ARCHES.index(arch)
+    base = get_smoke_config(arch).with_overrides(dtype="float32", ep_axis="model")
+    params = moe.init_moe(base, torch.Generator().manual_seed(11 + seed))
+    d = base.d_model
+    rng = np.random.default_rng(12 + seed)
+    x = torch.from_numpy(
+        (rng.standard_normal((*EP_X, d)) + EP_SKEW * rng.standard_normal(d)).astype(np.float32))
+    ct = torch.from_numpy(rng.standard_normal((*EP_X, d)).astype(np.float32))
+    return base, params, x, ct
+
+
+def ep_card_vs_cpu(dev) -> dict:
+    """Phase 17: both MoE smoke configs in float32 (TF32 off), each combine
+    at capacity 8 and 1.25, ``moe_apply`` with ``ep_axis="model"`` on the
+    registered mesh of one: ``y``, ``aux`` and every gradient on the card
+    within ``EP_TOL`` of the CPU's (gradients of a leaf's largest), two card
+    runs bit-identical, no native launch; at 1.25 copies drop and ``y``
+    differs from capacity 8's on both devices. Then the twins of phases 9c
+    (:func:`zoo_card_vs_cpu`) and 14c (:func:`zoo_train_card_vs_cpu`) on
+    both smoke models with the same settings; their decode launches the
+    MLA kernel (DeepSeek-V3)."""
+    import torch
+
+    from repro_torch.kernels import mla_decode as md
+    from repro_torch.kernels import native
+
+    rows = {}
+    native.reset_launches()
+    mla0 = dict(md.KERNEL_LAUNCHES)
+    for arch in EP_ARCHES:
+        base, params, x, ct = ep_small_inputs(arch)
+        dropless = {}
+        for combine, cf in EP_CASES:
+            cfg = base.with_overrides(ep_capacity_factor=cf, ep_combine=combine)
+            cpu, card, again = (ep_grads(cfg, params, x, ct, w) for w in ("cpu", dev, dev))
+            tag = f"phase 17 ({arch}, {combine}, cf {cf})"
+            y_err = (card["y"] - cpu["y"]).abs().max().item()
+            aux_err = abs(card["aux"].item() - cpu["aux"].item())
+            g_err = max((card[k] - cpu[k]).abs().max().item() / max(cpu[k].abs().max().item(), 1e-30)
+                        for k in cpu if k.startswith("g"))
+            if not (y_err <= EP_TOL * max(cpu["y"].abs().max().item(), 1.0)
+                    and aux_err <= EP_TOL and g_err <= EP_TOL):
+                raise AssertionError(f"{tag}: card vs CPU y {y_err}, aux {aux_err}, gradients "
+                                     f"{g_err} of a leaf's largest")
+            if not all(torch.equal(card[k], again[k]) for k in card):
+                raise AssertionError(f"{tag}: two card runs differ")
+            drops = ep_drops(cfg, params["router"], x)
+            row = {"y_diff": y_err, "aux_diff": aux_err, "grad_rel_diff": g_err, "drops": drops,
+                   "copies": x.shape[0] * x.shape[1] * base.moe.experts_per_token}
+            if cf == EP_CASES[0][1]:
+                dropless[combine] = (cpu["y"], card["y"])
+                if drops:
+                    raise AssertionError(f"{tag}: {drops} copies dropped at capacity {cf}")
+            else:
+                gaps = [(a - b).abs().max().item() for a, b in zip((cpu["y"], card["y"]),
+                                                                  dropless[combine])]
+                if not drops or min(gaps) <= 0.1:
+                    raise AssertionError(f"{tag}: {drops} drops, y against capacity 8 {gaps}")
+                row["y_gap_to_dropless"] = gaps[1]
+            rows[f"{arch} {combine} cf {cf}"] = row
+    no_launches("phase 17", mla0)
+    # The twins of phases 9c and 14c with the same settings.
+    twins = {}
+    for arch in EP_ARCHES:
+        for combine, cf in EP_CASES:
+            over = dict(ep_axis="model", ep_combine=combine, ep_capacity_factor=cf)
+            twins[f"{arch} {combine} cf {cf}"] = {
+                "serve": zoo_card_vs_cpu(arch, dev, over),
+                "train": zoo_train_card_vs_cpu(arch, dev, over)}
+    launches = {"mla_flash_decode": sum(t["serve"]["mla_launches"] for t in twins.values())}
+    return {"rows": rows, "twins": twins, "launches": launches}
+
+
+def ep_layer_full_width(dev, flush) -> dict:
+    """Phase 17b: one MoE layer at published width (DeepSeek-V3: 256
+    experts, 22.5 GB of bf16 expert stacks; Phi-3.5-MoE: 16 experts, 2.5
+    GB) from a seed, at ``EP_SHAPES``: ``moe_forward_ep`` (psum) at
+    capacity E / k (no copy can drop) against ``moe_forward`` within 3e-2
+    of max |y|; both timed by CUDA events (L2 flushed, mean of 5, in turns)
+    beside their bounds, the larger of the bytes each must read (the
+    blocked form every local expert, ``moe_forward`` the experts it routes
+    to) and its products at the bf16 peak (the blocked form's padded
+    capacity rows, ``moe_forward``'s routed copies); the copies
+    dropped at the default capacity 1.25 and that run's distance from the
+    dropless ``y``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    rows = {}
+    for arch in (ARCH, "phi3.5-moe-42b-a6.6b"):
+        cfg = get_config(arch)
+        m = cfg.moe
+        gen = torch.Generator(device=dev).manual_seed(17)
+        torch.cuda.empty_cache()
+        p = moe.init_moe(cfg, gen)
+        ep_cfg = cfg.with_overrides(ep_axis="model", ep_capacity_factor=m.num_experts / m.experts_per_token)
+        for what, b, s in EP_SHAPES:
+            tag = f"phase 17b ({arch}, {what})"
+            x = torch.randn(b, s, cfg.d_model, generator=gen, device=dev).to(torch.bfloat16)
+            with torch.no_grad():
+                want, aux0 = moe.moe_forward(cfg, p, x)
+                got, aux1 = moe.moe_forward_ep(ep_cfg, p, x)
+                scale = want.float().abs().max().item()
+                err = (got.float() - want.float()).abs().max().item()
+                if not err <= 3e-2 * scale or abs(aux1.item() - aux0.item()) > 1e-5:
+                    raise AssertionError(f"{tag}: EP vs moe_forward {err} of {scale}, aux "
+                                         f"{aux1.item()} vs {aux0.item()}")
+                ep_ms, plain_ms, _, raw = time_pair(lambda: moe.moe_forward_ep(ep_cfg, p, x),
+                                                    lambda: moe.moe_forward(cfg, p, x), flush,
+                                                    reps=5)
+                default = ep_cfg.with_overrides(ep_capacity_factor=1.25)
+                y125, _ = moe.moe_forward_ep(default, p, x)
+                gap = (y125.float() - want.float()).abs().max().item()
+            n = b * s
+            used = moe._route(cfg, p["router"], x.reshape(n, -1))[1].unique().numel()
+            io = 2 * x.numel() * x.element_size()
+            # Products of the experts' FFN (three for the gated kinds), two
+            # operations a multiply-add; the blocked form's rows are its
+            # capacity blocks, moe_forward's the routed copies.
+            per_row = 2 * (3 if cfg.mlp_type in ("swiglu", "geglu") else 2) * cfg.d_model * m.d_ff_expert
+            shared = per_row * n * m.num_shared_experts
+            cap = moe._capacity(n * m.experts_per_token, m.num_experts, ep_cfg.ep_capacity_factor,
+                                floor=True)
+            ep_b = bound(expert_bytes(cfg, m.num_experts) + io,
+                         per_row * m.num_experts * cap + shared, BF16_TENSOR_OPS_PER_S)
+            plain_b = bound(expert_bytes(cfg, used) + io,
+                            per_row * n * m.experts_per_token + shared, BF16_TENSOR_OPS_PER_S)
+            rows[f"{arch} {what}"] = {
+                "tokens": n, "max_abs_err": err, "max_abs_y": scale, "ep_ms": ep_ms,
+                "moe_forward_ms": plain_ms, "raw_ms": raw, "capacity": cap,
+                "ep_bound_ms": ep_b[0], "ep_bound_by": ep_b[1],
+                "moe_forward_bound_ms": plain_b[0], "moe_forward_bound_by": plain_b[1],
+                "experts_routed": used,
+                "drops_cf_1.25": ep_drops(default, p["router"], x),
+                "copies": n * m.experts_per_token, "y_gap_cf_1.25": gap,
+            }
+        del p, x, want, got, y125
+        torch.cuda.empty_cache()
+    return rows
+
+
+class EPCapture:
+    """A telemetry session that keeps each ``moe_forward_ep`` call's router
+    and input (detached), for the copies it dropped."""
+
+    profile_kernels = True
+
+    def __init__(self):
+        self.calls = []
+
+    def profile_call(self, name, fn, *args, **kwargs):
+        if name == "moe_forward_ep":
+            self.calls.append((args[0], args[1]["router"].detach(), args[2].detach().clone()))
+        return fn(*args, **kwargs)
+
+
+def ep_entry_points(dev, served_tokens) -> dict:
+    """Phase 17c: the entry points with ``ep_axis="model"`` on the mesh of
+    one. ``serve_batch`` on phase 9's DeepSeek-V3 cut (the same parameters
+    from phase 9's seed, its requests): ms a step, the greedy tokens'
+    agreement with phase 9's (``served_tokens``), the MLA launches; then on
+    one cache (``EP_FILL`` prompt positions, dropless) one decode step EP
+    against dropless, logits within 3e-2 of max |logits|. Then
+    ``EP_TRAIN``'s steps of ``make_train_step`` on the Phi-3.5-MoE cut:
+    losses, the copies dropped, ms a step, the peak; no native launch."""
+    import numpy as np
+    import torch
+
+    from repro_torch import telemetry
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import mla_decode as md
+    from repro_torch.kernels import native
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_map
+
+    out = {}
+    cfg = get_config(ARCH).with_overrides(num_layers=SERVE_LAYERS)
+    ep_cfg = cfg.with_overrides(ep_axis="model")
+    torch.cuda.empty_cache()
+    params = M.init_params(cfg, SERVE["seed"], device=dev)
+    capture = EPCapture()
+    native.reset_launches()
+    mla0 = dict(md.KERNEL_LAUNCHES)
+    torch.cuda.synchronize()
+    with telemetry.active(capture):
+        served = serve_mod.serve_batch(ARCH, cfg=ep_cfg, params=params, device=DEVICE, **SERVE)
+    launches = dict(native.LAUNCHES)
+    mla = {k: v - mla0[k] for k, v in md.KERNEL_LAUNCHES.items()}
+    steps = SERVE["prompt_len"] + SERVE["gen_len"]
+    n_mla = SERVE_LAYERS * steps
+    n_moe = (SERVE_LAYERS - cfg.moe.first_k_dense) * steps
+    others = {k: v for k, v in launches.items() if v and k != "mla_flash_decode"}
+    if launches["mla_flash_decode"] != n_mla or others or mla["tensor_cores"] != n_mla:
+        raise AssertionError(f"phase 17c: launches {launches}, MLA kernels {mla}, want "
+                             f"mla_flash_decode = {n_mla}")
+    drops = sum(ep_drops(c, r, x) for c, r, x in capture.calls)
+    if len(capture.calls) != n_moe or drops:
+        raise AssertionError(f"phase 17c: {len(capture.calls)} moe_forward_ep calls (want "
+                             f"{n_moe}), {drops} copies dropped (decode: none can)")
+    agree = float(np.mean(served["tokens"] == served_tokens))
+    out["serve"] = {"ms_per_step": 1e3 * served["decode_s"] / SERVE["gen_len"],
+                    "prefill_s": served["prefill_s"], "tokens_per_s": served["tokens_per_s"],
+                    "token_agreement": agree, "moe_calls": len(capture.calls),
+                    "launches": {k: v for k, v in launches.items() if v}}
+    del capture
+    # One decode step on one cache, EP against dropless.
+    prompts = serve_prompts(cfg, dev)
+    cache = M.init_cache(cfg, SERVE["requests"], EP_FILL + 2, device=dev)
+    with torch.no_grad():
+        for t in range(EP_FILL):
+            _, cache = M.decode_step(cfg, params, cache, prompts[:, t:t + 1], t)
+        tok = prompts[:, EP_FILL:EP_FILL + 1]
+        logits = [M.decode_step(c, params, tree_map(torch.clone, cache), tok, EP_FILL)[0]
+                  for c in (cfg, ep_cfg)]
+    scale = logits[0].float().abs().max().item()
+    err = (logits[1].float() - logits[0].float()).abs().max().item()
+    greedy = bool(torch.equal(logits[0].argmax(-1), logits[1].argmax(-1)))
+    if not err <= 3e-2 * scale:
+        raise AssertionError(f"phase 17c: EP decode step vs dropless {err} of {scale}")
+    out["decode_check"] = {"max_abs_err": err, "max_abs_logits": scale, "greedy_equal": greedy,
+                           "position": EP_FILL}
+    del params, cache, logits
+    torch.cuda.empty_cache()
+    # Training: EP_TRAIN's steps on the Phi-3.5-MoE cut.
+    tcfg = get_config(EP_TRAIN["arch"]).with_overrides(num_layers=EP_TRAIN["layers"])
+    ep_tcfg = tcfg.with_overrides(ep_axis="model")
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(tcfg, 0, device=dev)
+    opt = adamw_init(params, tcfg.opt_dtype)
+    pipe = TokenPipeline(tcfg, EP_TRAIN["batch"], EP_TRAIN["seq"], seed=0)
+    step = make_train_step(ep_tcfg, lr=EP_TRAIN["lr"], remat=False)
+    capture = EPCapture()
+    native.reset_launches()
+    mla0 = dict(md.KERNEL_LAUNCHES)
+    losses, step_ms, drops = [], [], []
+    for _ in range(EP_TRAIN["steps"]):
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in pipe.next_batch().items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with telemetry.active(capture):
+            params, opt, metrics = step(params, opt, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        drops.append(sum(ep_drops(c, r, x) for c, r, x in capture.calls))
+        capture.calls.clear()
+    peak = torch.cuda.max_memory_allocated() - held
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"phase 17c: training losses {losses}")
+    copies = EP_TRAIN["batch"] * EP_TRAIN["seq"] * tcfg.moe.experts_per_token * (
+        tcfg.num_layers - tcfg.moe.first_k_dense)
+    out["train"] = {"losses": losses, "step_ms": step_ms, "drops": drops,
+                    "copies_per_step": copies, "peak_bytes": peak,
+                    "launches": no_launches("phase 17c (train)", mla0)}
+    del params, opt, metrics, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def ep_phases(dev, flush, served_tokens) -> dict:
+    """Phases 17-17c on a world of one (:func:`ep_world_of_one`), printed;
+    ``served_tokens`` are phase 9's greedy tokens. Returns each phase's
+    native launches."""
+    from repro_torch.kernels import mla_decode as md
+    from repro_torch.kernels import native
+
+    ep_launches = {}
+    t_ep = time.perf_counter()
+    with ep_world_of_one():
+        t_phase = time.perf_counter()
+        ep_small = ep_card_vs_cpu(dev)
+        ep_launches["phase 17"] = ep_small["launches"]
+        print(f"phase 17: both MoE smoke configs (float32, TF32 off), moe_apply with "
+              f"ep_axis='model' on a torch.distributed world of one (gloo for the CPU, NCCL for "
+              f"the card), each combine at capacity 8 and 1.25: y, aux and every gradient on the "
+              f"card within {EP_TOL} of the CPU's, two card runs bit-identical, the 1.25 cases "
+              f"dropping copies on both devices; no native launch; "
+              + json.dumps({k: {kk: float(f"{vv:.3g}") if isinstance(vv, float) else vv
+                                for kk, vv in r.items()} for k, r in ep_small["rows"].items()}))
+        print("phase 17: the twins of 9c and 14c on both MoE smoke configs with each combine and "
+              "capacity: tokens equal card vs CPU, logits within 1e-4, forward vs decode where no "
+              "copy can drop, two card decodes bit-identical; 3 train() steps: losses within "
+              f"{TRAIN_TOL} relative, step-1 gradients within {TRAIN_TOL} x a leaf's largest, the "
+              "card's checkpoint loaded on the CPU bit for bit; " + json.dumps(
+                  {k: {w: {kk: float(f"{vv:.3g}") if isinstance(vv, float) else vv
+                           for kk, vv in r.items()} for w, r in t.items()}
+                   for k, t in ep_small["twins"].items()}))
+        print(f"phase 17: wall {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        native.reset_launches()
+        mla0 = dict(md.KERNEL_LAUNCHES)
+        ep_layers = ep_layer_full_width(dev, flush)
+        ep_launches["phase 17b"] = no_launches("phase 17b", mla0)
+        for what, row in ep_layers.items():
+            print(f"phase 17b: {what} ({row['tokens']} tokens), one MoE layer at published width: "
+                  f"moe_forward_ep (psum, capacity E / k) vs moe_forward max |diff| "
+                  f"{row['max_abs_err']:.4g} of max |y| {row['max_abs_y']:.4g} (within 3e-2); "
+                  f"moe_forward_ep {row['ep_ms']:.4f} ms against its bound {row['ep_bound_ms']:.4f} "
+                  f"ms ({row['ep_bound_by']}: every local expert read, blocks of "
+                  f"{row['capacity']} rows), moe_forward {row['moe_forward_ms']:.4f} ms against "
+                  f"{row['moe_forward_bound_ms']:.4f} ms ({row['moe_forward_bound_by']}: "
+                  f"{row['experts_routed']} experts routed) (CUDA events, L2 flushed, mean of 5, "
+                  f"in turns: {[round(v, 4) for v in row['raw_ms']]}); at the default capacity "
+                  f"1.25: {row['drops_cf_1.25']} of {row['copies']} copies dropped, y "
+                  f"{row['y_gap_cf_1.25']:.4g} from the dropless y")
+        print(f"phase 17b: wall {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        ep_entry = ep_entry_points(dev, served_tokens)
+        ep_launches["phase 17c"] = ep_entry["serve"]["launches"]
+        sv, dc, tr = ep_entry["serve"], ep_entry["decode_check"], ep_entry["train"]
+        print(f"phase 17c: serve_batch of phase 9's {ARCH} cut with ep_axis='model' "
+              f"({sv['moe_calls']} moe_forward_ep calls, none dropping): "
+              f"{sv['ms_per_step']:.3f} ms a decode step, {sv['tokens_per_s']:.1f} tokens/s, "
+              f"prefill {sv['prefill_s']:.3f} s; greedy tokens equal to phase 9's on "
+              f"{100 * sv['token_agreement']:.1f}%; launches {sv['launches']}; one decode step at "
+              f"position {dc['position']} on one cache, EP vs dropless: max |diff| "
+              f"{dc['max_abs_err']:.4g} of max |logits| {dc['max_abs_logits']:.4g} (within 3e-2), "
+              f"greedy equal {dc['greedy_equal']}")
+        print(f"phase 17c: make_train_step with ep_axis='model' on {EP_TRAIN['arch']} cut to "
+              f"{EP_TRAIN['layers']} layers, batch {EP_TRAIN['batch']} x seq {EP_TRAIN['seq']}, lr "
+              f"{EP_TRAIN['lr']}: losses {[round(v, 4) for v in tr['losses']]}, copies dropped "
+              f"{tr['drops']} of {tr['copies_per_step']} a step, "
+              f"{[round(v, 1) for v in tr['step_ms']]} ms a step, peak "
+              f"{tr['peak_bytes'] / 1e9:.2f} GB; no native launch")
+        print(f"phase 17c: wall {time.perf_counter() - t_phase:.1f} s")
+    print(f"phase 17-17c: wall {time.perf_counter() - t_ep:.1f} s")
+    return ep_launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2203,7 +2666,6 @@ def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
 
     import numpy as np
 
@@ -3378,7 +3840,7 @@ def main() -> int:
     if len(capture.moe_inputs) != n_moe:
         raise AssertionError(f"phase 9: {len(capture.moe_inputs)} moe_forward calls, want "
                              f"{n_moe}")
-    tokens = served["tokens"]
+    tokens = phase9_tokens = served["tokens"]
     if tokens.shape != (SERVE["requests"], SERVE["gen_len"]) or not (
             (tokens >= 0) & (tokens < cfg.vocab_size)).all():
         raise AssertionError(f"phase 9: tokens {tokens.shape}, range "
@@ -3905,6 +4367,9 @@ def main() -> int:
         print_train_row(arch, row, tag="phase 16c")
     print(f"phase 16c: wall {time.perf_counter() - t_phase:.1f} s")
 
+    # -- 17. expert parallelism on a mesh of one ---------------------------- #
+    ep_launches = ep_phases(dev, flush, phase9_tokens)
+
     # -- 10. results ------------------------------------------------------ #
     replaces = {
         "fused_frontier_step": "src/repro/kernels/fused_step.py:698",
@@ -4005,6 +4470,8 @@ def main() -> int:
             phase: sum(l.get(name, 0) for t, l in media_launches.items()
                        if t.startswith(phase + " "))
             for phase in ("phase 16", "phase 16b", "phase 16c")}
+        extras[name]["ep_launches"] = {  # phases 17-17c: 17c serves through the MLA kernel
+            phase: l.get(name, 0) for phase, l in ep_launches.items()}
         extras[name]["ssm_launches"] = {  # phases 15-15c launch none
             "phase 15": sum(l.get(name, 0) for t, l in ssm_launches.items()
                             if t.startswith("phase 15 ")),

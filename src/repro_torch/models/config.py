@@ -106,14 +106,15 @@ class ModelConfig:
     unroll_scans: bool = False
 
     # distribution
-    # Expert-parallel axis for MoE layers. None = single-device ragged
-    # dispatch (CPU tests); an axis name selects the shard_map
-    # expert-parallel path (experts sharded over that mesh axis, local
-    # capacity-bounded grouped GEMMs, psum combine). Set by the launcher.
-    ep_axis: str | None = None
+    # Expert-parallel axis for MoE layers. None = single-device dropless
+    # dispatch; a mesh axis name (or a tuple of them, in the mesh's
+    # order) selects the expert-parallel path on the mesh registered with
+    # models.moe.set_ep_mesh (experts split over those axes, local
+    # capacity-bounded blocks, psum combine). Set by the launcher.
+    ep_axis: str | tuple[str, ...] | None = None
     ep_capacity_factor: float = 1.25
-    # MoE combine strategy under shard_map: "psum" (replicated-token
-    # baseline) or "a2a" (all-to-all dispatch; see EXPERIMENTS.md §Perf).
+    # MoE combine strategy of the expert-parallel path: "psum"
+    # (replicated tokens) or "a2a" (all-to-all dispatch).
     ep_combine: str = "psum"
     # FSDP-style weight sharding: large parameter leaves additionally
     # shard over the 'data' axis (XLA inserts per-layer all-gathers).

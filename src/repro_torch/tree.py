@@ -1,5 +1,5 @@
 """Trees of tensors (nested dicts, lists, tuples and ``NamedTuple``\\ s),
-flattened in the reference's order.
+flattened in the reference's order, and mapped over with their paths.
 
 The reference flattens its pytrees with ``jax.tree_util.tree_flatten``:
 dict keys sorted, list, tuple and ``NamedTuple`` children in order,
@@ -71,3 +71,23 @@ def tree_map(fn, tree, *rest):
             raise ValueError("trees of different structure")
         others.append(o)
     return unflatten(spec, [fn(*ls) for ls in zip(leaves, *others)])
+
+
+def map_with_path(fn, tree, path=()):
+    """``fn(path, leaf)`` over the leaves of ``tree``, the counterpart of
+    ``jax.tree_util.tree_map_with_path``: ``path`` is the tuple of dict
+    keys, list and tuple indices and ``NamedTuple`` field names from the
+    root to the leaf, and ``fn`` meets the leaves in :func:`flatten`'s
+    order (dict keys sorted). Dicts keep their key order."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        done = {k: map_with_path(fn, tree[k], path + (k,)) for k in sorted(tree)}
+        return {k: done[k] for k in tree}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(map_with_path(fn, c, path + (f,))
+                            for f, c in zip(tree._fields, tree)))
+    if isinstance(tree, (list, tuple)):
+        out = [map_with_path(fn, c, path + (i,)) for i, c in enumerate(tree)]
+        return out if isinstance(tree, list) else tuple(out)
+    return fn(path, tree)

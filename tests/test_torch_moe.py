@@ -6,8 +6,8 @@ across by ``params_from_jax``; inputs are made with numpy from a seed.
 Bars: routing indices equal, gates and the auxiliary loss within 1e-6;
 ``moe_forward`` within 1e-5 in float32 and 3e-2 in bfloat16 (the two
 frameworks round the bfloat16 products and activations at other places).
-Then the twins of ``tests/test_moe.py``'s four single-device properties,
-the combine's fixed order, and the refusal of expert parallelism.
+Then the twins of ``tests/test_moe.py``'s four single-device properties
+and the combine's fixed order (expert parallelism: ``test_torch_ep.py``).
 """
 
 import dataclasses
@@ -248,9 +248,3 @@ def test_moe_forward_reads_nothing_to_the_host(phi_cfg, monkeypatch):
     assert reads == []
     assert bool(torch.isfinite(y).all())
 
-
-def test_expert_parallelism_is_not_ported(phi_cfg):
-    params = tmoe.init_moe(phi_cfg, torch.Generator().manual_seed(0))
-    x = torch.zeros((1, 2, phi_cfg.d_model))
-    with pytest.raises(NotImplementedError, match="Queue A item 5e"):
-        tmoe.moe_apply(phi_cfg.with_overrides(ep_axis="model"), params, x)
