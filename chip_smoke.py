@@ -235,6 +235,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    one decode step on one cache against the dropless step within 3e-2),
    and 2 steps of ``make_train_step`` on phase 14's Phi-3.5-MoE cut with
    it (losses, copies dropped, ms a step, peak);
+18. the roofline's counts (``repro_torch.roofline.measure_corrected``) of
+   phase 9d's Qwen3-8B decode step and phase 14's Gemma2-2B training step
+   at those phases' shapes, placed on a mesh of one of a fake world
+   (``meta`` tensors): FLOPs, bytes, ``t_compute`` and ``t_memory`` at the
+   card's spec-sheet peaks and the bottleneck beside the same run's
+   measured ms and the hand counts (``decode_bound``, ``train_flops``),
+   the measured ms asserted at least ``t_compute``; 18b. ``python -m
+   repro_torch.launch.dryrun`` for Qwen3-8B at ``decode_32k`` and
+   DeepSeek-V3 at ``decode_32k --multi-pod`` (256 and 512 fake ranks) as
+   two subprocesses at once, exit 0 and rows ``ok``; neither phase
+   launches a kernel;
 10. a ``kernels`` JSON line (the fused step's rows time the engine's form,
    the reference form's times beside them; the aggregation rows add their
    kernel alone, device operations a call, host ms, the gather's L2
@@ -253,7 +264,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 
 Each path's launch counts are zeroed just before it runs and read just
 after (the serving path launches ``mla_flash_decode`` only, phases 9d,
-15-15b, 16 and 16b none, training none); the device loops (phases 3, 3b, 6, 6b, 7) launch neither of the
+15-15b, 16, 16b and 18 none, training none); the device loops (phases 3, 3b, 6, 6b, 7) launch neither of the
 staged pipeline's kernels, and every training run launches the two
 aggregation kernels exactly once per PE, step and mean, plus the
 accuracy pass. Every phase raises on failure, so any failure exits non-zero.
@@ -2657,6 +2668,139 @@ def check_fused_step(tag, caps, wide, flush, max_err):
 
 
 # --------------------------------------------------------------------------- #
+#: Phase 18: the roofline's counts on a mesh of one, at phase 9d's decode
+#: step (``SERVE``'s batch, a cache of ``prompt_len + gen_len + 1``) and
+#: phase 14's Gemma2-2B training step (whole, 2 x 1024, ``remat=False``).
+ROOF_DECODE = dict(kind="decode", seq=SERVE["prompt_len"] + SERVE["gen_len"] + 1,
+                   batch=SERVE["requests"])
+ROOF_TRAIN = dict(arch="gemma2-2b", kind="train", seq=1024, batch=2)
+#: Phase 18b: the dry-run's command line, one pair each, on the fake mesh.
+DRYRUN_PAIRS = (("qwen3-8b", "decode_32k", False), ("deepseek-v3-671b", "decode_32k", True))
+
+
+def roofline_phases(decode_ms: float, train_ms: float) -> dict:
+    """Phases 18 and 18b. 18: ``roofline.measure_corrected`` of phase 9d's
+    Qwen3-8B decode step and phase 14's Gemma2-2B training step, each
+    placed on a (1, 1) mesh of a fake world of one (``meta`` tensors), the
+    counted FLOPs and bytes and their times at the card's spec-sheet peaks
+    beside the same run's measured ms and the hand counts
+    (``decode_bound``, ``train_flops``); the measured ms are at least
+    ``t_compute``. 18b: ``python -m repro_torch.launch.dryrun`` on
+    ``DRYRUN_PAIRS`` as two subprocesses at once on the production meshes
+    (256 and 512 fake ranks), started first so that they run beside 18's
+    counts, exit 0 and rows ``ok``. Neither launches a
+    kernel (the counts run on ``meta`` tensors, ``mla_flash_decode`` on
+    its plain version there)."""
+    import functools
+    import os
+
+    import torch
+
+    from repro_torch import roofline as rl
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import mla_decode as md
+    from repro_torch.kernels import native
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import model as M
+
+    # 18b's two subprocesses run beside phase 18's counts.
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for arch, shape, multi in DRYRUN_PAIRS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape]
+        cmd += ["--multi-pod"] if multi else []
+        procs.append((cmd, subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True)))
+    try:
+        native.reset_launches()
+        mla0 = dict(md.KERNEL_LAUNCHES)
+        steps.SHAPES["phase 9d"] = ROOF_DECODE
+        steps.SHAPES["phase 14"] = {k: v for k, v in ROOF_TRAIN.items() if k != "arch"}
+        try:
+            with dryrun.fake_world(1):
+                mesh = make_test_mesh(1, 1, device_type="cpu")
+                runs = {
+                    "phase 9d": (WHOLE_ARCH, rl.measure_corrected(
+                        get_config(WHOLE_ARCH), "phase 9d", mesh, dryrun.build_step), decode_ms),
+                    "phase 14": (ROOF_TRAIN["arch"], rl.measure_corrected(
+                        get_config(ROOF_TRAIN["arch"]), "phase 14", mesh,
+                        functools.partial(dryrun.build_step, remat=False)), train_ms),
+                }
+        finally:
+            del steps.SHAPES["phase 9d"], steps.SHAPES["phase 14"]
+        launches = {k: v for k, v in native.LAUNCHES.items() if v}
+        mla = {k: v - mla0.get(k, 0) for k, v in md.KERNEL_LAUNCHES.items() if v - mla0.get(k, 0)}
+        if launches or mla:
+            raise AssertionError(f"phase 18: launches {launches}, MLA kernels {mla}, want none")
+        out = {}
+        for tag, (arch, vec, ms) in runs.items():
+            cfg = get_config(arch)
+            report = rl.analyse(arch=arch, shape=tag, mesh=mesh, vector=vec)
+            if vec["coll:all-reduce"] or report.coll_bytes:
+                raise AssertionError(f"phase 18 ({tag}): collectives {report.coll_breakdown} "
+                                     "on one rank")
+            if tag == "phase 9d":
+                cache = M.init_cache(cfg, ROOF_DECODE["batch"], ROOF_DECODE["seq"], device="meta")
+                hand = decode_bound(M.param_bytes(cfg), cache, ROOF_DECODE["seq"])
+                hand = {"hand_bytes": hand["bytes"], "hand_bound_ms": hand["bound_ms"]}
+            else:
+                flops = train_flops(cfg, ROOF_TRAIN["batch"], ROOF_TRAIN["seq"])
+                hand = {"hand_flops": flops, "hand_t_compute_ms": 1e3 * flops / report.peak_flops}
+            row = {"arch": arch, "flops": vec["flops"], "bytes": vec["bytes"],
+                   "t_compute_ms": 1e3 * report.t_compute, "t_memory_ms": 1e3 * report.t_memory,
+                   "bottleneck": report.bottleneck, "measured_ms": ms,
+                   "measured_over_t_compute": ms / (1e3 * report.t_compute),
+                   "measured_over_t_memory": ms / (1e3 * report.t_memory), **hand}
+            if not ms >= row["t_compute_ms"]:
+                raise AssertionError(f"phase 18 ({tag}): measured {ms} ms below the compute floor "
+                                     f"{row['t_compute_ms']} ms")
+            out[tag] = row
+            ratio = (f"counted bytes / hand bytes {vec['bytes'] / hand['hand_bytes']:.3f}"
+                     if "hand_bytes" in hand else
+                     f"counted FLOPs / train_flops {vec['flops'] / hand['hand_flops']:.4f}")
+            print(f"phase 18 ({tag}, {arch}): counted on a mesh of one {vec['flops']:.6g} FLOPs, "
+                  f"{vec['bytes']:.6g} bytes, peak temporaries {vec['temp']:.6g} bytes; t_compute "
+                  f"{row['t_compute_ms']:.4f} ms (bf16 {report.peak_flops / 1e12:.0f} TFLOP/s), "
+                  f"t_memory {row['t_memory_ms']:.4f} ms ({report.hbm_bw / 1e12} TB/s) -> "
+                  f"{report.bottleneck}; measured {ms:.3f} ms = "
+                  f"{row['measured_over_t_compute']:.2f} "
+                  f"x t_compute (asserted >= 1), {row['measured_over_t_memory']:.3f} x t_memory; "
+                  f"hand count " + json.dumps({k: float(f"{v:.6g}") for k, v in hand.items()})
+                  + f"; {ratio}")
+        print(f"phase 18: no kernel launched; wall {time.perf_counter() - t_phase:.1f} s")
+
+        rows = []
+        for cmd, proc in procs:
+            try:
+                log, _ = proc.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.communicate()
+                raise AssertionError(f"phase 18b: {' '.join(cmd[1:])} ran past 300 s") from None
+            found = [json.loads(line) for line in log.splitlines() if line.startswith("{")]
+            if proc.returncode or [r.get("status") for r in found] != ["ok"]:
+                raise AssertionError(f"phase 18b: {' '.join(cmd[1:])} exited {proc.returncode}:\n"
+                                     + log[-3000:])
+            rows.append(found[0])
+        for r in rows:
+            print(f"phase 18b: dryrun {r['arch']} x {r['shape']} on {r['mesh']}: ok, "
+                  f"{r['hlo_flops_per_chip']:.6g} FLOPs and t_compute {r['t_compute_s']:.6g} s, "
+                  f"t_memory {r['t_memory_s']:.6g} s, t_collective {r['t_collective_s']:.6g} s "
+                  f"-> {r['bottleneck']}; {r['bytes_per_device']} bytes a device; count "
+                  f"{r['count_s']} s; collectives " + json.dumps(r["coll_breakdown"]))
+        print(f"phase 18b: fake backend, FakeStore, DTensor below the counter and local_map in "
+              f"torch {torch.__version__}; phases 18 and 18b wall "
+              f"{time.perf_counter() - t_phase:.1f} s")
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return {"counts": out, "rows": rows}
+
+
 def main() -> int:
     import torch
 
@@ -4025,6 +4169,7 @@ def main() -> int:
     step_host, step_dev, step_moe, at_prompt = decode_alone(cfg, params, prompts, SERVE["gen_len"],
                                                       ServeCapture(timed=True))
     serve_numbers("phase 9d", cfg, served, step_host, step_dev, step_moe, peak_gb)
+    whole_decode_ms = float(np.median(step_dev))
     step = make_decode_step(cfg)
     cache = M.init_cache(cfg, SERVE["requests"], steps + 1, device=dev)
     print("phase 9d: decode step device time by kernel (torch.profiler): "
@@ -4369,6 +4514,9 @@ def main() -> int:
 
     # -- 17. expert parallelism on a mesh of one ---------------------------- #
     ep_launches = ep_phases(dev, flush, phase9_tokens)
+
+    # -- 18. the roofline's counts and the dry-run -------------------------- #
+    roofline_phases(whole_decode_ms, trained[ROOF_TRAIN["arch"]]["step_ms_median"])
 
     # -- 10. results ------------------------------------------------------ #
     replaces = {

@@ -661,10 +661,13 @@ def mla_flash_decode(q_lat, q_rope, cache_c, cache_kr, pos, *, scale=None):
     so reading it needs no sync) → the latent context ``(B, H, r)`` in the
     cache's dtype. ``scale`` defaults to ``1/sqrt(r + rr)``. CPU tensors:
     :func:`repro_torch.kernels.ref.mla_latent_attention`; CUDA: the Hopper
-    kernel (:func:`repro_torch.kernels.mla_decode.mla_flash_decode_cuda`)."""
+    kernel (:func:`repro_torch.kernels.mla_decode.mla_flash_decode_cuda`);
+    ``meta`` tensors (the dry-run's, which compute nothing and are only
+    counted): the plain version too, whose operations the count reads, as
+    the reference's plain ``jnp`` decode is counted."""
     if scale is None:
         scale = 1.0 / (q_lat.shape[-1] + q_rope.shape[-1]) ** 0.5
-    if _route("mla_flash_decode", cache_c) == "cpu":
+    if cache_c.device.type == "meta" or _route("mla_flash_decode", cache_c) == "cpu":
         return ref.mla_latent_attention(q_lat, q_rope, cache_c, cache_kr, pos, scale)
     from .mla_decode import mla_flash_decode_cuda
 

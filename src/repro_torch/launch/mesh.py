@@ -41,10 +41,11 @@ def _mesh(device_type: str, shape: tuple[int, ...], axes: tuple[str, ...], what:
     return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda") -> DeviceMesh:
     """The (data=16, model=16) mesh, or (pod=2, data=16, model=16) with
-    ``multi_pod``, over a world of 256 (512) ranks, one card each."""
-    return _mesh("cuda", PRODUCTION_SHAPE[multi_pod], PRODUCTION_AXES[multi_pod],
+    ``multi_pod``, over a world of 256 (512) ranks, one card each; the
+    dry-run passes ``device_type="cpu"`` over its fake world."""
+    return _mesh(device_type, PRODUCTION_SHAPE[multi_pod], PRODUCTION_AXES[multi_pod],
                  "the production mesh")
 
 

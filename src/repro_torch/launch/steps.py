@@ -141,8 +141,9 @@ def abstract_cache(cfg: ModelConfig, batch: int, seq: int, long_mode: bool) -> l
     return M.init_cache(cfg, batch, seq, long_mode=long_mode, device="meta")
 
 
-def input_specs(cfg: ModelConfig, shape_name: str) -> dict:
-    """``meta`` stand-ins for every model input of this shape.
+def input_specs(cfg: ModelConfig, shape_name: str, seq: int | None = None) -> dict:
+    """``meta`` stand-ins for every model input of this shape (``seq``
+    replaces its sequence length: the dry-run's probes).
 
     Audio/VLM frontends are stubs: frames/patches arrive as precomputed
     embeddings of the documented shape (DESIGN.md carve-out). Whisper's
@@ -150,7 +151,7 @@ def input_specs(cfg: ModelConfig, shape_name: str) -> dict:
     448 text tokens, its decoder's length.
     """
     info = SHAPES[shape_name]
-    b, s = info["batch"], info["seq"]
+    b, s = info["batch"], seq or info["seq"]
     if info["kind"] in ("train", "prefill"):
         batch = make_batch_specs(cfg, b, s)
         if cfg.encoder_layers and info["kind"] == "prefill":

@@ -12,8 +12,8 @@ Conventions:
   MLA cache    latent (B, S, r_kv) + shared rope key (B, S, r_rope)
 
 The decode paths take the new token's position as a host int and write
-the caches in place. None of these layers reaches a Pallas kernel in the
-reference but the MLA decode's latent context, which runs
+the caches in place (:func:`_write_row`). None of these layers reaches a
+Pallas kernel in the reference but the MLA decode's latent context, which runs
 :func:`repro_torch.kernels.ops.mla_flash_decode` here; the rest is plain
 PyTorch with the reference's float32 scores and masking constant.
 """
@@ -23,12 +23,37 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from ..kernels import ops
-from .common import apply_rope, dtype_of, init_dense, normal, rms_norm, softcap
+from .common import _as_dtensor, apply_rope, dtype_of, init_dense, normal, rms_norm, softcap
 from .config import ModelConfig
 
 NEG_INF = -2.3819763e38  # same constant XLA uses for -inf masking
+
+
+def _write_row(cache: torch.Tensor, slot: int, value: torch.Tensor) -> None:
+    """``cache[:, slot] = value`` in the cache's dtype, in place. A DTensor
+    cache sharded along its sequence (the dry-run's flash-decode layout)
+    is written by the rank whose block holds ``slot``, in its block:
+    DTensor's own rule would gather the whole cache to write one row."""
+    if not isinstance(cache, DTensor) or not any(p.is_shard(1) for p in cache.placements):
+        cache[:, slot] = value.to(cache.dtype)
+        return
+    mesh, coord = cache.device_mesh, cache.device_mesh.get_coordinate()
+    local = cache.to_local()
+    index, row_pl = 0, []
+    for i, p in enumerate(cache.placements):
+        if p.is_shard(1):
+            index = index * mesh.size(i) + coord[i]
+            p = Replicate()
+        elif p.is_shard() and p.dim > 1:
+            p = Shard(p.dim - 1)
+        row_pl.append(p)
+    at = slot - index * local.shape[1]
+    if 0 <= at < local.shape[1]:
+        local[:, at] = value.redistribute(mesh, row_pl).to_local().to(cache.dtype)
 
 
 # --------------------------------------------------------------------- #
@@ -68,6 +93,15 @@ def _sdpa(cfg: ModelConfig, q, k, v, mask):
     The scores are products in the inputs' dtype widened to float32, as
     the reference's; the softmax weights are rounded to v's dtype before
     the context product, as the reference's."""
+    if isinstance(q, DTensor):
+        # The dry-run's DTensors. Keys and values sharded along the
+        # sequence (a decode's cache) keep that layout: the queries are
+        # replicated there and the softmax runs over the sharded scores.
+        seq = [i for i, p in enumerate(k.placements) if p.is_shard(1)]
+        if not seq:
+            return _sdpa_heads(cfg, q, k, v, mask)
+        q = q.redistribute(q.device_mesh, [Replicate() if i in seq else p
+                                           for i, p in enumerate(q.placements)])
     b, sq, h, hd = q.shape
     hkv = k.shape[2]
     g = h // hkv
@@ -79,6 +113,39 @@ def _sdpa(cfg: ModelConfig, q, k, v, mask):
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bhgqs,bshk->bqhgk", probs, v)
     return out.reshape(b, sq, h, hd)
+
+
+def _sdpa_heads(cfg: ModelConfig, q, k, v, mask):
+    """:func:`_sdpa` over DTensors (the dry-run's), each rank attending
+    with its own query heads through ``local_map`` and the key and value
+    heads they read: a mesh dim of 16 cannot split 32 heads into 8 groups
+    of 4 as DTensor would need to reshape them, and XLA splits it."""
+    mesh = q.device_mesh
+    g = q.shape[2] // k.shape[2]
+
+    def kept(p, dims):
+        return p if p.is_shard() and p.dim in dims else Replicate()
+
+    q_pl = [kept(p, (0, 2)) for p in q.placements]
+    heads = [i for i, p in enumerate(q_pl) if p.is_shard(2)]
+    kv_pl = [kept(p, (0, 2)) if p.is_shard(0) or i in heads else Replicate()
+             for i, p in enumerate(k.placements)]
+    kv_grad = [Partial() if i in heads and not p.is_shard(2) else p for i, p in enumerate(kv_pl)]
+    m_pl = [Shard(0) if p.is_shard(0) and mask.shape[0] == q.shape[0] else Replicate()
+            for p in q_pl]
+
+    def local(ql, kl, vl, ml):
+        index = 0
+        for i in heads:
+            index = index * mesh.size(i) + mesh.get_coordinate()[i]
+        held = index * kl.shape[2] if heads and kv_pl[heads[0]].is_shard(2) else 0
+        kv0 = index * ql.shape[2] // g - held
+        kv1 = kv0 + max(1, ql.shape[2] // g)
+        return _sdpa(cfg, ql, kl[:, :, kv0:kv1], vl[:, :, kv0:kv1], ml)
+
+    return local_map(local, out_placements=q_pl, in_placements=(q_pl, kv_pl, kv_pl, m_pl),
+                     in_grad_placements=(q_pl, kv_grad, kv_grad, m_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v, _as_dtensor(mask, mesh))
 
 
 def _causal_mask(sq: int, skv: int, window: int = 0, device=None) -> torch.Tensor:
@@ -134,8 +201,8 @@ def gqa_decode(
     q, k_new, v_new = _project_qkv(cfg, params, x, x, positions, positions)
     slot = pos % max(window, 1) if window > 0 else pos
     slot = min(slot, s_cache - 1)
-    cache_k[:, slot] = k_new[:, 0].to(cache_k.dtype)
-    cache_v[:, slot] = v_new[:, 0].to(cache_v.dtype)
+    _write_row(cache_k, slot, k_new[:, 0])
+    _write_row(cache_v, slot, v_new[:, 0])
     kpos = torch.arange(s_cache, device=x.device)
     if window > 0 and pos >= s_cache:
         valid = torch.ones((s_cache,), dtype=torch.bool, device=x.device)
@@ -254,8 +321,8 @@ def mla_decode(
     positions = torch.full((1, 1), pos, dtype=torch.int64, device=x.device)
     q_nope, q_rope = _mla_q(cfg, params, x, positions)
     c_new, kr_new = _mla_latent(cfg, params, x, positions)
-    cache_c[:, pos] = c_new[:, 0].to(cache_c.dtype)
-    cache_kr[:, pos] = kr_new[:, 0].to(cache_kr.dtype)
+    _write_row(cache_c, pos, c_new[:, 0])
+    _write_row(cache_kr, pos, kr_new[:, 0])
     # Absorb W_uk into q: query expressed in latent coordinates.
     q_lat = torch.einsum("bhk,rhk->bhr", q_nope[:, 0], params["w_uk"])
     scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)

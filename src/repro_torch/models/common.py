@@ -5,6 +5,11 @@ Random initialisers draw from a ``torch.Generator``; the tensors land on
 the generator's device. A stand-in whose ``device`` is ``meta``
 (:data:`SHAPES_ONLY`) makes them return meta tensors: the shapes and
 dtypes of a tree, with no memory and no draw.
+
+The embedding and the unembedding also take DTensors (the dry-run's
+sharded ``meta`` trees, ``repro_torch.launch.dryrun``): a table sharded
+by vocabulary runs vocabulary-parallel, each rank on its own rows through
+``local_map``, as the reference's partitioned einsum and gather do.
 """
 
 from __future__ import annotations
@@ -12,6 +17,8 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from .config import ModelConfig
 
@@ -60,6 +67,29 @@ def layer_norm(
     return (x * scale.to(torch.float32) + bias.to(torch.float32)).to(dt)
 
 
+def _summed(t: DTensor) -> DTensor:
+    if not any(p.is_partial() for p in t.placements):
+        return t
+    return t.redistribute(t.device_mesh,
+                          [Replicate() if p.is_partial() else p for p in t.placements])
+
+
+class _SumPartials(torch.autograd.Function):
+    """A DTensor's partial sums summed, forward and backward: the
+    all-reduces of the partitioned program (Megatron's pair) before a
+    norm. DTensor would otherwise carry the partial sums into the next
+    product, forward or backward, and gather that product's sharded
+    weights instead."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _summed(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g)
+
+
 def make_norm_params(cfg: ModelConfig, device=None) -> dict:
     if cfg.norm_type == "layernorm":
         return {
@@ -70,6 +100,12 @@ def make_norm_params(cfg: ModelConfig, device=None) -> dict:
 
 
 def apply_norm(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    """The config's norm of ``x``. A DTensor residual stream that holds a
+    sub-layer's partial sums (the projection out of sharded heads or
+    hidden units) is summed first, and so is its gradient
+    (:class:`_SumPartials`)."""
+    if isinstance(x, DTensor):
+        x = _SumPartials.apply(x)
     if cfg.norm_type == "layernorm":
         return layer_norm(x, params["scale"], params["bias"])
     return rms_norm(x, params["scale"])
@@ -117,7 +153,10 @@ class _Embed(torch.autograd.Function):
     NVIDIA H100 their bf16 rows differed from the float64 sum by up to
     0.25 and 0.19 (DeepSeek-V3's table, 1024 tokens) and 0.75 and 0.5
     (Gemma2-2B's, 2048 tokens), this one by 0
-    (``scripts/train_backward_probe.py``)."""
+    (``scripts/train_backward_probe.py``).
+
+    On ``meta`` tensors, which hold no ids, the backward takes the worst
+    case, every token distinct: ``min(tokens, vocabulary rows)`` rows."""
 
     @staticmethod
     def forward(ctx, embedding, tokens):
@@ -129,7 +168,12 @@ class _Embed(torch.autograd.Function):
     def backward(ctx, grad):
         (tokens,) = ctx.saved_tensors
         shape, dtype = ctx.table
-        uniq, inv = torch.unique(tokens.reshape(-1), return_inverse=True)
+        flat = tokens.reshape(-1)
+        if flat.device.type == "meta":
+            uniq = flat.new_empty((min(flat.numel(), shape[0]),))
+            inv = torch.empty_like(flat)
+        else:
+            uniq, inv = torch.unique(flat, return_inverse=True)
         rows = torch.zeros((uniq.numel(), shape[1]), dtype=torch.float32, device=grad.device)
         rows.index_put_((inv,), grad.reshape(-1, shape[1]).to(torch.float32), accumulate=True)
         out = torch.zeros(shape, dtype=dtype, device=grad.device)
@@ -138,7 +182,61 @@ class _Embed(torch.autograd.Function):
 
 
 def embed_tokens(embedding: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    if isinstance(embedding, DTensor):
+        return _embed_sharded(embedding, tokens)
     return _Embed.apply(embedding, tokens.long())
+
+
+def _vocab_dim(table: DTensor):
+    """The mesh dim that shards ``table`` (V, D) by vocabulary, or None."""
+    dims = [i for i, p in enumerate(table.placements) if p.is_shard(0)]
+    if len(dims) > 1:
+        raise ValueError(f"a table sharded by vocabulary over {len(dims)} mesh dims")
+    return dims[0] if dims else None
+
+
+def _as_dtensor(t: torch.Tensor, mesh) -> DTensor:
+    if isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def _batch_placements(t: DTensor, vocab: int | None) -> list:
+    """``t``'s placements with everything but a shard of a leading dim
+    replicated, and the vocabulary dim's replicated."""
+    return [
+        p if i != vocab and p.is_shard() and p.dim < t.ndim - 1 else Replicate()
+        for i, p in enumerate(t.placements)
+    ]
+
+
+def _embed_sharded(embedding: DTensor, tokens: torch.Tensor) -> DTensor:
+    """``embedding[tokens]`` over a mesh. On the vocabulary's mesh dim each
+    rank gathers the ids of its own rows (zeros elsewhere) and the rows
+    are summed over that dim (one all-reduce); the table's gradient is
+    summed over the mesh dims that shard the batch."""
+    mesh = embedding.device_mesh
+    vocab = _vocab_dim(embedding)
+    tokens = _as_dtensor(tokens, mesh)
+    tok_pl = _batch_placements(tokens, vocab)
+    tab_pl = [Shard(0) if i == vocab else Replicate() for i in range(mesh.ndim)]
+    out_pl = [Partial() if i == vocab else tok_pl[i] for i in range(mesh.ndim)]
+    grad_pl = [Partial() if tok_pl[i].is_shard() else tab_pl[i] for i in range(mesh.ndim)]
+
+    def local(table, ids):
+        ids = ids.long()
+        if vocab is None:
+            return _Embed.apply(table, ids)
+        rows = table.shape[0]
+        ids = ids - mesh.get_local_rank(vocab) * rows
+        mine = (ids >= 0) & (ids < rows)
+        out = _Embed.apply(table, torch.where(mine, ids, 0))
+        return torch.where(mine[..., None], out, out.new_zeros(()))
+
+    rows = local_map(local, out_placements=out_pl, in_placements=(tab_pl, tok_pl),
+                     in_grad_placements=(grad_pl, tok_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(embedding, tokens)
+    return rows.redistribute(mesh, tok_pl)
 
 
 class _Unembed(torch.autograd.Function):
@@ -191,8 +289,27 @@ def unembed(cfg: ModelConfig, embedding: torch.Tensor, x: torch.Tensor) -> torch
     temporary per decode step). The price is one float32 block of
     ``UNEMBED_CHUNK × d_model`` (470 MB at d_model 7168) and the widening
     pass over the table each step; a float32 table needs no copy. Under
-    autograd the backward widens the blocks again (:class:`_Unembed`)."""
-    return softcap(_Unembed.apply(x, embedding), cfg.logit_softcap)
+    autograd the backward widens the blocks again (:class:`_Unembed`).
+
+    A DTensor table sharded by vocabulary gives logits sharded by
+    vocabulary on that mesh dim, ``x`` replicated there: each rank runs
+    the blocks of its own rows, ``x``'s gradient is summed over the
+    vocabulary's mesh dim and the table's over the batch's."""
+    if isinstance(embedding, DTensor):
+        mesh = embedding.device_mesh
+        vocab = _vocab_dim(embedding)
+        x = _as_dtensor(x, mesh)
+        x_pl = _batch_placements(x, vocab)
+        tab_pl = [Shard(0) if i == vocab else Replicate() for i in range(mesh.ndim)]
+        out_pl = [Shard(x.ndim - 1) if i == vocab else x_pl[i] for i in range(mesh.ndim)]
+        gx_pl = [Partial() if i == vocab else x_pl[i] for i in range(mesh.ndim)]
+        gt_pl = [Partial() if x_pl[i].is_shard() else tab_pl[i] for i in range(mesh.ndim)]
+        logits = local_map(_Unembed.apply, out_placements=out_pl, in_placements=(x_pl, tab_pl),
+                           in_grad_placements=(gx_pl, gt_pl), device_mesh=mesh,
+                           redistribute_inputs=True)(x, embedding)
+    else:
+        logits = _Unembed.apply(x, embedding)
+    return softcap(logits, cfg.logit_softcap)
 
 
 def init_dense(gen: torch.Generator, in_dim: int, out_dims, dtype) -> torch.Tensor:

@@ -96,13 +96,16 @@ class ModelConfig:
     mtp: bool = False             # DeepSeek multi-token prediction head
     mtp_weight: float = 0.3
 
-    # Roofline probe hook: overrides the per-group scan counts (see
-    # roofline.measure_corrected — XLA cost_analysis counts a scan body
-    # once, so the dry-run probes reduced-depth variants and scales the
-    # per-unit costs back up by the true counts).
+    # Roofline probe hook: overrides the per-group layer counts (see
+    # roofline.measure_corrected). Eager PyTorch counts every layer, but a
+    # full-depth count on meta tensors under DTensor runs every operation
+    # of every layer through Python (minutes for the recurrences), so the
+    # dry-run counts reduced-depth variants and scales the per-unit costs
+    # back up by the true counts.
     scan_counts_override: tuple | None = None
-    # Fully unroll layer scans (probe lowerings only — makes XLA's
-    # cost_analysis see every layer instance).
+    # The reference's switch to unroll its layer scans for XLA's cost
+    # analysis; kept for the config's fields, the port runs every layer
+    # as it is.
     unroll_scans: bool = False
 
     # distribution

@@ -32,12 +32,15 @@ import os
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
 from . import blocks
 from .common import (
-    _DTYPES, SHAPES_ONLY, apply_norm, dtype_of, embed_tokens, make_norm_params, normal, unembed,
+    _DTYPES, SHAPES_ONLY, _as_dtensor, apply_norm, dtype_of, embed_tokens, make_norm_params,
+    normal, unembed,
 )
 from .config import ModelConfig
 
@@ -355,6 +358,11 @@ def forward(
         proj = params["vision_proj"]
         dt = torch.promote_types(patches.dtype, proj.dtype)
         pe = torch.einsum("bpv,vd->bpd", patches.to(dt), proj.to(dt)).to(x.dtype)
+        if isinstance(pe, DTensor):
+            # The projector shards d_model; gathered here, the prefix joins
+            # the text's layout, where the concatenation would shard the
+            # whole residual stream by d_model instead.
+            pe = pe.redistribute(pe.device_mesh, x.placements)
         x = torch.cat([pe, x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)[None]
     x, aux = _run_groups(
@@ -371,9 +379,40 @@ def forward(
 # --------------------------------------------------------------------- #
 def _ce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     """Mean next-token cross entropy: float32 ``log_softmax`` and the
-    targets' entries, as the reference's."""
+    targets' entries, as the reference's. DTensor logits sharded by
+    vocabulary (the dry-run's) pick each target on the rank that holds it
+    (:func:`_picked_sharded`)."""
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    if isinstance(logp, DTensor):
+        return -torch.mean(_picked_sharded(logp, targets))
     return -torch.mean(torch.gather(logp, -1, targets.long()[..., None]))
+
+
+def _picked_sharded(logp: DTensor, targets: torch.Tensor) -> DTensor:
+    """``gather(logp, -1, targets[..., None])`` over a mesh: on the mesh
+    dim that shards the vocabulary each rank picks the targets in its
+    block (zeros elsewhere) and the picks are summed over that dim.
+    DTensor's rule for the gather's backward fills a zero tensor of the
+    whole logits' global shape on every rank."""
+    mesh, last = logp.device_mesh, logp.ndim - 1
+    vocab = [i for i, p in enumerate(logp.placements) if p.is_shard(last)]
+    targets = _as_dtensor(targets, mesh)
+    lp = [p if p.is_shard() else Replicate() for p in logp.placements]
+    tp = [Replicate() if p.is_shard(last) else p for p in lp]
+    out = [Partial() if p.is_shard(last) else p for p in lp]
+
+    def local(lg, tg):
+        tg = tg.long()[..., None]
+        if not vocab:
+            return torch.gather(lg, -1, tg)
+        tg = tg - mesh.get_coordinate()[vocab[0]] * lg.shape[-1]
+        mine = (tg >= 0) & (tg < lg.shape[-1])
+        picked = torch.gather(lg, -1, torch.where(mine, tg, 0))
+        return torch.where(mine, picked, torch.zeros((), dtype=lg.dtype, device=lg.device))
+
+    return local_map(local, out_placements=out, in_placements=(lp, tp),
+                     in_grad_placements=(lp, tp), device_mesh=mesh,
+                     redistribute_inputs=True)(logp, targets)
 
 
 def lm_loss(

@@ -31,6 +31,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import checkpoint
 
 from .common import dtype_of, init_dense, normal, rms_norm
@@ -249,9 +250,16 @@ def _mlstm_gates(log_f, i_pre, m):
     return a, torch.maximum(a, i_pre)
 
 
-def _mlstm_read(C, n, q):
+def _mlstm_read(C, n, q, batch_major=False):
     """einsum("bhkq,bhq->bhk", C, q) and einsum("bhq,bhq->bh", n, q) as
-    batched products over any leading axes, and h = num / max(|den|, 1)."""
+    batched products over any leading axes, and h = num / max(|den|, 1).
+
+    A chunk's stacks ``(ck, B, ...)`` as DTensors (the dry-run's) are
+    read batch-major: flattening a time axis before the sharded batch
+    axis would leave a strided shard that DTensor's product gathers."""
+    if isinstance(q, DTensor) and q.ndim == 4 and not batch_major:
+        return _mlstm_read(C.transpose(0, 1), n.transpose(0, 1), q.transpose(0, 1),
+                           True).transpose(0, 1)
     *lead, hd = q.shape
     qc = q.reshape(-1, hd, 1)
     num = torch.bmm(C.reshape(-1, hd, hd), qc).view(*lead, hd)
@@ -301,7 +309,14 @@ def _mlstm_chunk(C, n, m, q, k, v, i_pre, log_f):
     passes: the stabiliser over the chunk (two small operations a step),
     the gates and the products that do not read the memory for every
     step at once, then the memories' steps (two operations each); the
-    readout runs once over the chunk."""
+    readout runs once over the chunk.
+
+    DTensor inputs (the dry-run's, the head dim sharded) read the keys
+    whole: the memories then keep the values' sharding, where DTensor
+    would shard the outer product's time axis and could not step it."""
+    if isinstance(k, DTensor):
+        k = k.redistribute(k.device_mesh, [p if p.is_shard(1) else Replicate()
+                                           for p in k.placements])
     a_s, m_s = [], []
     for lf, ip in zip(log_f.unbind(0), i_pre.unbind(0)):
         a, m = _mlstm_gates(lf, ip, m)

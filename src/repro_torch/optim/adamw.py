@@ -23,6 +23,7 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..tree import flatten, tree_map
 
@@ -51,9 +52,11 @@ def adamw_init(params, moment_dtype="float32") -> AdamWState:
 def _blocks(*tensors):
     """Blocks of at most :data:`CHUNK` elements of tensors of one shape:
     row blocks of their 2-D views (all leading axes flattened; views, so
-    that writing a block writes the tensor)."""
+    that writing a block writes the tensor). A DTensor (the dry-run's,
+    which holds no memory) is one block: row blocks of a sharded dim would
+    gather it."""
     t = tensors[0]
-    if t.numel() <= CHUNK:
+    if t.numel() <= CHUNK or isinstance(t, DTensor):
         yield tensors
         return
     flat = [x.view(-1, x.shape[-1]) for x in tensors]
@@ -90,6 +93,12 @@ def adamw_update(
     flat_m = _same_structure(spec, state.m, "moments m")
     flat_v = _same_structure(spec, state.v, "moments v")
     f32 = torch.float32
+    if any(isinstance(g, DTensor) for g in flat_g):
+        # The dry-run's sharded state (ZeRO: the moments sharded over
+        # 'data'): each gradient's partial sums reduced once, into its
+        # moment's layout, where every operation of the update would
+        # reduce them again.
+        flat_g = [g.redistribute(m.device_mesh, m.placements) for g, m in zip(flat_g, flat_m)]
 
     scale = None
     if grad_clip > 0:
@@ -115,9 +124,15 @@ def adamw_update(
             v32 = vb.to(f32).mul_(b2).add_((g32 * (1 - b2)).mul_(g32))
             denom = torch.sqrt(v32 / bc2).add_(eps)
             delta = (m32 / bc1).div_(denom)
-            p32 = pb.to(f32)
+            sharded = isinstance(pb, DTensor)
+            if sharded:
+                # Updated on the moment's shard, gathered in the
+                # parameter's dtype.
+                pb_own = pb.redistribute(mb.device_mesh, mb.placements)
+            p32 = (pb_own if sharded else pb).to(f32)
             delta.add_(weight_decay * p32)
-            pb.copy_(p32.sub_(delta.mul_(lr)))
+            p32.sub_(delta.mul_(lr))
+            pb.copy_(p32.to(pb.dtype) if sharded else p32)
             mb.copy_(m32)
             vb.copy_(v32)
     return params, AdamWState(step=step, m=state.m, v=state.v)

@@ -204,18 +204,6 @@ def test_a_state_larger_than_the_device_names_its_bytes(monkeypatch):
         ttrain.train("deepseek-v3-671b", smoke=False, steps=1, device="cpu")
 
 
-def _grouped_mm_flops(a_shape, b_shape, *args, out_shape=None, **kwargs):
-    """``torch._grouped_mm``: every row of a 2-D ``a`` meets one group of
-    ``b`` (3-D: ``(groups, K, N)``), or a 2-D by 2-D product split along
-    its contraction (the weight gradient)."""
-    n = b_shape[-1]
-    return 2 * a_shape[0] * a_shape[1] * n
-
-
-def _addmm_flops(self_shape, a_shape, b_shape, *args, out_shape=None, **kwargs):
-    return 2 * a_shape[0] * a_shape[1] * b_shape[1]
-
-
 @pytest.mark.parametrize("arch", ARCHES)
 def test_chip_smoke_train_flops_counts_the_step(arch):
     """``chip_smoke.train_flops`` (phase 14's model FLOPs) equals
@@ -228,6 +216,8 @@ def test_chip_smoke_train_flops_counts_the_step(arch):
 
     from torch.utils.flop_counter import FlopCounterMode
 
+    from repro_torch.roofline import FLOP_FORMULAS
+
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
@@ -235,7 +225,6 @@ def test_chip_smoke_train_flops_counts_the_step(arch):
     cfg = tconfigs.get_smoke_config(arch).with_overrides(dtype="float32", num_layers=3)
     params = tmodel.init_params(cfg, 0, device="cpu")
     toks = torch.from_numpy(tokens(cfg.vocab_size, batch=2, seq=16))
-    counted = {torch.ops.aten.addmm_: _addmm_flops, torch.ops.aten._grouped_mm: _grouped_mm_flops}
-    with FlopCounterMode(display=False, custom_mapping=counted) as fc:
+    with FlopCounterMode(display=False, custom_mapping=FLOP_FORMULAS) as fc:
         tsteps.loss_and_grads(cfg, params, {"tokens": toks}, remat=False)
     assert fc.get_total_flops() == cs.train_flops(cfg, 2, 16)

@@ -51,6 +51,7 @@ from repro.models import frontend as jfrontend
 from repro.models import model as jmodel
 from repro.optim import adamw_init as jadamw_init
 from repro_torch import configs as tconfigs
+from repro_torch import roofline
 from repro_torch.data import TokenPipeline
 from repro_torch.kernels import native
 from repro_torch.launch import serve as tserve
@@ -490,7 +491,7 @@ def test_chip_smoke_train_flops_counts_the_step():
     params = tmodel.init_params(cfg, 0, device="cpu")
     batch = {"tokens": torch.from_numpy(zoo.tokens(cfg.vocab_size, batch=2, seq=16)),
              "frames": torch.from_numpy(frames(batch=2))}
-    counted = {torch.ops.aten.addmm_: test_torch_train._addmm_flops}
+    counted = {torch.ops.aten.addmm_: roofline.addmm_flops}
     with FlopCounterMode(display=False, custom_mapping=counted) as fc:
         tsteps.loss_and_grads(cfg, params, batch, remat=False)
     assert fc.get_total_flops() == cs.train_flops(cfg, 2, 16)

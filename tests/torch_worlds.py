@@ -351,5 +351,190 @@ def reference_place(out: str) -> None:
     Path(out).write_text(json.dumps(result))
 
 
+# --------------------------------------------------------------------- #
+# the dry-run
+# --------------------------------------------------------------------- #
+#: Small shapes of the dry-run tests, beside ``launch.steps.SHAPES``.
+DRY_SHAPES = {
+    "t_train": dict(kind="train", seq=32, batch=8),
+    "t_prefill": dict(kind="prefill", seq=64, batch=8),
+    "t_decode": dict(kind="decode", seq=128, batch=8),
+}
+#: The reference's ``build_lowered`` and the port's placement on a (2, 2)
+#: mesh: Qwen3-8B's smoke config at the three shapes.
+ARG_ARCH = "qwen3-8b"
+ARG_SHAPES = ("prefill_32k", "decode_32k", "train_4k")
+
+
+def start_port(what: str, out: Path) -> subprocess.Popen:
+    """The port's side of ``what`` in a subprocess (its fake process
+    groups die with it), writing ``out``."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen([sys.executable, str(Path(__file__)), what, str(out)], env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def plain_step(cfg, shape_name: str, mesh=None, seq=None):
+    """The step of ``cfg`` at ``shape_name`` on unplaced ``meta`` inputs:
+    the unsharded program, as a thunk."""
+    from repro_torch.launch import steps
+
+    info = steps.SHAPES[shape_name]
+    params = steps.abstract_params(cfg)
+    specs = steps.input_specs(cfg, shape_name, seq=seq)
+    if info["kind"] == "train":
+        opt = steps.adamw_init_like(cfg, params)
+        train = steps.make_train_step(cfg)
+        return lambda: train(params, opt, specs["batch"])
+    if info["kind"] == "prefill":
+        prefill = steps.make_prefill_step(cfg)
+        return lambda: prefill(params, specs["batch"])
+    decode = steps.make_decode_step(cfg)
+    return lambda: decode(params, specs["cache"], specs["token"], (seq or info["seq"]) - 1)
+
+
+def _counted(step, marks=None) -> dict:
+    """The cost vector and collective records of one run of ``step``;
+    with ``marks``, the records made inside ``adamw_update`` apart."""
+    from repro_torch import roofline as rl
+
+    with rl.CostCounter() as counter:
+        if marks is not None:
+            marks["counter"] = counter
+        step()
+    return {"vector": rl._cost_vector(counter), "records": counter.collectives,
+            "by_op": counter.by_op}
+
+
+def _dry_cfg(arch, mesh, **kw):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.moe import set_ep_mesh
+
+    cfg = get_smoke_config(arch).with_overrides(**kw)
+    if cfg.moe.num_experts:
+        cfg = cfg.with_overrides(ep_axis="model")
+        set_ep_mesh(mesh)
+    return cfg
+
+
+def port_dryrun(out: str) -> None:
+    """The port's side of ``tests/test_torch_dryrun.py``: counts on fake
+    worlds of 1, 2 and 4 ranks, saved as JSON."""
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import sharding as sh
+    from repro_torch.optim import adamw
+    from repro_torch.tree import flatten
+
+    steps.SHAPES.update(DRY_SHAPES)
+    result = {"one": {}, "dp": {}, "tp_bytes": {}, "pinned": {}, "args": {}, "rows": []}
+
+    with dryrun.fake_world(1):
+        mesh = make_test_mesh(1, 1, device_type="cpu")
+        for arch in ("qwen3-8b", "phi3.5-moe-42b-a6.6b", "whisper-large-v3"):
+            cfg = _dry_cfg(arch, mesh)
+            for shape in DRY_SHAPES:
+                placed = _counted(dryrun.build_step(cfg, shape, mesh))
+                plain = _counted(plain_step(cfg, shape))
+                result["one"][f"{arch}|{shape}"] = {"placed": placed, "plain": plain}
+
+    with dryrun.fake_world(4):
+        mesh = make_test_mesh(4, 1, device_type="cpu")
+        quarter = {k: dict(v, batch=v["batch"] // 4) for k, v in DRY_SHAPES.items()}
+        for arch in ("qwen3-8b", "phi3.5-moe-42b-a6.6b"):
+            cfg = _dry_cfg(arch, mesh)
+            for shape in ("t_train", "t_prefill"):
+                placed = _counted(dryrun.build_step(cfg, shape, mesh))
+                steps.SHAPES[shape] = quarter[shape]
+                plain = _counted(plain_step(cfg, shape))
+                steps.SHAPES[shape] = DRY_SHAPES[shape]
+                result["dp"][f"{arch}|{shape}"] = {"placed": placed["vector"],
+                                                   "plain": plain["vector"]}
+        mesh = make_test_mesh(1, 4, device_type="cpu")
+        for arch in ("qwen3-8b", "deepseek-v3-671b"):
+            cfg = _dry_cfg(arch, mesh)
+            params_abs = steps.abstract_params(cfg)
+            shardings = sh.shard_params(mesh, cfg, params_abs)
+            placed = sh.place(params_abs, shardings)
+            leaves = [(t.nbytes, s.spec) for t, s in zip(flatten(params_abs)[0],
+                                                          flatten(shardings)[0])]
+            result["tp_bytes"][arch] = {
+                "local": sum(t.to_local().nbytes for t in flatten(placed)[0]),
+                "leaves": [[n, [e if not isinstance(e, tuple) else list(e) for e in spec]]
+                           for n, spec in leaves]}
+
+        mesh = make_test_mesh(2, 2, device_type="cpu")
+        for shape in ARG_SHAPES:
+            cfg = _dry_cfg(ARG_ARCH, mesh)
+            result["args"][shape] = dryrun.build_step(cfg, shape, mesh).arg_bytes
+
+    with dryrun.fake_world(2):
+        for layout in ((2, 1), (1, 2)):
+            mesh = make_test_mesh(*layout, device_type="cpu")
+            cfg = _dry_cfg("phi3.5-moe-42b-a6.6b", mesh, num_layers=2)
+            marks = {}
+            update = adamw.adamw_update
+
+            def marked(*args, **kw):
+                start = len(marks["counter"].collectives)
+                try:
+                    return update(*args, **kw)
+                finally:
+                    marks["span"] = (start, len(marks["counter"].collectives))
+
+            steps.adamw_update = marked
+            try:
+                counted = _counted(dryrun.build_step(cfg, "t_train", mesh), marks)
+            finally:
+                steps.adamw_update = update
+            a, b = marks["span"]
+            params_abs = steps.abstract_params(cfg)
+            result["pinned"]["x".join(map(str, layout))] = {
+                "update": counted["records"][a:b],
+                "step": counted["records"][:a],
+                "leaves": [[list(t.shape), str(t.dtype).split(".")[-1],
+                            [list(e) if isinstance(e, tuple) else e for e in
+                             sh.zero_spec(mesh, sh.param_spec(mesh, cfg, p, t), tuple(t.shape))],
+                            "/".join(map(str, p))]
+                           for p, t in zip(_paths(params_abs), flatten(params_abs)[0])],
+            }
+    result["rows"] = [dryrun.run_one("qwen3-8b", "decode_32k", False, verbose=False),
+                      dryrun.run_one("whisper-large-v3", "long_500k", False, verbose=False)]
+    Path(out).write_text(json.dumps(result))
+
+
+def _paths(tree):
+    """The key paths of a tree's leaves, in :func:`repro_torch.tree.flatten`'s order."""
+    from repro_torch.tree import flatten, map_with_path
+
+    paths = []
+    map_with_path(lambda path, leaf: paths.append(tuple(path)), tree)
+    assert len(paths) == len(flatten(tree)[0])
+    return paths
+
+
+def reference_dryrun(out: str) -> None:
+    """The reference's side: ``build_lowered`` of Qwen3-8B's smoke config
+    on a (2, 2) mesh of the first four of the dry-run's forced host
+    devices, and each compiled program's per-device argument bytes and
+    cost analysis."""
+    import jax
+
+    from repro.configs import get_smoke_config
+    from repro.launch import dryrun
+
+    mesh = jax.sharding.Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
+    result = {}
+    for shape in ARG_SHAPES:
+        compiled = dryrun.build_lowered(get_smoke_config(ARG_ARCH), shape, mesh).compile()
+        cost = compiled.cost_analysis()
+        cost = cost[0] if isinstance(cost, list) else cost
+        result[shape] = {"args": compiled.memory_analysis().argument_size_in_bytes,
+                         "flops": float(cost.get("flops", 0.0)),
+                         "bytes": float(cost.get("bytes accessed", 0.0))}
+    Path(out).write_text(json.dumps(result))
+
+
 if __name__ == "__main__":
-    {"ep": reference_ep, "place": reference_place}[sys.argv[1]](sys.argv[2])
+    {"ep": reference_ep, "place": reference_place, "dryrun": port_dryrun,
+     "dryrun_ref": reference_dryrun}[sys.argv[1]](sys.argv[2])
