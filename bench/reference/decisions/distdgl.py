@@ -1,0 +1,6 @@
+"""Decisions of the ``distdgl`` variant (DistDGL without prefetching):
+there is no buffer, so no decision is asked."""
+
+
+def make(traffic: dict, num_pes: int):
+    return None
