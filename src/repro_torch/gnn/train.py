@@ -45,6 +45,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .. import telemetry as tel
 from ..core import scoring
 from ..core.buffer import PersistentBuffer
 from ..core.controller import Controller, make_controller
@@ -148,10 +149,15 @@ class TrainerLog:
     step_time: list[float] = field(default_factory=list)
     # Feature-store streams (populated only when the store is enabled):
     # bytes the store actually moved vs the §4.5.3 accounting bytes, the
-    # measured wall-clock of the step's gathers, and the
-    # content-sensitive float64 sum of the delivered remote block.
+    # host wall-clock of the step's gathers, and the content-sensitive
+    # float64 sum of the delivered remote block.
     bytes_measured: list[int] = field(default_factory=list)
     bytes_modeled: list[int] = field(default_factory=list)
+    #: Host seconds of the step's store gathers (``StoreGather.seconds``),
+    #: not device time: on a card a gather's launches run asynchronously,
+    #: so this is the host's time to issue them and to wait for the rows
+    #: it reads back. Device time is the profiler's: the operations
+    #: launched inside the ``repro.store.gather`` ranges.
     fetch_seconds: list[float] = field(default_factory=list)
     feat_sums: list[float] = field(default_factory=list)
 
@@ -159,6 +165,11 @@ class TrainerLog:
 @dataclass
 class RunResult:
     variant: str
+    #: Per epoch, the paper's §4.5.3 time model summed over the epoch's
+    #: steps (each step's slowest PE), priced from exact byte counts by
+    #: the run's time engine (:mod:`repro_torch.sim`): modeled seconds,
+    #: not wall time. Wall time is the telemetry's ``run`` and ``step``
+    #: spans.
     epoch_times: list[float]
     losses: list[float]
     accuracy: float
@@ -221,8 +232,9 @@ class RunResult:
 
     @property
     def total_fetch_seconds(self) -> float:
-        """Measured wall-clock spent in store gathers (cluster steps sum
-        the per-step maximum across PEs, like epoch_times does)."""
+        """Host wall-clock spent in store gathers (cluster steps sum the
+        per-step maximum across PEs, like epoch_times does); not device
+        time (see ``TrainerLog.fetch_seconds``)."""
         per_step = zip(*(log.fetch_seconds for log in self.logs))
         vals = [max(step) for step in per_step]
         return float(sum(vals)) if vals else float("nan")
@@ -583,11 +595,13 @@ class DistributedTrainer:
             )
             n2_mean = fanout_mean(rows[head:].reshape(n2.shape + (rows.shape[1],)))
         else:
+            tel.copied("train.ids", "h2d", idx.nbytes)
             idx_dev = torch.from_numpy(idx).to(self.torch_device)
             rows = self.features[idx_dev[:head]]
             n2_mean = ops.gather_mean(self.features, idx_dev[head:].view(n2.shape))
         x_seed = rows[:b]
         x_n1 = rows[b:head].reshape(b, f1, -1)
+        tel.copied("train.seeds", "h2d", minibatch.seeds.nbytes)
         labels = self.labels[torch.from_numpy(minibatch.seeds).to(self.torch_device)]
         return x_seed, x_n1, n2_mean.reshape(b, f1, -1), labels
 
@@ -657,7 +671,6 @@ class DistributedTrainer:
         session = self.make_telemetry()
         if session is None:
             return self._run_impl()
-        from .. import telemetry as tel
 
         with tel.active(session):
             with session.tracer.span("run", plane="runtime"):
@@ -687,8 +700,7 @@ class DistributedTrainer:
         vectorized loops' :func:`repro_torch.runtime.driver.train_step`
         on the trainer's device. Every exact stream equals the vectorized
         runtimes'."""
-        from .. import telemetry as tel
-        from ..runtime.driver import train_step
+        from ..runtime.driver import accuracy_pass, train_step
         from ..sim import build_step_comm
 
         P = self.parts.num_parts
@@ -721,7 +733,9 @@ class DistributedTrainer:
                 # time, before a replacement can overwrite their slots.
                 hit_mask_sets: list[np.ndarray] = []
                 hit_row_sets: list[np.ndarray] = []
-                _step_sp = tel.begin("step", plane="runtime")
+                _step_sp = tel.begin(
+                    "step", plane="runtime", step=epoch * self.mb_per_epoch + mb
+                )
                 for p in range(P):
                     _pe_sp = tel.begin("pe_step", pe=p, plane="runtime")
                     ctrl = self.controllers[p]
@@ -892,13 +906,7 @@ class DistributedTrainer:
                 tel.end(_step_sp)
             epoch_times.append(epoch_time)
 
-        accuracy = 0.0
-        if self.train_model:
-            batch = self.graph.train_nodes[: min(512, len(self.graph.train_nodes))]
-            minibatch = self.sampler.sample(batch, self.rng)
-            accuracy = self.model.accuracy(
-                *self._features_of(minibatch), aggregated=True
-            )
+        accuracy = accuracy_pass(self)
 
         trace = None
         if recorder is not None:

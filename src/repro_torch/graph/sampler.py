@@ -18,6 +18,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import telemetry as tel
 from .generate import Graph
 
 
@@ -272,18 +273,23 @@ class SamplerPlane:
         ``touched`` is the raw concatenated frontier — seeds plus every
         sampled neighbor, unsorted and with duplicates — written into
         ``out`` (a ``(P, Mt)`` array of an integer dtype) when given.
+        The draws and the expansion are the spans ``sample.draw`` and
+        ``sample.expand``.
         """
         P = len(seeds)
         B = len(seeds[0])
         g = self.graph
         sizes = self._layer_sizes(B)
         total = sum(n * f for n, f in sizes)
+        _draw_sp = tel.begin("sample.draw", plane="sampling")
         draws = np.stack([rng.random(total) for _ in range(P)])  # (P, total)
         layer_u, off = [], 0
         for n, f in sizes:
             layer_u.append(draws[:, off : off + n * f].reshape(P, n, f))
             off += n * f
+        tel.end(_draw_sp)
 
+        _expand_sp = tel.begin("sample.expand", plane="sampling")
         seed_mat = np.stack(seeds)                               # (P, B)
         frontier = seed_mat
         layers: list[np.ndarray] = []
@@ -297,6 +303,7 @@ class SamplerPlane:
             [seed_mat] + [nb.reshape(P, -1) for nb in layers], axis=1,
             out=out, casting="same_kind",
         )                                                        # (P, Mt)
+        tel.end(_expand_sp)
         return seed_mat, layers, touched
 
     def sample_all_raw(

@@ -114,7 +114,9 @@ def run_vectorized(trainer) -> "RunResult":  # noqa: F821 — see lazy import
     for epoch in range(trainer.epochs):
         epoch_time = 0.0
         for mb in range(trainer.mb_per_epoch):
-            _step_sp = tel.begin("step", plane="runtime")
+            _step_sp = tel.begin(
+                "step", plane="runtime", step=epoch * trainer.mb_per_epoch + mb
+            )
             # -- stage 1: batched sampling ----------------------------- #
             minibatches, remote, n_remote = sample.run(epoch, mb, trainer.rng)
 
@@ -194,15 +196,7 @@ def run_vectorized(trainer) -> "RunResult":  # noqa: F821 — see lazy import
             tel.end(_step_sp)
         epoch_times.append(epoch_time)
 
-    accuracy = 0.0
-    if trainer.train_model:
-        batch = trainer.graph.train_nodes[
-            : min(512, len(trainer.graph.train_nodes))
-        ]
-        minibatch = trainer.sampler.sample(batch, trainer.rng)
-        accuracy = trainer.model.accuracy(
-            *trainer._features_of(minibatch), aggregated=True
-        )
+    accuracy = accuracy_pass(trainer)
 
     trace = None
     if recorder is not None:
@@ -219,6 +213,19 @@ def run_vectorized(trainer) -> "RunResult":  # noqa: F821 — see lazy import
         sim_events=time_engine.events,
         trace=trace,
     )
+
+
+def accuracy_pass(trainer) -> float:
+    """The run's closing accuracy pass (0.0 without a model): one sample of
+    the first 512 train nodes and a forward, the ``call.accuracy`` span."""
+    if not trainer.train_model:
+        return 0.0
+    _acc_sp = tel.begin("call.accuracy", plane="runtime")
+    batch = trainer.graph.train_nodes[: min(512, len(trainer.graph.train_nodes))]
+    minibatch = trainer.sampler.sample(batch, trainer.rng)
+    accuracy = trainer.model.accuracy(*trainer._features_of(minibatch), aggregated=True)
+    tel.end(_acc_sp)
+    return accuracy
 
 
 def _device_raw_supported(trainer) -> bool:
@@ -245,14 +252,21 @@ def train_step(trainer, minibatches) -> float:
     ``gather_mean`` / ``segment_sum_equal`` kernels, see
     ``DistributedTrainer._features_of``), gradients summed in PE order
     and averaged, one SGD update of ``trainer.model``. Returns the mean
-    loss."""
+    loss. Each PE's inputs are the ``train.features`` span, its wait for
+    the loss (and so for its forward and backward) the ``train.wait``
+    span."""
     model = trainer.model
     P = len(minibatches)
     grads_acc = None
     loss_acc = 0.0
     for mb in minibatches:
-        loss, grads = model.loss_and_grads(*trainer._features_of(mb), aggregated=True)
+        _feat_sp = tel.begin("train.features", plane="train")
+        inputs = trainer._features_of(mb)
+        tel.end(_feat_sp)
+        loss, grads = model.loss_and_grads(*inputs, aggregated=True)
+        _wait_sp = tel.begin("train.wait", plane="train")
         loss_acc += float(loss) / P
+        tel.end(_wait_sp)
         grads_acc = (
             grads if grads_acc is None else [a + b for a, b in zip(grads_acc, grads)]
         )
@@ -368,7 +382,7 @@ def _run_device_cadence(
         if pending:
             with tel.span("device.readback", plane="device"):
                 block = torch.stack(pending).cpu().numpy()
-            dev._count("d2h", block.nbytes)
+            dev._transfer("engine.counts", "d2h", block.nbytes)
             counters.extend(block)
             pending = []
         while done < len(meta) and done + 1 < len(counters):
@@ -383,7 +397,7 @@ def _run_device_cadence(
     )
 
     for step in range(total):
-        _step_sp = tel.begin("step", plane="runtime")
+        _step_sp = tel.begin("step", plane="runtime", step=step)
         epoch, mb = divmod(step, trainer.mb_per_epoch)
         # The eligible controllers never read the metric values, so zeros
         # keep the decision stream that of the K=1 loop while the real
@@ -432,17 +446,11 @@ def _run_device_cadence(
 
     flush()
 
-    accuracy = 0.0
-    if trainer.train_model:
-        batch = trainer.graph.train_nodes[
-            : min(512, len(trainer.graph.train_nodes))
-        ]
-        minibatch = trainer.sampler.sample(batch, trainer.rng)
-        accuracy = trainer.model.accuracy(
-            *trainer._features_of(minibatch), aggregated=True
-        )
+    accuracy = accuracy_pass(trainer)
 
+    _sync_sp = tel.begin("call.sync", plane="runtime")
     dev.sync_to_engine()
+    tel.end(_sync_sp)
     return RunResult(
         variant=trainer.variant,
         epoch_times=epoch_times,
@@ -481,12 +489,14 @@ def run_device(trainer) -> "RunResult":  # noqa: F821 — see lazy import
     sample = SampleStage(plane, P, trainer._seed_batch, trainer.parts.part_of)
     decide = DecisionStage(trainer.controllers)
     time_engine = trainer.make_time_engine()
+    _engine_sp = tel.begin("call.engine", plane="runtime")
     dev = DeviceEngine(
         trainer.engine, device=trainer.device, part_of=trainer.parts.part_of
     )
     store = trainer.feature_store
     if store is not None:
         dev.attach_store(store)
+    tel.end(_engine_sp)
     trainer.last_device_engine = dev
     fused = FusedFetchStage(
         dev,
@@ -520,7 +530,7 @@ def run_device(trainer) -> "RunResult":  # noqa: F821 — see lazy import
         probe = fused.prime(remote, n_remote)
 
     for step in range(total):
-        _step_sp = tel.begin("step", plane="runtime")
+        _step_sp = tel.begin("step", plane="runtime", step=step)
         epoch, mb = divmod(step, trainer.mb_per_epoch)
         decide.submit(
             [
@@ -541,7 +551,10 @@ def run_device(trainer) -> "RunResult":  # noqa: F821 — see lazy import
         decisions, stalls = decide.collect()
 
         # Double buffer: this step's miss gather overlaps the next draw.
-        fused.begin_gather()
+        if store is not None:
+            _gather_sp = tel.begin("fetch.gather", plane="store")
+            fused.begin_gather()
+            tel.end(_gather_sp)
         nxt_mb = None
         last = step + 1 == total
         if not last:
@@ -617,17 +630,11 @@ def run_device(trainer) -> "RunResult":  # noqa: F821 — see lazy import
         probe = next_probe
         tel.end(_step_sp)
 
-    accuracy = 0.0
-    if trainer.train_model:
-        batch = trainer.graph.train_nodes[
-            : min(512, len(trainer.graph.train_nodes))
-        ]
-        minibatch = trainer.sampler.sample(batch, trainer.rng)
-        accuracy = trainer.model.accuracy(
-            *trainer._features_of(minibatch), aggregated=True
-        )
+    accuracy = accuracy_pass(trainer)
 
+    _sync_sp = tel.begin("call.sync", plane="runtime")
     dev.sync_to_engine()
+    tel.end(_sync_sp)
     trace = None
     if recorder is not None:
         trace = recorder.finalize(epoch_times, time_engine.events)

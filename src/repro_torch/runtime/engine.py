@@ -544,7 +544,9 @@ class DeviceEngine:
         self._node_weights = engine._node_weights
 
         def upload(a, dtype):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+            a = np.ascontiguousarray(a)
+            tel.copied("engine.state", "h2d", a.nbytes)
+            return torch.from_numpy(a).to(dev, dtype)
 
         self._id_dtype = torch.int64 if self.wide else torch.int32
         self._ids = upload(engine.ids, self._id_dtype)
@@ -614,10 +616,12 @@ class DeviceEngine:
             self.capacity > 0, n_valid / np.maximum(self.capacity, 1), 0.0
         )
 
-    def _count(self, way: str, nbytes: int) -> None:
+    def _transfer(self, site: str, way: str, nbytes: int) -> None:
+        """One audited copy of the step's host boundary (``transfers``),
+        counted by site in the telemetry (:func:`repro_torch.telemetry.copied`)."""
         self.transfers[way] += 1
         self.transfers[f"{way}_bytes"] += int(nbytes)
-        tel.count(f"device.{way}_bytes", int(nbytes))
+        tel.copied(site, way, nbytes)
 
     def fused_step(
         self,
@@ -644,6 +648,7 @@ class DeviceEngine:
         does."""
         from ..kernels import ops
 
+        _pack_sp = tel.begin("fetch.pack", plane="engine")
         P = self.num_pes
         do_rep = np.asarray(do_replace, dtype=bool)
         empty64 = np.array([], dtype=np.int64)
@@ -708,7 +713,7 @@ class DeviceEngine:
             parts.append(cw.view(np.int32).ravel())
         block = np.concatenate(parts)
         blk = torch.from_numpy(block).to(self.device)
-        self._count("h2d", block.nbytes)
+        self._transfer("engine.frontier", "h2d", block.nbytes)
         # Int32 words per id; the id slices start at even offsets, so a
         # wide slice views as int64 in place.
         nq = P * M * q.itemsize // 4
@@ -721,6 +726,7 @@ class DeviceEngine:
             if self._weights is not None
             else None
         )
+        tel.end(_pack_sp)
         _launch_sp = tel.begin("device.launch", plane="device")
         lo, span = (
             (self._id_lo, self._id_bound - self._id_lo)
@@ -752,9 +758,12 @@ class DeviceEngine:
         tel.end(_launch_sp)
         if w2 is not None:
             self._weights = w2
+        ready = tel.mark(self.device)
         with tel.span("device.readback", plane="device"):
+            tel.wait(ready)
             packed = packed_d.cpu().numpy()
-        self._count("d2h", packed.nbytes)
+        self._transfer("engine.packed", "d2h", packed.nbytes)
+        _unpack_sp = tel.begin("fetch.unpack", plane="engine")
         C = self.max_capacity
         hit = packed[:, :M] != 0
         hit_slot = packed[:, M : 2 * M]
@@ -791,7 +800,7 @@ class DeviceEngine:
         order = np.argsort(slot_pos, axis=1, kind="stable").astype(np.int64)
         rank_mask = np.arange(slot_pos.shape[1]) < n_per[:, None]
         self.last_slots = _split_by_counts(order[rank_mask], n_per)
-        return FusedStepOut(
+        out = FusedStepOut(
             hit_masks=hit_masks,
             missed=missed,
             hits=hits_per_pe,
@@ -801,6 +810,8 @@ class DeviceEngine:
             placed_slots=list(self.last_slots),
             n_valid=n_valid,
         )
+        tel.end(_unpack_sp)
+        return out
 
     def attach_store(self, store) -> None:
         """Wire a :class:`repro_torch.store.FeatureStore` into the
@@ -840,6 +851,7 @@ class DeviceEngine:
 
         if want not in ("full", "counts"):
             raise ValueError(f"want must be 'full' or 'counts', got {want!r}")
+        _pack_sp = tel.begin("fetch.pack", plane="engine")
         P = self.num_pes
         if self._part_of_dev is None:
             raise ValueError(
@@ -877,7 +889,7 @@ class DeviceEngine:
         gates = _gate_bits(active_score, do_rep, active_probe).astype(idt)
         aug = np.concatenate([touched, gates[:, None]], axis=1)
         aug_d = torch.from_numpy(aug).to(self.device)
-        self._count("h2d", aug.nbytes)
+        self._transfer("engine.frontier", "h2d", aug.nbytes)
 
         table = loc = None
         if self._store is not None and self.payload is not None:
@@ -889,6 +901,7 @@ class DeviceEngine:
             extra = dict(id_base=self.id_base)
         else:
             step, extra = ops.fused_frontier_step_batch, {}
+        tel.end(_pack_sp)
         _launch_sp = tel.begin("device.launch", plane="device")
         (
             self._ids,
@@ -933,9 +946,12 @@ class DeviceEngine:
             self._cand_pending = cand_next
             return counters_d
 
+        ready = tel.mark(self.device)
         with tel.span("device.readback", plane="device"):
+            tel.wait(ready)
             packed = packed_d.cpu().numpy()
-        self._count("d2h", packed.nbytes)
+        self._transfer("engine.packed", "d2h", packed.nbytes)
+        _unpack_sp = tel.begin("fetch.unpack", plane="engine")
         C = self.max_capacity
         Mt = aug.shape[1] - 1
         # The keys lead the block: int32, or int64 as int32 pairs.
@@ -999,7 +1015,7 @@ class DeviceEngine:
         self._cand_pending = cand_next
         self._cand_pending_ids = [m[:kc_next] for m in missed]
 
-        return FrontierStepOut(
+        out = FrontierStepOut(
             hit_masks=hit_masks,
             missed=missed,
             hits=hits_per_pe,
@@ -1011,6 +1027,8 @@ class DeviceEngine:
             remote=remote,
             n_remote=n_remote,
         )
+        tel.end(_unpack_sp)
+        return out
 
     # ------------------------------------------------------------------ #
     # feature payload (device-resident)
@@ -1033,12 +1051,13 @@ class DeviceEngine:
             ]
         )
         with tel.span("device.readback", plane="device"):
+            tel.copied("engine.hit_index", "h2d", flat.nbytes)
             rows = (
                 self.payload.index_select(0, torch.from_numpy(flat).to(self.device))
                 .cpu()
                 .numpy()
             )
-        self._count("d2h", rows.nbytes)
+        self._transfer("engine.hit_rows", "d2h", rows.nbytes)
         return [
             np.ascontiguousarray(b)
             for b in np.split(rows, np.cumsum(lengths)[:-1])
@@ -1062,13 +1081,15 @@ class DeviceEngine:
                 rows.append(blocks[p])
         if not idx:
             return
-        flat = torch.from_numpy(np.concatenate(idx)).to(self.device)
+        flat = np.concatenate(idx)
+        tel.copied("engine.placed_index", "h2d", flat.nbytes)
+        flat = torch.from_numpy(flat).to(self.device)
         if device_block is not None:
             data = device_block.to(self.device)
         else:
             host = np.concatenate(rows, dtype=np.float32)
             data = torch.from_numpy(host).to(self.device)
-            self._count("h2d", host.nbytes)
+            self._transfer("engine.placed_rows", "h2d", host.nbytes)
         self.payload[flat] = data
 
     # ------------------------------------------------------------------ #
@@ -1097,6 +1118,12 @@ class DeviceEngine:
             eng.payload = self.payload.cpu().numpy().reshape(
                 self.num_pes, self.max_capacity, self.feature_dim
             )
+        if tel.enabled():
+            state = (self._ids, self._scores, self._valid, self._accessed,
+                     self._weights, self.payload)
+            tel.copied("engine.state", "d2h", sum(
+                t.numel() * t.element_size() for t in state if t is not None
+            ))
         eng.last_placed = [a.copy() for a in self.last_placed]
         eng.last_slots = [a.copy() for a in self.last_slots]
         eng.last_hit_slots = [a.copy() for a in self.last_hit_slots]

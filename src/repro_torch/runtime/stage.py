@@ -152,28 +152,16 @@ class CommitResult:
     fetch_seconds: float = 0.0  # wall-clock time of this step's gathers
 
 
-def _count_fetch(
-    missed, placed, part_of, num_pes, miss_comm, replaced, feature_dim,
-    feature_bytes, id_base=0,
-):
-    """Telemetry-on-only fetch accounting: per-PE node/byte counters and
-    the per-(PE, home) byte matrix. Observational — reads the same
-    exact streams the time engine already priced, never alters them."""
+def _count_fetch(miss_comm, replaced, feature_dim, feature_bytes):
+    """Telemetry-on-only fetch accounting: per-PE node and byte counters.
+    Observational — reads the same exact streams the time engine already
+    priced, never alters them."""
     row_bytes = feature_dim * feature_bytes
     miss_comm = np.asarray(miss_comm, dtype=np.float64)
     replaced = np.asarray(replaced, dtype=np.float64)
     tel.count("fetch.miss_nodes", miss_comm)
     tel.count("fetch.replaced_nodes", replaced)
     tel.count("fetch.bytes_modeled", (miss_comm + replaced) * row_bytes)
-    if part_of is not None:
-        by_home = np.zeros((num_pes, num_pes), dtype=np.float64)
-        for p in range(num_pes):
-            ids = np.concatenate([missed[p], placed[p]])
-            if len(ids):
-                by_home[p] = np.bincount(
-                    part_of[ids - id_base], minlength=num_pes
-                )
-        tel.count("fetch.bytes_by_home", by_home * row_bytes)
 
 
 class FetchStage:
@@ -298,11 +286,7 @@ class FetchStage:
         # Replacement traffic is communication (Alg. 1 line 14).
         total_comm = comm + replaced
         if tel.enabled():
-            _count_fetch(
-                missed, engine.last_placed, self.part_of, engine.num_pes,
-                comm, replaced, self.feature_dim, self.feature_bytes,
-                id_base=engine.id_base,
-            )
+            _count_fetch(comm, replaced, self.feature_dim, self.feature_bytes)
         t = self.time_engine.step(
             build_step_comm(
                 missed,
@@ -470,6 +454,7 @@ class FusedFetchStage:
             return
         pending["miss_gather"] = self.store.gather_batch(pending["missed"])
 
+    @tel.spanned("fetch.account", plane="engine")
     def _commit(self, out, missed, stalls) -> CommitResult:
         """Round t's accounting from the launch that closed it."""
         dev = self.dev
@@ -479,11 +464,7 @@ class FusedFetchStage:
         comm = np.array([len(m) for m in missed], dtype=np.int64)
         total_comm = comm + out.replaced
         if tel.enabled():
-            _count_fetch(
-                missed, dev.last_placed, self.part_of, dev.num_pes,
-                comm, out.replaced, self.feature_dim, self.feature_bytes,
-                id_base=dev.id_base,
-            )
+            _count_fetch(comm, out.replaced, self.feature_dim, self.feature_bytes)
         t = self.time_engine.step(
             build_step_comm(
                 missed,

@@ -144,16 +144,20 @@ class FeatureStore:
         local = np.asarray(ids, dtype=np.int64) - self.id_base
         return self._loc[local] // self.n_max
 
-    def _upload(self, a: np.ndarray, device=None) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device or self.device)
+    def _upload(self, a: np.ndarray, device=None, site: str = "store.index") -> torch.Tensor:
+        """``a`` on ``device`` (the store's by default), counted as a copy
+        at ``site``."""
+        a = np.ascontiguousarray(a)
+        tel.copied(site, "h2d", a.nbytes)
+        return torch.from_numpy(a).to(device or self.device)
 
     def _table(self, device=None) -> torch.Tensor:
         """The flat ``(K * N_max, F)`` table on ``device`` (the store's by
         default); on the store's device, its single shared copy."""
         if device is not None and device != self.device:
-            return self._upload(self._flat, device)
+            return self._upload(self._flat, device, site="store.table")
         if self._dev is None:
-            self._dev = self._upload(self._flat)
+            self._dev = self._upload(self._flat, site="store.table")
         return self._dev
 
     def device_view(self, device=None):
@@ -177,7 +181,10 @@ class FeatureStore:
                     "feature store flat table has >= 2^31 rows; "
                     "device view indexes rows as int32"
                 )
-            view = (self._table(dev), self._upload(self._loc.astype(np.int32), dev))
+            view = (
+                self._table(dev),
+                self._upload(self._loc.astype(np.int32), dev, site="store.table"),
+            )
             self._dev_view[dev] = view
         return view
 
@@ -236,7 +243,9 @@ class FeatureStore:
         """``(host rows, device rows or None)`` of the flat table."""
         if self.use_kernel or self.backend == "torch":
             dev = self._gather_on_device(rows)
-            return dev.cpu().numpy(), dev
+            host = dev.cpu().numpy()
+            tel.copied("store.rows", "d2h", host.nbytes)
+            return host, dev
         return self._flat[rows], None
 
     # ------------------------------------------------------------------ #
@@ -255,7 +264,7 @@ class FeatureStore:
         rows = self._rows_of(np.asarray(ids))
         if self.use_kernel or self.backend == "torch":
             return self._gather_on_device(rows).to(device)
-        return self._upload(self._flat[rows], device)
+        return self._upload(self._flat[rows], device, site="store.rows")
 
     def gather_batch(self, id_lists, device: bool = False) -> StoreGather:
         """One timed gather for a whole cluster's per-PE request lists:
@@ -279,7 +288,7 @@ class FeatureStore:
             for b in np.split(block, np.cumsum(lengths)[:-1])
         ]
         if device and dev_block is None:
-            dev_block = self._upload(block)
+            dev_block = self._upload(block, site="store.rows")
         seconds = time.perf_counter() - t0
         if sp is not None:
             # The bytes the gather moved: what calibrate_from_session fits.

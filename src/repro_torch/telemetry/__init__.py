@@ -17,8 +17,19 @@ The load-bearing contract (mirrors the trace plane's):
   they never feed back into sampling, scoring, decisions, or byte
   accounting — telemetry-on runs keep the same
   ``Trace.exact_digest()``. Only wall-clock (already excluded from
-  exact digests) can move: every ``@profiled`` dispatcher call then waits
-  for its kernels (``torch.cuda.synchronize()``) to time them.
+  exact digests) can move: ``@profiled`` dispatchers are timed by CUDA
+  event pairs, resolved after the run (never a sync on the hot path),
+  and the fetch stage's readback waits on an event before it copies
+  (the ``device.wait`` span).
+* **One clock with the device trace.** While ``torch.profiler``
+  records, every span and every ``@profiled`` dispatcher call also runs
+  inside ``record_function("repro.<name>")``.
+
+Copies between host and device are counted by site
+(:func:`copied`: ``device.<way>_bytes`` and
+``device.<way>_bytes.<site>``). Every span carries its ``step``, ``id``
+and ``parent``; ``python -m repro_torch.telemetry steps run.jsonl``
+lists the longest steps by phase.
 
 Usage::
 
@@ -46,7 +57,7 @@ from .calibrate import (
 from .provenance import provenance
 from .registry import Counter, Gauge, Histogram, MetricsRegistry
 from .session import TelemetrySession
-from .spans import Span, SpanTracer
+from .spans import Span, SpanTracer, profiling
 
 __all__ = [
     "Counter",
@@ -70,6 +81,9 @@ __all__ = [
     "begin",
     "end",
     "count",
+    "copied",
+    "mark",
+    "wait",
     "gauge",
     "observe",
     "spanned",
@@ -136,21 +150,64 @@ def span(name: str, pe: int = -1, plane: str = "", nbytes: int = 0):
     return s.tracer.span(name, pe=pe, plane=plane, nbytes=nbytes)
 
 
-def begin(name: str, pe: int = -1, plane: str = ""):
+def begin(name: str, pe: int = -1, plane: str = "", step: int | None = None):
     """Open a span without a ``with`` block; pair with :func:`end`.
 
     Returns ``None`` when telemetry is off — ``end(None)`` is a no-op,
-    so loop bodies stay un-indented at zero cost.
+    so loop bodies stay un-indented at zero cost. ``step`` marks the span
+    as the one that opens training step ``step`` (the loops' ``step``
+    span); a session whose tracer has no ``begin_step`` gets a plain
+    span.
     """
     s = _SESSION
     if s is None:
         return None
+    if step is not None:
+        begin_step = getattr(s.tracer, "begin_step", None)
+        if begin_step is not None:
+            return begin_step(name, step, pe=pe, plane=plane)
     return s.tracer.begin(name, pe=pe, plane=plane)
 
 
 def end(token) -> None:
     if token is not None:
         token.__exit__(None, None, None)
+
+
+def copied(site: str, way: str, nbytes) -> None:
+    """Count a copy of ``nbytes`` between host and device (``way``
+    ``"h2d"`` or ``"d2h"``) made at ``site``: into ``device.<way>_bytes``
+    and ``device.<way>_bytes.<site>``."""
+    s = _SESSION
+    if s is None:
+        return
+    n = int(nbytes)
+    s.registry.counter(f"device.{way}_bytes").add(n)
+    s.registry.counter(f"device.{way}_bytes.{site}").add(n)
+
+
+def mark(device):
+    """A CUDA event recorded now on ``device``'s current stream, for
+    :func:`wait`; None when telemetry is off or ``device`` is not a card."""
+    s = _SESSION
+    if s is None or getattr(device, "type", None) != "cuda":
+        return None
+    import torch
+
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
+def wait(event) -> None:
+    """The ``device.wait`` span: the host blocked until ``event`` (a
+    :func:`mark`), and so everything queued before it, has finished."""
+    s = _SESSION
+    if s is None:
+        return
+    with s.tracer.span("device.wait", plane="device"):
+        if event is not None:
+            event.synchronize()
 
 
 def count(name: str, value=1, shape=None) -> None:
@@ -196,20 +253,33 @@ def spanned(name: str, plane: str = ""):
 
 
 def profiled(name: str):
-    """Kernel-dispatcher decorator: block-until-ready timing when on.
+    """Kernel-dispatcher decorator.
 
-    With no active session (or ``profile_kernels=False``) the wrapper
-    is a direct call — no timing, no blocking, no extra sync points, so
-    the device pipeline's async launch overlap is untouched by default.
+    With no active session the wrapper is a direct call. With one, the
+    call runs inside ``record_function("repro.<name>")`` while
+    ``torch.profiler`` records, and through the session's
+    ``profile_call`` (timing without a sync) when ``profile_kernels`` is
+    on; the device pipeline's async launch overlap is untouched.
     """
 
     def deco(fn):
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):
             s = _SESSION
-            if s is None or not s.profile_kernels:
+            if s is None:
                 return fn(*args, **kwargs)
-            return s.profile_call(name, fn, *args, **kwargs)
+
+            def call():
+                if s.profile_kernels:
+                    return s.profile_call(name, fn, *args, **kwargs)
+                return fn(*args, **kwargs)
+
+            if not profiling():
+                return call()
+            import torch
+
+            with torch.profiler.record_function(f"repro.{name}"):
+                return call()
 
         return wrapper
 

@@ -7,6 +7,9 @@ Subcommands:
 * ``chrome ARTIFACT.jsonl --out trace.json`` — convert the artifact to
   Chrome-trace/Perfetto ``trace_events`` JSON (load it at
   https://ui.perfetto.dev or chrome://tracing).
+* ``steps ARTIFACT.jsonl [--top N]`` — the N longest ``step`` spans,
+  each with its direct children's total and self time: which phase made
+  a tail step slow.
 * ``calibrate TRACE`` — fit TimeModel alpha/link_bw from a recorded
   store-enabled trace's measured byte + wall-clock streams.
 
@@ -20,7 +23,14 @@ import json
 import sys
 
 from .calibrate import calibrate_from_trace
-from .export import breakdown_rows, load_jsonl, render_table, write_chrome_trace
+from .export import (
+    breakdown_rows,
+    load_jsonl,
+    render_steps,
+    render_table,
+    step_rows,
+    write_chrome_trace,
+)
 
 __all__ = ["main", "make_parser"]
 
@@ -49,6 +59,15 @@ def cmd_chrome(args) -> int:
     path = write_chrome_trace(artifact, args.out)
     n = len(artifact["spans"])
     print(f"wrote {path} ({n} spans) — load at https://ui.perfetto.dev")
+    return 0
+
+
+def cmd_steps(args) -> int:
+    rows = step_rows(load_jsonl(args.artifact), top=args.top)
+    if not rows:
+        print("no step spans recorded")
+        return 0
+    print(render_steps(rows))
     return 0
 
 
@@ -84,6 +103,11 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("artifact", help="JSONL artifact from write_jsonl()")
     p.add_argument("--out", default="trace.json", help="output path")
     p.set_defaults(func=cmd_chrome)
+
+    p = sub.add_parser("steps", help="the longest steps, by phase")
+    p.add_argument("artifact", help="JSONL artifact from write_jsonl()")
+    p.add_argument("--top", type=int, default=5, help="steps to list")
+    p.set_defaults(func=cmd_steps)
 
     p = sub.add_parser(
         "calibrate", help="fit TimeModel alpha/link_bw from a trace"

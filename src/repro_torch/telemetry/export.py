@@ -1,8 +1,8 @@
 """Telemetry exporters: per-run JSONL, Chrome-trace JSON, text tables.
 
 JSONL is the run artifact (one ``meta`` line, then one line per span
-and per metric) — ``python -m repro_torch.telemetry summary/chrome`` consume
-it. The Chrome-trace exporter emits the ``trace_events`` JSON the
+and per metric) — ``python -m repro_torch.telemetry summary/chrome/steps``
+consume it. The Chrome-trace exporter emits the ``trace_events`` JSON the
 Perfetto UI (https://ui.perfetto.dev) and ``chrome://tracing`` load:
 spans become complete events (``ph: "X"``, microsecond ``ts``/``dur``)
 on one thread track per PE, with ``tid 0`` the host/driver track.
@@ -23,6 +23,8 @@ __all__ = [
     "load_jsonl",
     "breakdown_rows",
     "render_table",
+    "step_rows",
+    "render_steps",
 ]
 
 JSONL_SCHEMA = 1
@@ -73,7 +75,13 @@ def chrome_trace(source, label: str = "repro") -> dict:
                 "dur": (sp["t1"] - sp["t0"]) * 1e6,
                 "pid": 0,
                 "tid": _track_of(int(sp["pe"])),
-                "args": {"depth": sp["depth"], "nbytes": sp.get("nbytes", 0)},
+                "args": {
+                    "depth": sp["depth"],
+                    "nbytes": sp.get("nbytes", 0),
+                    "id": sp.get("id", -1),
+                    "parent": sp.get("parent", -1),
+                    "step": sp.get("step", -1),
+                },
             }
         )
     return {"traceEvents": events, "displayTimeUnit": "ms"}
@@ -88,6 +96,7 @@ def write_chrome_trace(source, path) -> Path:
 
 # ---------------------------------------------------------------------- #
 def jsonl_rows(session) -> list[dict]:
+    session.resolve()
     rows: list[dict] = [
         {
             "kind": "meta",
@@ -178,10 +187,20 @@ def breakdown_rows(artifact: dict) -> list[dict]:
             plane_s[sp["plane"]] += max((sp["t1"] - sp["t0"]) - child, 0.0)
 
     plane_bytes: dict[str, float] = {}
+    byte_counters = {
+        m["name"] for m in artifact["metrics"]
+        if m["kind"] == "counter" and "bytes" in m["name"]
+    }
     for metric in artifact["metrics"]:
-        if metric["kind"] == "counter" and "bytes" in metric["name"]:
-            plane = metric["name"].split(".", 1)[0]
-            plane_bytes[plane] = plane_bytes.get(plane, 0.0) + metric["total"]
+        name = metric["name"]
+        # A counter that extends another one's name is a part of it (the
+        # copies by site, ``device.h2d_bytes.<site>``): counted once.
+        if name not in byte_counters or any(
+            name.startswith(other + ".") for other in byte_counters
+        ):
+            continue
+        plane = name.split(".", 1)[0]
+        plane_bytes[plane] = plane_bytes.get(plane, 0.0) + metric["total"]
 
     planes = sorted(set(plane_s) | set(plane_bytes))
     return [
@@ -209,4 +228,54 @@ def render_table(rows: list[dict]) -> str:
     total_n = sum(r["spans"] for r in rows)
     lines.append("-" * len(header))
     lines.append(f"{'total':<12} {total_n:>8d} {total_s:>12.6f} {total_b:>14.0f}")
+    return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------- #
+def step_rows(artifact: dict, top: int = 5) -> list[dict]:
+    """The ``top`` longest ``step`` spans of a loaded artifact, longest
+    first: each step's index, milliseconds, its own self time and, per
+    direct child's name, the children's total and self milliseconds
+    (children by the spans' ``parent`` ids)."""
+    spans = artifact["spans"]
+    if spans and "id" not in spans[0]:
+        raise ValueError("artifact's spans carry no ids (an older schema)")
+    children: dict[int, list[dict]] = {}
+    for sp in spans:
+        children.setdefault(int(sp["parent"]), []).append(sp)
+
+    def ms(sp) -> float:
+        return 1e3 * (sp["t1"] - sp["t0"])
+
+    def self_ms(sp) -> float:
+        return max(ms(sp) - sum(ms(c) for c in children.get(int(sp["id"]), ())), 0.0)
+
+    steps = sorted((sp for sp in spans if sp["name"] == "step"), key=ms, reverse=True)
+    rows = []
+    for sp in steps[:top]:
+        phases: dict[str, list[float]] = {}
+        for c in children.get(int(sp["id"]), ()):
+            row = phases.setdefault(c["name"], [0.0, 0.0])
+            row[0] += ms(c)
+            row[1] += self_ms(c)
+        rows.append({
+            "step": int(sp["step"]),
+            "ms": ms(sp),
+            "self_ms": self_ms(sp),
+            "phases": {k: {"ms": v[0], "self_ms": v[1]}
+                       for k, v in sorted(phases.items(), key=lambda kv: -kv[1][0])},
+        })
+    return rows
+
+
+def render_steps(rows: list[dict]) -> str:
+    """The longest steps, each with its direct children's time."""
+    lines = []
+    for row in rows:
+        lines.append(
+            f"step {row['step']:>6d} {row['ms']:>10.3f} ms "
+            f"(self {row['self_ms']:.3f} ms)"
+        )
+        for name, ph in row["phases"].items():
+            lines.append(f"  {name:<20} {ph['ms']:>10.3f} ms  self {ph['self_ms']:>10.3f} ms")
     return "\n".join(lines)

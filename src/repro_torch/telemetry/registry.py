@@ -8,7 +8,7 @@ Python loop: a counter's shape is fixed by its first ``add`` — scalar
 must match (a shape change is an instrumentation bug, so it raises).
 
 Names are hierarchical, dot-separated: the first segment identifies the
-plane/subsystem (``fetch.bytes_by_home``, ``device.fallback_int64``,
+plane/subsystem (``fetch.miss_nodes``, ``device.fallback_int64``,
 ``kernel.gather_rows.calls``) and is what the CLI breakdown groups by.
 """
 

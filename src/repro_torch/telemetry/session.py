@@ -8,20 +8,20 @@ module-level helpers, which are no-ops when nothing is active. That
 indirection is the zero-overhead-off contract: with no session, every
 hook is one global load and a ``None`` check.
 
-Kernel profiling (``profile_call``) times a dispatcher call and, when any
-tensor it returns lies on a CUDA device, waits with
-``torch.cuda.synchronize()`` before the clock stops: the wait is what
-makes the number mean "kernel finished", not "launch returned" (the
-reference blocks on its outputs for the same reason). With
-``annotate=True`` the call also runs under
-``torch.profiler.record_function("repro.<name>")``, so it shows up in a
-``torch.profiler`` trace when one is being captured.
+Kernel profiling (``profile_call``, ``profile_kernels=True``) never
+synchronises. A call whose inputs lie on a CUDA device runs between two
+``torch.cuda.Event(enable_timing=True)`` records on the current stream;
+the pairs are kept and resolved by ``elapsed_time`` only when the session
+is summarised or exported (:meth:`TelemetrySession.resolve`), after the
+run's own end. ``kernel.<name>.seconds`` then holds device seconds: an
+event pair spans the dispatcher's work on the stream, including any gaps
+between its kernels (and the launch itself when the stream runs dry). A
+call on the CPU, which is synchronous there, records its host time.
 """
 
 from __future__ import annotations
 
 import time
-from contextlib import nullcontext
 
 from .registry import MetricsRegistry
 from .spans import SpanTracer
@@ -39,43 +39,49 @@ def _on_cuda(out) -> bool:
 
 
 class TelemetrySession:
-    def __init__(
-        self,
-        label: str = "run",
-        profile_kernels: bool = True,
-        annotate: bool = False,
-    ):
+    def __init__(self, label: str = "run", profile_kernels: bool = True):
         self.label = label
         self.profile_kernels = profile_kernels
-        self.annotate = annotate
         self.registry = MetricsRegistry()
         self.tracer = SpanTracer()
         self.meta: dict = {}
+        # (dispatcher, start event, end event) not yet resolved.
+        self._pending: list = []
 
     # -- kernel profiling ---------------------------------------------- #
     def profile_call(self, name: str, fn, *args, **kwargs):
-        """Call ``fn`` timed to its outputs' completion under ``name``."""
-        if self.annotate:
+        """Call ``fn`` under ``name``: device time by a CUDA event pair
+        when its inputs lie on a card, else host time; never a sync."""
+        self.registry.counter(f"kernel.{name}.calls").add(1)
+        if _on_cuda(args) or _on_cuda(list(kwargs.values())):
             import torch
 
-            annotation = torch.profiler.record_function(f"repro.{name}")
-        else:
-            annotation = nullcontext()
-        t0 = time.perf_counter()
-        with annotation:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
             out = fn(*args, **kwargs)
-            if _on_cuda(out):
-                import torch
-
-                torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        self.registry.counter(f"kernel.{name}.calls").add(1)
-        self.registry.histogram(f"kernel.{name}.seconds").observe(dt)
+            end.record()
+            self._pending.append((name, start, end))
+            return out
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        self.registry.histogram(f"kernel.{name}.seconds").observe(time.perf_counter() - t0)
         return out
+
+    def resolve(self) -> None:
+        """Fold the kept event pairs into ``kernel.<name>.seconds``
+        (waits for the last of them)."""
+        pending, self._pending = self._pending, []
+        for name, start, end in pending:
+            end.synchronize()
+            self.registry.histogram(f"kernel.{name}.seconds").observe(
+                start.elapsed_time(end) * 1e-3
+            )
 
     # -- aggregation --------------------------------------------------- #
     def summary(self) -> dict:
         """Flat JSON-safe summary merged into RunResult / sweep rows."""
+        self.resolve()
         return {
             "label": self.label,
             "spans": self.tracer.summary(),

@@ -10,13 +10,40 @@ Each finished span records its *inclusive* duration and the summed
 duration of its direct children (``child_s``); the difference is its
 *exclusive* (self) time, which is what per-plane breakdowns sum so
 that a plane's seconds are never double-counted against its callees'.
+
+Each span also records ``id`` (the tracer's sequence number, in the
+order spans open), ``parent`` (the ``id`` of the span enclosing it on
+its track, -1 at a track's top) and ``step`` (the index of the training
+step open when it opened, -1 outside steps; a loop opens its ``step``
+span through :meth:`SpanTracer.begin_step`).
+
+While ``torch.profiler`` records, every span also runs inside
+``torch.profiler.record_function("repro.<name>")``, so the program's
+phases sit on the profiler's clock beside the kernels and copies they
+launch; with the profiler off no range is entered.
 """
 
 from __future__ import annotations
 
 import time
 
-__all__ = ["Span", "SpanTracer"]
+from torch.autograd import profiler as _autograd_profiler
+
+__all__ = ["Span", "SpanTracer", "profiling"]
+
+
+def profiling() -> bool:
+    """True while a ``torch.profiler`` (or autograd profiler) records."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def _open_range(name: str):
+    """The entered ``record_function("repro.<name>")`` range."""
+    import torch
+
+    rf = torch.profiler.record_function("repro." + name)
+    rf.__enter__()
+    return rf
 
 
 class Span:
@@ -31,7 +58,12 @@ class Span:
         "depth",
         "nbytes",
         "child_s",
+        "id",
+        "parent",
+        "step",
         "_tracer",
+        "_range",
+        "_prev_step",
     )
 
     def __init__(self, tracer: "SpanTracer", name: str, pe: int, plane: str, nbytes: int):
@@ -44,6 +76,12 @@ class Span:
         self.t1 = 0.0
         self.depth = 0
         self.child_s = 0.0
+        self.id = -1
+        self.parent = -1
+        self.step = -1
+        self._range = None
+        # The tracer's step before this span opened one (None: it opens none).
+        self._prev_step = None
 
     @property
     def duration(self) -> float:
@@ -71,6 +109,9 @@ class Span:
             "t1": self.t1,
             "depth": self.depth,
             "nbytes": int(self.nbytes),
+            "id": self.id,
+            "parent": self.parent,
+            "step": self.step,
         }
 
 
@@ -80,6 +121,8 @@ class SpanTracer:
     def __init__(self):
         self.spans: list[Span] = []
         self._stacks: dict[int, list[Span]] = {}
+        self._next_id = 0
+        self._step = -1  # the open step's index, -1 outside steps
         self.origin = time.perf_counter()
 
     def span(self, name: str, pe: int = -1, plane: str = "", nbytes: int = 0) -> Span:
@@ -89,8 +132,30 @@ class SpanTracer:
     def _enter(self, span: Span) -> None:
         stack = self._stacks.setdefault(span.pe, [])
         span.depth = len(stack)
+        span.parent = stack[-1].id if stack else -1
+        span.id = self._next_id
+        self._next_id += 1
+        if span._prev_step is None:
+            span.step = self._step
+        else:
+            span._prev_step, self._step = self._step, span.step
         stack.append(span)
+        if profiling():
+            span._range = _open_range(span.name)
         span.t0 = time.perf_counter() - self.origin
+
+    @staticmethod
+    def _close_range(span: Span) -> None:
+        if span._range is not None:
+            rf, span._range = span._range, None
+            rf.__exit__(None, None, None)
+
+    def _drop(self, span: Span) -> None:
+        """Closes what a span left open that the recovery pops unexited:
+        its profiler range and, if it opened a step, the step."""
+        self._close_range(span)
+        if span._prev_step is not None:
+            self._step, span._prev_step = span._prev_step, None
 
     def _exit(self, span: Span) -> None:
         span.t1 = time.perf_counter() - self.origin
@@ -100,10 +165,12 @@ class SpanTracer:
         elif stack and span in stack:
             # Mis-nested begin/end (an exception unwound past an open
             # begin token): drop everything above it rather than corrupt
-            # the depth accounting for the rest of the run.
+            # the depth accounting for the rest of the run; their
+            # profiler ranges close first, innermost first.
             while stack[-1] is not span:
-                stack.pop()
+                self._drop(stack.pop())
             stack.pop()
+        self._drop(span)
         if stack:
             stack[-1].child_s += span.duration
         self.spans.append(span)
@@ -112,6 +179,15 @@ class SpanTracer:
     #    large re-indent); telemetry-off callers get None tokens ------- #
     def begin(self, name: str, pe: int = -1, plane: str = "", nbytes: int = 0) -> Span:
         span = self.span(name, pe=pe, plane=plane, nbytes=nbytes)
+        span.__enter__()
+        return span
+
+    def begin_step(self, name: str, step: int, pe: int = -1, plane: str = "") -> Span:
+        """:meth:`begin` a span that opens training step ``step``: it and
+        every span opened before it ends carry ``step``."""
+        span = self.span(name, pe=pe, plane=plane)
+        span.step = int(step)
+        span._prev_step = -1
         span.__enter__()
         return span
 

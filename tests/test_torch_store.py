@@ -161,7 +161,8 @@ def test_one_device_table_serves_every_route(monkeypatch, backend):
     uploads = []
     real = store._upload
     monkeypatch.setattr(
-        store, "_upload", lambda a, device=None: (uploads.append(a.size), real(a, device))[1]
+        store, "_upload",
+        lambda a, device=None, **kw: (uploads.append(a.size), real(a, device, **kw))[1],
     )
     table_size = K * store.n_max * store.feature_dim  # flat or shard view
     ids = np.array([3, 8, 3, 59])

@@ -283,18 +283,36 @@ class TestKernelProfiling:
             ops.gather_rows(table, idx)
         assert "kernel.gather_rows.calls" not in session.registry
 
-    @pytest.mark.parametrize("annotate", [False, True])
-    def test_aggregation_dispatchers_are_profiled(self, annotate):
+    @pytest.mark.parametrize("profiler", [False, True])
+    def test_aggregation_dispatchers_are_profiled(self, profiler, monkeypatch):
         """The reference's names for the two new dispatchers, timed the
-        same way; ``annotate=True`` runs each call under a
-        ``torch.profiler.record_function`` (a no-op without a profiler)."""
+        same way. Under ``torch.profiler`` each call runs inside one
+        ``record_function("repro.<name>")`` range; with the profiler off
+        no range is ever entered (``record_function`` made to raise)."""
         from repro_torch.kernels import ops
 
         table = torch.arange(20, dtype=torch.float32).reshape(5, 4)
         idx = torch.tensor([[0, 4], [1, 1]], dtype=torch.int64)
-        with tel.active(TelemetrySession(annotate=annotate)) as session:
-            mean = ops.gather_mean(table, idx)
-            sums = ops.segment_sum_equal(table[:4], 2)
+
+        def calls():
+            with tel.active(TelemetrySession()) as session:
+                mean = ops.gather_mean(table, idx)
+                sums = ops.segment_sum_equal(table[:4], 2)
+            return session, mean, sums
+
+        if profiler:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            with torch.profiler.profile(activities=acts) as prof:
+                session, mean, sums = calls()
+            names = [e.name for e in prof.events()]
+            for name in ("gather_mean", "segment_sum_equal"):
+                assert names.count(f"repro.{name}") == 1
+        else:
+            def refuse(*a, **k):
+                raise AssertionError("record_function entered with the profiler off")
+
+            monkeypatch.setattr(torch.profiler, "record_function", refuse)
+            session, mean, sums = calls()
         assert torch.equal(mean, (table[[0, 1]] + table[[4, 1]]) * 0.5)
         assert torch.equal(sums, table[[0, 2]] + table[[1, 3]])
         for name in ("gather_mean", "segment_sum_equal"):
