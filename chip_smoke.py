@@ -51,8 +51,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    2000), the same trainer with a ``FeatureStore(use_kernel=True)`` on the
    card, 8 epochs of one step each, both neighbour means on
    ``segment_sum_equal`` over the store's rows; ``fused_step``,
-   ``gather_rows_batch`` and ``segment_sum_equal`` against their plain
-   versions on the run's captured launches, all timed (``segment_sum_equal``
+   ``gather_rows_batch`` (the store's per-home pulls of misses and
+   admissions, one per store kernel gather), ``gather_rows`` (its flat
+   gathers of each PE's training rows through the node -> row map, one
+   per flat gather, P * steps + 1) and ``segment_sum_equal`` against their
+   plain versions on the run's captured launches, all timed (``segment_sum_equal``
    on ``x_n2`` also alone, by its device operations and host time); the
    fused step in
    both of its forms (the engine's, gate words in and the packed readback
@@ -79,7 +82,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    both aggregation kernels bit-exact on every launch of the run, timed as
    in phase 3, stage times beside phase 3's;
 6b. the wide ragged loop with the store: phase 3b's graph rebased, phase
-   3b's run through ``fused_step_wide`` and ``gather_rows_batch``: streams,
+   3b's run through ``fused_step_wide``, ``gather_rows_batch`` and
+   ``gather_rows`` (launches as phase 3b's, each bit-exact): streams,
    ``feat_sums``, bytes, state and payload equal to phase 3b's; the fused
    step checked, timed and its maps checked as in phase 3b, and
    ``segment_sum_equal`` bit-exact on every launch of the run;
@@ -144,8 +148,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    allclose, and said so), only ``gather_mean`` and ``segment_sum_equal``
    launched (P * steps + 1 each), every launch bit-exact; phase 3b's graph
    and run with a ``FeatureStore(use_kernel=True)``: the store streams
-   equal to phase 3b's, every ``gather_rows_batch`` launch counted (the
-   store's kernel gathers) and bit-exact; the scale-1 legacy run with
+   equal to phase 3b's, every ``gather_rows_batch`` launch (the store's
+   kernel gathers) and ``gather_rows`` launch (its flat gathers) counted
+   and bit-exact; the scale-1 legacy run with
    ``telemetry=True``: spans on PEs {-1, 0, 1, 2, 3} and phase 4b's
    digest; the legacy stage times beside phase 3's (phase 5 also
    re-records the 8 goldens on the legacy runtime);
@@ -283,7 +288,7 @@ import sys
 import tempfile
 import time
 import warnings
-from collections import defaultdict
+from collections import Counter, defaultdict
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -836,6 +841,47 @@ def check_captured(what, clock, max_err) -> int:
             )
             n += 1
     return n
+
+
+def check_store_launches(what, launches, store, trainer) -> None:
+    """Raise unless a store run's gathers went where they belong: the
+    per-home ``gather_rows_batch`` launches are the store's kernel gathers
+    (misses and admissions), and the ``gather_rows`` launches its flat
+    gathers of the training rows, one per PE and step plus the accuracy
+    pass."""
+    if not 0 < launches["gather_rows_batch"] == store.kernel_gathers:
+        raise AssertionError(
+            f"{what}: gather_rows_batch launches {launches['gather_rows_batch']} != "
+            f"store kernel gathers {store.kernel_gathers}"
+        )
+    calls = trainer.parts.num_parts * trainer.epochs * trainer.mb_per_epoch + 1
+    if not launches["gather_rows"] == store.flat_gathers == calls:
+        raise AssertionError(
+            f"{what}: gather_rows launches {launches['gather_rows']}, store flat "
+            f"gathers {store.flat_gathers}, want P * steps + 1 = {calls}"
+        )
+
+
+def check_store_gathers(what, clock, max_err) -> tuple[list, list]:
+    """Hold both store routes bit-exact against their plain versions on
+    every launch a run's ``clock`` captured: the per-home
+    ``gather_rows_batch`` and the flat ``gather_rows`` with its map.
+    Returns both lists of captured launches."""
+    from repro_torch.kernels import gather_rows as gr
+    from repro_torch.kernels import ref
+
+    caps = clock.launches["gather_rows_batch"], clock.launches["gather_rows"]
+    for name, kernel, plain, launches in (
+        ("gather_rows_batch", gr.gather_rows_batch_cuda, ref.gather_rows_batch, caps[0]),
+        ("gather_rows", gr.gather_rows_cuda, ref.gather_rows, caps[1]),
+    ):
+        for i, (args, kw) in enumerate(launches):
+            got = kernel(*args, **kw)
+            max_err[name] = max(
+                max_err[name],
+                compare_outputs(got, plain(*args, **kw), ["out"], f"{what} {name} {i}"),
+            )
+    return caps
 
 
 def check_compact(keys, part_of, what) -> float:
@@ -3267,9 +3313,10 @@ def main() -> int:
     )
     if steps != RAGGED["epochs"] or min(train_sizes) >= RAGGED["batch_size"]:
         raise AssertionError("phase 3b: expected ragged blocks and one step per epoch")
-    clock = StageClock(["fused_step_readback_batch", "gather_rows_batch", *AGGREGATION_KERNELS])
+    clock = StageClock(["fused_step_readback_batch", "gather_rows_batch", "gather_rows",
+                        *AGGREGATION_KERNELS])
     native.reset_launches()
-    store.kernel_gathers = 0
+    store.kernel_gathers = store.flat_gathers = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with telemetry.active(clock):
@@ -3283,11 +3330,7 @@ def main() -> int:
         raise AssertionError(f"launches {launches_ragged} != steps + 1 = {steps + 1}")
     if launches_ragged["fused_frontier_step"] != 0:
         raise AssertionError("the ragged run took the raw path")
-    if not 0 < launches_ragged["gather_rows_batch"] == store.kernel_gathers:
-        raise AssertionError(
-            f"gather_rows_batch launches {launches_ragged['gather_rows_batch']} != "
-            f"store kernel gathers {store.kernel_gathers}"
-        )
+    check_store_launches("phase 3b", launches_ragged, store, trainer)
     losses = np.asarray(result.losses)
     if len(losses) != steps or not np.isfinite(losses).all():
         raise AssertionError(f"losses {losses}")
@@ -3300,7 +3343,9 @@ def main() -> int:
     step_caps = clock.launches["fused_step_readback_batch"]
     print(
         f"phase 3b: {steps} steps, launches {launches_ragged} (fused_step = steps + 1, "
-        f"gather_rows_batch = the store's {store.kernel_gathers} kernel gathers, "
+        f"gather_rows_batch = the store's {store.kernel_gathers} per-home gathers of the "
+        f"misses and admissions, gather_rows = its {store.flat_gathers} flat gathers of "
+        f"each PE's training rows, P * steps + 1, "
         f"segment_sum_equal = 2 * (P * steps + 1) = {agg_ragged['segment_sum_equal']}, "
         f"gather_mean = 0: the store serves the rows), "
         f"transfers {transfers}, losses "
@@ -3319,22 +3364,17 @@ def main() -> int:
         "readback_per_step": clock.per_step("device.readback"),
         "store_serve": clock.ms("fetch.serve"),
         "store_gathers_device_cuda_events": clock.device_ms("gather_rows_batch"),
+        "train_gathers_device_cuda_events": clock.device_ms("gather_rows"),
         "train": clock.ms("train"),
     }, steps, wall)
 
     timings["fused_step"], extras["fused_step"] = check_fused_step(
         "phase 3b", step_caps, False, flush, max_err)
-    gather_caps = clock.launches["gather_rows_batch"]
-    for i, (args, _kw) in enumerate(gather_caps):
-        got = gr.gather_rows_batch_cuda(*args)
-        torch.cuda.synchronize()
-        max_err["gather_rows_batch"] = max(
-            max_err["gather_rows_batch"],
-            compare_outputs(got, ref.gather_rows_batch(*args), ["out"], f"gather {i}"),
-        )
+    gather_caps, flat_caps = check_store_gathers("phase 3b", clock, max_err)
     n_agg = check_captured("phase 3b", clock, max_err)
     print(f"phase 3b: kernel == plain, bit-exact, on all {len(gather_caps)} "
-          f"gather_rows_batch and {n_agg} segment_sum_equal launches of the run")
+          f"gather_rows_batch, {len(flat_caps)} gather_rows and {n_agg} "
+          f"segment_sum_equal launches of the run")
     # The layer-2 mean over the store's rows: the run's largest reduction.
     data, k = max(clock.launches["segment_sum_equal"], key=lambda c: c[0][0].numel())[0]
     seg_shape = (data.shape[0] // k, k, data.shape[1])
@@ -3362,7 +3402,7 @@ def main() -> int:
     in_run["phase 3b"] = aggregation_in_run("phase 3b", clock)
     del data, outs
 
-    # The largest gather of the run (the training step's feature rows).
+    # The largest per-home gather of the run (a step's misses and admissions).
     tables, idx = max(gather_caps, key=lambda c: c[0][1].numel())[0]
     P, N, F = tables.shape
     Mg = idx.shape[1]
@@ -3374,7 +3414,7 @@ def main() -> int:
         library=lambda: torch.gather(tables, 1, idx_long),
     )
     # The rows this gather must read are its distinct (shard, row) pairs:
-    # a minibatch's feature gather repeats rows, and a repeat is an L2 hit.
+    # a gather that repeats a row reads it again from L2.
     uniq = torch.unique(
         idx.long() + N * torch.arange(P, device=dev)[:, None]
     ).numel()
@@ -3387,24 +3427,29 @@ def main() -> int:
         f"torch.gather {l_ms:.4f} ms; {nbytes} bytes ({uniq} distinct rows read, "
         f"{P * Mg} written); bound {b_ms:.4f} ms ({b_by})"
     )
-    # The single-table form on shard 0 of the same launch.
-    t0_, i0 = tables[0], idx[0].contiguous()
-    i0_long = i0.long()
+    # The largest flat gather of the run: a PE's training rows, read from
+    # the flat table through the store's node -> row map in the launch.
+    table_f, ids_f, loc_f = max(flat_caps, key=lambda c: c[0][1].numel())[0]
+    Mf, Ff = ids_f.shape[0], table_f.shape[1]
+    rows_f = loc_f[ids_f.long()].long()
     k_ms, p_ms, l_ms, raw = time_pair(
-        lambda: gr.gather_rows_cuda(t0_, i0),
-        lambda: ref.gather_rows(t0_, i0),
+        lambda: gr.gather_rows_cuda(table_f, ids_f, loc_f),
+        lambda: ref.gather_rows(table_f, ids_f, loc_f),
         flush,
-        library=lambda: t0_.index_select(0, i0_long),
+        library=lambda: table_f.index_select(0, loc_f[ids_f.long()].long()),
     )
-    uniq0 = torch.unique(i0).numel()
-    nbytes = uniq0 * F * 4 + Mg * F * 4 + Mg * 4
+    uniq_f = torch.unique(rows_f).numel()
+    # Distinct rows read, rows written, the ids and their map entries.
+    nbytes = uniq_f * Ff * 4 + Mf * Ff * 4 + Mf * 4 + Mf * 4
     b_ms, b_by = bound(nbytes, 0)
     timings["gather_rows"] = (k_ms, p_ms, l_ms, b_ms, b_by)
     print(
-        f"phase 3b: gather_rows at N={N}, M={Mg}, F={F} (shard 0 of that launch): "
-        f"kernel {raw[0]:.4f}/{raw[1]:.4f} ms, plain {raw[2]:.4f}/{raw[3]:.4f} ms, "
-        f"index_select {l_ms:.4f} ms; {nbytes} bytes ({uniq0} distinct rows read); "
-        f"bound {b_ms:.4f} ms ({b_by})"
+        f"phase 3b: gather_rows with the map at N={table_f.shape[0]}, M={Mf}, F={Ff} "
+        f"(the store's flat table, a PE's training rows): kernel "
+        f"{raw[0]:.4f}/{raw[1]:.4f} ms, plain {raw[2]:.4f}/{raw[3]:.4f} ms, "
+        f"map lookup + index_select {l_ms:.4f} ms; {nbytes} bytes ({uniq_f} distinct rows "
+        f"read); bound {b_ms:.4f} ms ({b_by}); device ms per launch over the run (CUDA "
+        f"events), median {float(np.median(clock.device_ms('gather_rows'))):.4f}"
     )
     g_papers, papers = g, (trainer, result)
     parts_papers, result_papers = parts, result
@@ -3412,7 +3457,8 @@ def main() -> int:
         "step": clock.ms("step"), "sample_host": clock.ms("sample"),
         "store_serve": clock.ms("fetch.serve"), "train": clock.ms("train")}.items()}
     stats_papers = {f: getattr(trainer.engine.stats, f).copy() for f in STATS}
-    del trainer, result, clock, step_caps, gather_caps, store, g, parts, tables, idx
+    del trainer, result, clock, step_caps, gather_caps, flat_caps, store, g, parts, tables, idx
+    del table_f, ids_f, loc_f, rows_f
 
     # -- 4. card vs CPU, end to end --------------------------------------- #
     g1 = generate("products", seed=0, scale=SMALL_SCALE)
@@ -3488,9 +3534,15 @@ def main() -> int:
         key = f"kernel.{DISPATCHER_OF.get(name, name)}.calls"
         if key not in reg or reg[key].total != n:
             raise AssertionError(f"phase 4b: {key} != {n} launches of {name}")
+    # A step's train plane: its `train` span, and each PE's inputs and
+    # loss wait (`train.features`, `train.wait`).
     train_spans = [sp for sp in session.tracer.spans if sp.plane == "train"]
-    if len(train_spans) != t_on.epochs * t_on.mb_per_epoch:
-        raise AssertionError(f"phase 4b: {len(train_spans)} train-plane spans")
+    steps_on = t_on.epochs * t_on.mb_per_epoch
+    by_name = Counter(sp.name for sp in train_spans)
+    pe_steps = t_on.parts.num_parts * steps_on
+    want = {"train": steps_on, "train.features": pe_steps, "train.wait": pe_steps}
+    if by_name != want:
+        raise AssertionError(f"phase 4b: train-plane spans {dict(by_name)} != {want}")
     with tempfile.TemporaryDirectory() as tmp:
         jsonl = write_jsonl(session, Path(tmp) / "run.jsonl")
         chrome = Path(tmp) / "trace.json"
@@ -3621,9 +3673,10 @@ def main() -> int:
     steps = trainer.epochs * trainer.mb_per_epoch
     print(f"phase 6b: papers scale={RAGGED_SCALE} rebased to id_base {WIDE_BASE}, "
           f"phase 3b's run; set-up {time.perf_counter() - t0:.1f} s")
-    clock = StageClock(["fused_step_readback_batch", "gather_rows_batch", *AGGREGATION_KERNELS])
+    clock = StageClock(["fused_step_readback_batch", "gather_rows_batch", "gather_rows",
+                        *AGGREGATION_KERNELS])
     native.reset_launches()
-    store.kernel_gathers = 0
+    store.kernel_gathers = store.flat_gathers = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with telemetry.active(clock):
@@ -3633,16 +3686,19 @@ def main() -> int:
     launches_wide_ragged = dict(native.LAUNCHES)
     no_staged_launches("phase 6b", launches_wide_ragged)
     check_aggregation("phase 6b", launches_wide_ragged, trainer)
+    check_store_launches("phase 6b", launches_wide_ragged, store, trainer)
     if (launches_wide_ragged["fused_step_wide"] != steps + 1
             or launches_wide_ragged["fused_step"]
-            or launches_wide_ragged["gather_rows_batch"] != store.kernel_gathers
-            or launches_wide_ragged["gather_rows_batch"]
-            != launches_ragged["gather_rows_batch"]):
+            or any(launches_wide_ragged[k] != launches_ragged[k]
+                   for k in ("gather_rows_batch", "gather_rows"))):
         raise AssertionError(f"phase 6b: launches {launches_wide_ragged}")
+    gathers_6b, flat_6b = check_store_gathers("phase 6b", clock, max_err)
     diff = compare_runs("phase 6b (wide vs phase 3b)", trainer, result, *papers, True, WIDE_BASE)
     print(
         f"phase 6b: {steps} steps, launches {launches_wide_ragged} (fused_step_wide = "
-        f"steps + 1, gather_rows_batch = phase 3b's), transfers "
+        f"steps + 1, gather_rows_batch and gather_rows = phase 3b's, all "
+        f"{len(gathers_6b)} + {len(flat_6b)} bit-exact, the flat gathers from ids "
+        f"rebased on the host), transfers "
         f"{trainer.last_device_engine.transfers}; every stream (feat_sums and bytes "
         f"included), engine.stats, the buffer state and payload equal phase 3b's "
         f"(ids + {WIDE_BASE}), losses allclose (max |diff| {diff:.3g}); wall {wall:.2f} s"
@@ -3663,7 +3719,7 @@ def main() -> int:
     print(f"phase 6b: kernel == plain, bit-exact, on all {n_agg} segment_sum_equal "
           f"launches of the run")
     in_run["phase 6b"] = aggregation_in_run("phase 6b", clock)
-    del trainer, result, clock, step_caps, store, parts, papers, g_papers
+    del trainer, result, clock, step_caps, store, parts, papers, g_papers, gathers_6b, flat_6b
 
     # -- 7. the readback cadence ------------------------------------------ #
     g_wide = g_main.rebase(WIDE_BASE)
@@ -4215,9 +4271,9 @@ def main() -> int:
     store = FeatureStore.for_partitions(parts_papers, device=DEVICE, use_kernel=True)
     trainer = DistributedTrainer(parts_papers, device=DEVICE, feature_store=store,
                                  runtime="legacy", **RAGGED)
-    clock = StageClock(["gather_rows_batch", *AGGREGATION_KERNELS])
+    clock = StageClock(["gather_rows_batch", "gather_rows", *AGGREGATION_KERNELS])
     native.reset_launches()
-    store.kernel_gathers = 0
+    store.kernel_gathers = store.flat_gathers = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with telemetry.active(clock):
@@ -4227,21 +4283,11 @@ def main() -> int:
     launches_legacy_store = dict(native.LAUNCHES)
     check_aggregation("phase 11 (store)", launches_legacy_store, trainer)
     only_kernels("phase 11 (store)", launches_legacy_store,
-                 ("gather_rows_batch", *AGGREGATION_KERNELS))
-    if not 0 < launches_legacy_store["gather_rows_batch"] == store.kernel_gathers:
-        raise AssertionError(f"phase 11 (store): gather_rows_batch launches "
-                             f"{launches_legacy_store['gather_rows_batch']} != store kernel "
-                             f"gathers {store.kernel_gathers}")
+                 ("gather_rows_batch", "gather_rows", *AGGREGATION_KERNELS))
+    check_store_launches("phase 11 (store)", launches_legacy_store, store, trainer)
     same, diff = compare_legacy("phase 11 (legacy + store vs phase 3b)", trainer, result,
                                 result_papers, stats_papers, True)
-    gather_caps = clock.launches["gather_rows_batch"]
-    for i, (args, _kw) in enumerate(gather_caps):
-        got = gr.gather_rows_batch_cuda(*args)
-        torch.cuda.synchronize()
-        max_err["gather_rows_batch"] = max(
-            max_err["gather_rows_batch"],
-            compare_outputs(got, ref.gather_rows_batch(*args), ["out"], f"legacy gather {i}"),
-        )
+    gather_caps, flat_caps = check_store_gathers("phase 11 (store)", clock, max_err)
     n_agg = check_captured("phase 11 (store)", clock, max_err)
     gather_in_run = round(float(np.median(clock.device_ms("gather_rows_batch"))), 4)
     print(
@@ -4251,15 +4297,16 @@ def main() -> int:
         f"measured == modeled), epoch_times equal; losses "
         + ("bit-identical" if same else f"allclose, max |diff| {diff:.3g}")
         + f"; launches {({k: v for k, v in launches_legacy_store.items() if v})}: "
-        f"gather_rows_batch = the store's {store.kernel_gathers} kernel gathers (misses and "
-        f"admissions after each PE loop, each PE's training rows), all {len(gather_caps)} "
+        f"gather_rows_batch = the store's {store.kernel_gathers} per-home gathers (misses "
+        f"and admissions after each PE loop), gather_rows = its {store.flat_gathers} flat "
+        f"gathers (each PE's training rows), all {len(gather_caps)} + {len(flat_caps)} "
         f"bit-exact, and all {n_agg} segment_sum_equal; gather_rows_batch device ms per "
         f"launch (CUDA events), median {gather_in_run}; wall {wall:.2f} s"
     )
     in_run["phase 11 (store)"] = aggregation_in_run("phase 11 (store)", clock)
     print("phase 11 (store) vs phase 3b, median ms per step: " + json.dumps(
         {"legacy": legacy_stages(clock), "phase 3b": stages_papers}))
-    del trainer, result, clock, store, gather_caps
+    del trainer, result, clock, store, gather_caps, flat_caps
 
     # Telemetry on the legacy loop: per-PE tracks, the vectorized digest.
     tr = DistributedTrainer(p1g, device=DEVICE, trace=True, telemetry=True, runtime="legacy",
@@ -4554,8 +4601,15 @@ def main() -> int:
     launches = {
         "fused_frontier_step": (launches_raw["fused_frontier_step"], "phase 3 (raw path)"),
         "fused_step": (launches_ragged["fused_step"], "phase 3b (ragged path)"),
-        "gather_rows_batch": (launches_ragged["gather_rows_batch"], "phase 3b (ragged path)"),
-        "gather_rows": (phase2["gather_rows"], "phase 2 only: no trainer path calls it"),
+        "gather_rows_batch": (
+            launches_ragged["gather_rows_batch"],
+            "phase 3b (ragged path: the store's miss and admission pulls)",
+        ),
+        "gather_rows": (
+            launches_ragged["gather_rows"],
+            "phase 3b (ragged path: the store's flat gathers of each PE's training rows); "
+            f"phase 2: {phase2['gather_rows']}",
+        ),
         "fused_frontier_step_wide": (
             launches_wide["fused_frontier_step_wide"],
             "phase 6 (wide raw path); phase 7 cadence: "

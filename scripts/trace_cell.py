@@ -15,8 +15,15 @@ and one more with ``torch.profiler`` over it too, where each dispatcher's
 ``kernel.<name>.seconds`` is set beside the profiler's device time of the
 operations launched inside its ``repro.<name>`` ranges.
 
+With ``--ops-in SPAN`` it runs one more call under ``torch.profiler`` and
+lists the device operations launched inside the program's
+``repro.<SPAN>`` ranges (e.g. ``train.features``), by name, with their
+launches and device seconds. ``--src PATH`` runs the program of another
+tree (e.g. a ``git archive`` of a parent under ``_checkout/``) with this
+tree's benchmark.
+
     python3 scripts/trace_cell.py --workload products-rudder --seed N \\
-        [--calls 3] [--kernels] [--out DIR]
+        [--calls 3] [--kernels] [--ops-in SPAN] [--src PATH] [--out DIR]
 
 Needs a card; prints the card's name and power limit first and, last,
 one JSON line of the numbers.
@@ -82,7 +89,40 @@ def kernel_seconds(trainer, torch, profiled: bool) -> dict:
     return rows
 
 
-def trace(cell, seed: int, calls: int, kernels: bool, out: Path, device) -> dict:
+def ops_inside(trainer, torch, span: str) -> dict:
+    """One call under ``torch.profiler`` with the program's spans on: the
+    device operations launched inside its ``repro.<span>`` ranges, by
+    name, as ``[launches, device seconds]``."""
+    from benchlib.profile import DEVICE_CATS, LAUNCH_CATS, read_events
+    from repro_torch.telemetry import TelemetrySession
+
+    trainer.telemetry = TelemetrySession(label="ops", profile_kernels=False)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        trainer.run()
+        torch.cuda.synchronize()
+    trainer.telemetry = False
+    events = read_events(prof)
+    ranges = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e.get("tid"))
+              for e in events
+              if e.get("cat") == "user_annotation" and e["name"] == f"repro.{span}"]
+    launched = {
+        (e.get("args") or {}).get("correlation")
+        for e in events
+        if e.get("cat") in LAUNCH_CATS
+        and any(t == e.get("tid") and a <= float(e["ts"]) <= b for a, b, t in ranges)
+    }
+    ops: dict = {}
+    for e in events:
+        if e.get("cat") in DEVICE_CATS and (e.get("args") or {}).get("correlation") in launched:
+            row = ops.setdefault(e["name"], [0, 0.0])
+            row[0] += 1
+            row[1] += float(e["dur"]) * 1e-6
+    return {"ranges": len(ranges), "ops": ops}
+
+
+def trace(cell, seed: int, calls: int, kernels: bool, out: Path, device,
+          ops_in: str | None = None) -> dict:
     """The numbers of one cell (see the module note); ``device`` is the
     card, or the CPU for a rehearsal at a tiny size (no ``kernels``)."""
     import torch
@@ -139,6 +179,12 @@ def trace(cell, seed: int, calls: int, kernels: bool, out: Path, device) -> dict
             print(f"{name}: {prof['calls']} calls; events {prof['events_s']!r} s "
                   f"(without the profiler {alone['events_s']!r} s), profiler "
                   f"{prof['profiler_s']!r} s, ratio {ratio!r}")
+    if ops_in:
+        line["ops_in"] = {ops_in: ops_inside(trainer, torch, ops_in)}
+        found = line["ops_in"][ops_in]
+        print(f"device operations inside {found['ranges']} repro.{ops_in} ranges:")
+        for name, (n, sec) in sorted(found["ops"].items(), key=lambda kv: -kv[1][1]):
+            print(f"  {n} x {sec * 1e3:.3f} ms  {name[:120]}")
     return line
 
 
@@ -148,8 +194,12 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=2**31 + 5)
     ap.add_argument("--calls", type=int, default=3)
     ap.add_argument("--kernels", action="store_true")
+    ap.add_argument("--ops-in", default=None, metavar="SPAN")
+    ap.add_argument("--src", default=None, metavar="PATH")
     ap.add_argument("--out", default="chiprun_out")
     args = ap.parse_args()
+    if args.src:
+        sys.path.insert(0, str(Path(args.src).resolve()))
 
     import torch
 
@@ -164,7 +214,7 @@ def main() -> int:
     ).stdout.strip()
     print(card)
     line = trace(cells.find_cell(args.workload), args.seed, args.calls, args.kernels,
-                 Path(args.out), "cuda")
+                 Path(args.out), "cuda", args.ops_in)
     print(json.dumps({"card": card, **line}))
     return 0
 

@@ -8,6 +8,12 @@
 // form is the P = 1 view, through the same entry point. Spec:
 // repro_torch/kernels/ref.py::gather_rows_batch / ::gather_rows.
 //
+// The single-table form also takes an optional int32 node -> row map:
+//   out[i, :] = table[map[idx[i]], :]
+// so the feature store's training gather reads its node ids' rows of the
+// flat table in request order, the map lookup inside the launch (one more
+// 4-byte load per row; the map is the store's device_view loc).
+//
 // What bounds it on this card: bytes, 2 * M * F * 4 per PE (each gathered
 // row read once and written once) plus the index; there is no arithmetic.
 //
@@ -29,18 +35,20 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxBlocks = 132 * 16;
 
-template <bool kVec>
+template <bool kVec, bool kMap>
 __global__ void __launch_bounds__(kThreads)
     gather_rows_kernel(int64_t rows_total, int M, int64_t N, int F,
                        const float* __restrict__ tables,
                        const int32_t* __restrict__ idx,
+                       const int32_t* __restrict__ map,
                        float* __restrict__ out) {
   const int lane = threadIdx.x & 31;
   const int64_t warp = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int64_t n_warps = ((int64_t)gridDim.x * blockDim.x) >> 5;
   for (int64_t r = warp; r < rows_total; r += n_warps) {
     const int64_t p = r / M;
-    const int64_t row = (int64_t)idx[r];
+    const int64_t row =
+        kMap ? (int64_t)__ldg(map + idx[r]) : (int64_t)idx[r];
     const float* src = tables + (p * N + row) * F;
     float* dst = out + r * F;
     if (kVec) {
@@ -53,14 +61,29 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <bool kMap>
+void launch(int blocks, cudaStream_t s, bool vec, int64_t rows_total, int M,
+            int64_t N, int F, const float* tables, const int32_t* idx,
+            const int32_t* map, float* out) {
+  if (vec) {
+    gather_rows_kernel<true, kMap><<<blocks, kThreads, 0, s>>>(
+        rows_total, M, N, F, tables, idx, map, out);
+  } else {
+    gather_rows_kernel<false, kMap><<<blocks, kThreads, 0, s>>>(
+        rows_total, M, N, F, tables, idx, map, out);
+  }
+}
+
 }  // namespace
 
-// out (P, M, F) = tables (P, N, F) gathered at idx (P, M), on `stream`.
-// Pointers are device pointers of contiguous tensors. Returns the
-// cudaError_t of the launch, or 0.
+// out (P, M, F) = tables (P, N, F) gathered at idx (P, M), on `stream`; with
+// a map (P = 1 only), at rows map[idx]. Pointers are device pointers of
+// contiguous tensors; map may be null. Returns the cudaError_t of the
+// launch, or 0.
 extern "C" int rudder_gather_rows(int P, int64_t N, int M, int F,
                                   const float* tables, const int32_t* idx,
-                                  float* out, void* stream) {
+                                  const int32_t* map, float* out,
+                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t rows_total = (int64_t)P * M;
   if (rows_total <= 0 || F <= 0) return 0;
@@ -70,12 +93,10 @@ extern "C" int rudder_gather_rows(int P, int64_t N, int M, int F,
   const bool vec = F % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(tables) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  if (vec) {
-    gather_rows_kernel<true><<<blocks, kThreads, 0, s>>>(rows_total, M, N, F,
-                                                         tables, idx, out);
+  if (map != nullptr) {
+    launch<true>(blocks, s, vec, rows_total, M, N, F, tables, idx, map, out);
   } else {
-    gather_rows_kernel<false><<<blocks, kThreads, 0, s>>>(rows_total, M, N, F,
-                                                          tables, idx, out);
+    launch<false>(blocks, s, vec, rows_total, M, N, F, tables, idx, map, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

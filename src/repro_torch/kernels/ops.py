@@ -431,15 +431,17 @@ def pack_readback(hit, hit_slot, placed, slot_pos, n_valid):
 
 
 @telemetry.profiled("gather_rows")
-def gather_rows(table, indices):
-    """``table (N, F)``, ``indices (M,)`` int32 → ``(M, F)``. CPU tensors:
-    :func:`repro_torch.kernels.ref.gather_rows`; CUDA: the Hopper gather
+def gather_rows(table, indices, loc=None):
+    """``table (N, F)``, ``indices (M,)`` int32 → ``(M, F)``; with an int32
+    node -> row map ``loc``, rows ``table[loc[indices]]`` (the map read in
+    the launch). CPU tensors: :func:`repro_torch.kernels.ref.gather_rows`;
+    CUDA: the Hopper gather
     (:func:`repro_torch.kernels.gather_rows.gather_rows_cuda`)."""
     if _route("gather_rows", table) == "cpu":
-        return ref.gather_rows(table, indices)
+        return ref.gather_rows(table, indices, loc)
     from .gather_rows import gather_rows_cuda
 
-    return gather_rows_cuda(table, indices)
+    return gather_rows_cuda(table, indices, loc)
 
 
 @telemetry.profiled("gather_rows_batch")

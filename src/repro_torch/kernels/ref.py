@@ -434,10 +434,12 @@ def fused_step_wide(
     )
 
 
-def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def gather_rows(table: torch.Tensor, idx: torch.Tensor, loc: torch.Tensor | None = None) -> torch.Tensor:
     """``table (N, F)``, ``idx (M,)`` → ``(M, F)``: the spec of
-    ``csrc/gather_rows.cu``'s single-table entry."""
-    return table[idx.long()]
+    ``csrc/gather_rows.cu``'s single-table entry; with a node -> row map
+    ``loc (L,)``, row ``i`` is ``table[loc[idx[i]]]``."""
+    rows = idx.long() if loc is None else loc[idx.long()].long()
+    return table[rows]
 
 
 def gather_rows_batch(tables: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

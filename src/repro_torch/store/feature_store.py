@@ -19,12 +19,23 @@ Backends:
   there; values are bit-identical (a gather copies rows, it never
   rounds).
 
-``use_kernel=True`` routes every gather through
-:func:`repro_torch.kernels.ops.gather_rows_batch` on the ``(K, N_max,
-F)`` shard view on ``device``: requests are bucketed by home partition
-into a dense ``(K, M_max)`` local-row matrix (the DistDGL KVStore pull
-shape) and served by one launch. :attr:`FeatureStore.kernel_gathers`
-counts those launches.
+Which route serves a gather depends on the method called:
+
+* :meth:`FeatureStore.gather_tensor` — the training step's rows, large,
+  duplicate-heavy and kept on the card — is one flat gather on a device
+  route (``use_kernel=True`` or ``backend="torch"``): the local ids go up
+  once as int32 (site ``store.ids``), and one
+  :func:`repro_torch.kernels.ops.gather_rows` launch reads their rows of
+  the flat table through :meth:`FeatureStore.device_view`'s int32 map, in
+  request order. :attr:`FeatureStore.flat_gathers` counts those launches
+  (telemetry: ``store.flat_gathers``, ``store.flat_rows``).
+* :meth:`FeatureStore.gather` and :meth:`FeatureStore.gather_batch` — the
+  miss and admission rows that go back to the host — keep the per-home
+  pull with ``use_kernel=True``: requests are bucketed by home partition
+  into a dense ``(K, M_max)`` local-row matrix (the DistDGL KVStore pull
+  shape) and served by one :func:`repro_torch.kernels.ops.gather_rows_batch`
+  launch on the ``(K, N_max, F)`` shard view.
+  :attr:`FeatureStore.kernel_gathers` counts those launches.
 """
 
 from __future__ import annotations
@@ -118,8 +129,16 @@ class FeatureStore:
         # all share.
         self._dev = None
         self._dev_view: dict = {}  # device -> (flat table, int32 loc)
-        #: Kernel launches this store made (non-empty kernel-path gathers).
+        # gather_tensor's kept pinned id buffer and the event recorded after
+        # its last copy to the card (None until the first flat gather there).
+        self._ids_buf = None
+        self._ids_sent = None
+        #: ``gather_rows_batch`` launches this store made: the per-home
+        #: pulls of :meth:`gather` / :meth:`gather_batch` (the miss and
+        #: admission rows), not the training rows of :meth:`gather_tensor`.
         self.kernel_gathers = 0
+        #: ``gather_rows`` launches of :meth:`gather_tensor`'s flat route.
+        self.flat_gathers = 0
 
     # ------------------------------------------------------------------ #
     @classmethod
@@ -189,19 +208,65 @@ class FeatureStore:
         return view
 
     # ------------------------------------------------------------------ #
-    def _rows_of(self, ids: np.ndarray) -> np.ndarray:
+    def _checked(self, ids: np.ndarray) -> np.ndarray:
+        """``ids`` as flat int64 global ids; ``IndexError`` if any lies
+        outside ``[id_base, id_base + num_nodes)``."""
         flat = ids.reshape(-1).astype(np.int64, copy=False)
-        if self.id_base:
-            flat = flat - np.int64(self.id_base)
         if flat.size:
             lo, hi = int(flat.min()), int(flat.max())
-            if lo < 0 or hi >= self.num_nodes:
+            if lo < self.id_base or hi >= self.id_base + self.num_nodes:
                 raise IndexError(
                     f"node id out of range "
                     f"[{self.id_base}, {self.id_base + self.num_nodes}): "
-                    f"min {lo + self.id_base}, max {hi + self.id_base}"
+                    f"min {lo}, max {hi}"
                 )
+        return flat
+
+    def _rows_of(self, ids: np.ndarray) -> np.ndarray:
+        flat = self._checked(ids)
+        if self.id_base:
+            flat = flat - np.int64(self.id_base)
         return self._loc[flat]
+
+    def _local_ids_on_device(self, flat: np.ndarray) -> torch.Tensor:
+        """``flat - id_base`` as int32 on the store's device, one copy
+        counted at site ``store.ids``. On a card the copy leaves from a
+        kept pinned buffer without blocking; the buffer is overwritten only
+        once the event recorded after its previous copy has passed."""
+        M = flat.size
+        if self.device.type != "cuda":
+            local = (flat - np.int64(self.id_base)).astype(np.int32)
+            return self._upload(local, site="store.ids")
+        if self._ids_buf is None or self._ids_buf.numel() < M:
+            # The old buffer's copy in flight keeps its block alive: the
+            # pinned allocator frees it only after that copy's event.
+            self._ids_buf = torch.empty(M, dtype=torch.int32, pin_memory=True)
+        elif self._ids_sent is not None:
+            self._ids_sent.synchronize()
+        host = self._ids_buf[:M]
+        np.subtract(flat, np.int64(self.id_base), out=host.numpy(), casting="unsafe")
+        tel.copied("store.ids", "h2d", host.numel() * 4)
+        local = host.to(self.device, non_blocking=True)
+        self._ids_sent = torch.cuda.Event()
+        self._ids_sent.record(torch.cuda.current_stream(self.device))
+        return local
+
+    def _gather_flat(self, ids: np.ndarray) -> torch.Tensor:
+        """The rows of ``ids`` as an ``(M, F)`` tensor on the store's device,
+        in request order: one ``gather_rows`` launch on the flat table,
+        the map from node to row read inside it (:meth:`device_view`)."""
+        from ..kernels import ops
+
+        flat = self._checked(ids)
+        M = flat.size
+        if M == 0:
+            return torch.zeros((0, self.feature_dim), dtype=torch.float32, device=self.device)
+        table, loc = self.device_view()
+        out = ops.gather_rows(table, self._local_ids_on_device(flat), loc)
+        self.flat_gathers += 1
+        tel.count("store.flat_gathers", 1)
+        tel.count("store.flat_rows", M)
+        return out
 
     def _gather_on_device(self, rows: np.ndarray) -> torch.Tensor:
         """Rows of the flat table as an ``(M, F)`` tensor on the store's
@@ -260,11 +325,13 @@ class FeatureStore:
     def gather_tensor(self, ids, device) -> torch.Tensor:
         """:meth:`gather` as an ``(len(ids), F)`` tensor on ``device``:
         the training step's feature rows, kept on the card when the store
-        gathers there (no host round trip); bit-identical rows."""
-        rows = self._rows_of(np.asarray(ids))
+        gathers there (no host round trip); bit-identical rows. A device
+        route serves them by one flat gather (no bucketing by home); the
+        numpy backend indexes its host table and uploads the rows."""
+        ids = np.asarray(ids)
         if self.use_kernel or self.backend == "torch":
-            return self._gather_on_device(rows).to(device)
-        return self._upload(self._flat[rows], device, site="store.rows")
+            return self._gather_flat(ids).to(device)
+        return self._upload(self._flat[self._rows_of(ids)], device, site="store.rows")
 
     def gather_batch(self, id_lists, device: bool = False) -> StoreGather:
         """One timed gather for a whole cluster's per-PE request lists:

@@ -6,7 +6,8 @@ The kernels are built from ``src/repro_torch/kernels/csrc`` at first use.
 Every kernel is held bit for bit against its plain PyTorch version on the
 same CUDA tensors (``fused_frontier_step``, ``fused_step``,
 ``gather_rows_batch`` and ``gather_rows`` over their seeded scenario
-sets; ``fused_frontier_step_wide`` and ``fused_step_wide`` over the wide
+sets, and the feature store's flat training gather at the papers shape,
+four PEs back to back on one kept pinned id buffer; ``fused_frontier_step_wide`` and ``fused_step_wide`` over the wide
 sets, in both index modes of the kernels; ``frontier_unique_batch`` in
 both instantiations and both forms (the reference's masks and the
 sampler's compacted ids) and the three score entries over theirs, and
@@ -111,6 +112,44 @@ def test_gather_kernels_match_plain(card, sc):
     assert native.LAUNCHES["gather_rows"] == before["gather_rows"] + ran
     assert _equal(got, ref.gather_rows_batch(tables, idx))
     assert _equal(single, ref.gather_rows(tables[0], idx[0]))
+
+
+@pytest.mark.parametrize("id_base", [0, 1000])
+def test_store_flat_gather_at_the_papers_shape(card, id_base):
+    # The training rows' route: gather_tensor's flat gather (one
+    # gather_rows launch, the map read inside it) at the papers cell's
+    # shape, four PEs back to back with the card held busy first, so each
+    # PE's id copy is still queued when the next PE writes its ids: the
+    # kept pinned buffer must wait for the earlier copy. Every PE's rows
+    # equal the host table's, bit for bit.
+    from repro_torch.store import FeatureStore
+
+    N, F, K, M = 600_000, 128, 4, 522_000
+    rng = np.random.default_rng(32)
+    feats = rng.standard_normal((N, F)).astype(np.float32)
+    part_of = rng.integers(0, K, size=N)
+    store = FeatureStore(feats, part_of, K, id_base=id_base, use_kernel=True, device=card)
+    store.device_view()  # the table's upload, outside the timed queue
+    # Duplicate-heavy requests: most ids from a hot set of 20,000 nodes.
+    hot = rng.integers(0, N, size=20_000)
+    requests = [
+        np.where(rng.random(M) < 0.8, hot[rng.integers(0, len(hot), size=M)],
+                 rng.integers(0, N, size=M)).astype(np.int64) + id_base
+        for _ in range(4)
+    ]
+    assert all(len(np.unique(r)) < M // 2 for r in requests)
+    before = dict(native.LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of a busy stream
+    outs = [store.gather_tensor(r, card) for r in requests]
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["gather_rows"] == before["gather_rows"] + 4
+    assert native.LAUNCHES["gather_rows_batch"] == before["gather_rows_batch"]
+    assert store.flat_gathers == 4 and store.kernel_gathers == 0
+    for r, out in zip(requests, outs):
+        assert out.shape == (M, F)
+        assert np.array_equal(out.cpu().numpy().view(np.int32),
+                              feats[r - id_base].view(np.int32))
 
 
 @pytest.mark.parametrize("store", [False, True], ids=["modeled", "store"])

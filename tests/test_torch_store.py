@@ -9,6 +9,10 @@
   ``torch`` device table and the ``use_kernel=True`` per-home route —
   against ``repro.store.FeatureStore``: ``gather``, ``gather_batch`` blocks
   and ``nbytes``, ``home_of``, ``shards``, ``device_view`` and ``poke``.
+* ``gather_tensor``'s flat route (one ``gather_rows`` launch on the flat
+  table through ``device_view``'s map, no bucketing by home) against
+  ``feats[ids - id_base]`` and the reference, with its launch and copy
+  counts, and a training run through it against one on the numpy store.
 
 Tolerance: none. A gather copies rows; every comparison is exact.
 """
@@ -16,6 +20,8 @@ Tolerance: none. A gather copies rows; every comparison is exact.
 import numpy as np
 import pytest
 import torch
+
+from repro_torch import telemetry as tel
 
 from repro.kernels import ref as jref
 from repro.kernels.gather_rows import gather_rows as jgather_rows
@@ -182,3 +188,121 @@ def test_store_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
     feats, part_of, K, _ = _data()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FeatureStore(feats, part_of, K)
+
+
+# --------------------------------------------------------------------------- #
+# gather_tensor's flat route
+# --------------------------------------------------------------------------- #
+def test_flat_gather_with_a_map_matches_the_oracle():
+    # ref.gather_rows with the node -> row map reads table[loc[idx]].
+    rng = np.random.default_rng(4)
+    table = torch.from_numpy(rng.standard_normal((50, 12)).astype(np.float32))
+    loc = torch.from_numpy(rng.permutation(50)[:30].astype(np.int32))
+    idx = torch.from_numpy(rng.integers(0, 30, size=200).astype(np.int32))
+    got = ops.gather_rows(table, idx, loc)
+    np.testing.assert_array_equal(got.numpy(), table.numpy()[loc.numpy()[idx.numpy()]])
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jref.gather_rows(table.numpy(), loc.numpy()[idx.numpy()]))
+    )
+
+
+def test_cuda_wrapper_refuses_a_cpu_map():
+    from repro_torch.kernels.gather_rows import gather_rows_cuda
+
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        gather_rows_cuda(torch.zeros((4, 3)), torch.zeros(2, dtype=torch.int32),
+                         torch.zeros(4, dtype=torch.int32))
+
+
+def _flat_requests(N, id_base):
+    rng = np.random.default_rng(11)
+    dup = rng.integers(0, N, size=400)  # ~7 repeats a node at N = 60
+    return {
+        "duplicates": dup + id_base,
+        "one": np.array([N - 1]) + id_base,
+        "empty": np.array([], dtype=np.int64),
+        "every": rng.permutation(N) + id_base,
+    }
+
+
+@pytest.mark.parametrize("kind", ["kernel", "torch"])
+@pytest.mark.parametrize("request_name", ["duplicates", "one", "empty", "every"])
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("id_base", [0, 1000])
+def test_gather_tensor_is_one_flat_gather(kind, request_name, dtype, id_base):
+    feats, part_of, K, _ = _data(seed=13)
+    ref = JStore(feats, part_of, K, backend="numpy", id_base=id_base)
+    store = FeatureStore(feats, part_of, K, id_base=id_base, device="cpu", **STORES[kind])
+    ids = _flat_requests(len(feats), id_base)[request_name].astype(dtype)
+    session = tel.TelemetrySession()
+    with tel.active(session):
+        got = store.gather_tensor(ids, "cpu")
+    assert got.dtype == torch.float32 and got.shape == (len(ids), feats.shape[1])
+    np.testing.assert_array_equal(got.numpy(), feats[ids.astype(np.int64) - id_base])
+    np.testing.assert_array_equal(got.numpy(), ref.gather(ids))
+    reg = session.registry
+    calls = lambda name: reg[name].total if name in reg else 0  # noqa: E731
+    launched = int(len(ids) > 0)
+    assert calls("kernel.gather_rows.calls") == launched
+    assert calls("kernel.gather_rows_batch.calls") == 0
+    assert store.flat_gathers == calls("store.flat_gathers") == launched
+    assert store.kernel_gathers == 0
+    assert calls("store.flat_rows") == len(ids)
+    assert calls("device.h2d_bytes.store.ids") == 4 * len(ids)
+    assert calls("device.h2d_bytes.store.index") == 0  # no per-home index
+
+
+@pytest.mark.parametrize("id_base", [0, 1000])
+@pytest.mark.parametrize("bad", ["below", "above"])
+def test_gather_tensor_checks_the_range_before_any_gather(id_base, bad):
+    feats, part_of, K, _ = _data(seed=2)
+    store = FeatureStore(feats, part_of, K, id_base=id_base, use_kernel=True, device="cpu")
+    wrong = id_base - 1 if bad == "below" else id_base + len(feats)
+    session = tel.TelemetrySession()
+    with tel.active(session), pytest.raises(IndexError, match="out of range"):
+        store.gather_tensor(np.array([id_base, wrong, id_base + 1]), "cpu")
+    assert "kernel.gather_rows.calls" not in session.registry
+    assert "device.h2d_bytes.store.ids" not in session.registry
+    assert store.flat_gathers == 0 and store._dev_view == {}
+
+
+def test_gather_batch_keeps_the_per_home_route():
+    # The miss pull stays bucketed by home: one gather_rows_batch launch,
+    # counted by kernel_gathers; gather_tensor beside it adds a flat one.
+    feats, part_of, K, _ = _data(seed=17)
+    ref = JStore(feats, part_of, K, backend="numpy")
+    store = FeatureStore(feats, part_of, K, use_kernel=True, device="cpu")
+    lists = [np.array([5, 1, 5]), np.array([40, 2, 59, 0])]
+    session = tel.TelemetrySession()
+    with tel.active(session):
+        got = store.gather_batch(lists, device=True)
+        rows = store.gather_tensor(np.concatenate(lists), "cpu")
+    reg = session.registry
+    assert reg["kernel.gather_rows_batch.calls"].total == 1 == store.kernel_gathers
+    assert reg["kernel.gather_rows.calls"].total == 1 == store.flat_gathers
+    assert reg["device.h2d_bytes.store.index"].total > 0
+    for a, b in zip(got.blocks, ref.gather_batch(lists).blocks):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(rows.numpy(), got.device_block.numpy())
+
+
+def test_training_through_the_flat_route_matches_the_numpy_store():
+    # Same rows, same bits: a trainer on the kernel store (flat route for
+    # the training rows) gives the numpy store's losses and accuracy
+    # exactly, with one flat gather per PE and step plus the accuracy pass.
+    from repro_torch.gnn import DistributedTrainer
+    from repro_torch.graph import generate, partition_graph
+
+    parts = partition_graph(generate("products", seed=0, scale=0.05), 4)
+    kw = dict(variant="fixed", epochs=1, batch_size=16, fanouts=(3, 5), train_model=True,
+              buffer_frac=0.25, device="cpu", seed=3)
+    runs = {}
+    for kind in ("numpy", "kernel"):
+        store = FeatureStore.for_partitions(parts, device="cpu", **STORES[kind])
+        torch.manual_seed(0)
+        tr = DistributedTrainer(parts, feature_store=store, **kw)
+        runs[kind] = (store, tr.run())
+    (np_store, want), (k_store, got) = runs["numpy"], runs["kernel"]
+    assert got.losses == want.losses and got.accuracy == want.accuracy
+    assert np_store.flat_gathers == 0
+    assert k_store.flat_gathers == 4 * len(got.losses) + 1 > 1

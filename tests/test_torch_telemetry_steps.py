@@ -194,7 +194,8 @@ def test_copies_by_site_sum_to_the_totals(traced):
     sites |= {n.split(".", 2)[2] for n in reg.names() if n.startswith("device.d2h_bytes.")}
     assert {"engine.frontier", "engine.packed", "engine.state"} <= sites
     if store:
-        assert {"engine.hit_rows", "engine.hit_index", "store.index", "store.rows"} <= sites
+        assert {"engine.hit_rows", "engine.hit_index", "store.index", "store.rows",
+                "store.ids"} <= sites
     else:
         assert {"train.ids", "train.seeds"} <= sites
     # The engine's audit keeps its own counts; telemetry adds sites to it.

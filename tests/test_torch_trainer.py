@@ -179,8 +179,9 @@ def test_feature_store_runs_match_reference(parts, variant, batch, use_kernel):
     """Store-enabled runs on the raw loop (batch 16: the in-launch payload
     scatter) and the ragged loop (batch 72: ``place_rows_batch``). The
     reference's store gathers on the host; the port's goes through its
-    ``gather_rows_batch`` route where ``use_kernel`` is set — the rows
-    are the same either way."""
+    ``gather_rows_batch`` route where ``use_kernel`` is set (the training
+    rows through ``gather_rows`` on the flat table) — the rows are the
+    same either way."""
     ref_parts, port_parts = parts
     store = JStore.for_partitions(ref_parts, backend="numpy")
     port_store = FeatureStore.for_partitions(port_parts, device="cpu", use_kernel=use_kernel)
@@ -191,6 +192,10 @@ def test_feature_store_runs_match_reference(parts, variant, batch, use_kernel):
     assert run.total_bytes_measured == run.total_bytes_modeled > 0
     assert all(np.isfinite(log.fetch_seconds).all() for log in run.logs)
     assert (port_store.kernel_gathers > 0) == use_kernel
+    # The training rows take the flat route: one gather a PE and step, and
+    # one for the accuracy pass.
+    steps = len(run.losses)
+    assert port_store.flat_gathers == (4 * steps + 1 if use_kernel else 0)
 
 
 def test_feature_store_true_builds_a_store_on_the_trainer_device(parts):
