@@ -17,6 +17,11 @@ worst (``*_gap_worst``). Leaves whose reference gradient is under a
 thousandth of the median leaf's are left out. Over the next call's first
 steps, after the reference has trained through the whole warm-up call:
 the largest relative gap of a step's loss (``loss_gap_next``).
+
+Where the cell's decider gives margins (its rules module has
+``numbers``): ``decision_ties``, how many answers the reference took
+from the program because their margin lay within ``agent_margin_gap``
+of a tie, and the decider's own numbers, such as ``agent_margin_gap``.
 """
 
 from __future__ import annotations

@@ -34,6 +34,14 @@ from .profile import WINDOW, Profile, analyse, read_events
 #: of the warm-up call, and as many of the window's first call.
 TRAIN_STEPS = 3
 
+#: The program's per-step streams the check compares, kept from its trace
+#: hook; a decider's module may name more (``STREAMS``).
+STREAMS = ("seeds", "remote", "missed", "placed", "hits", "replaced", "total_comm",
+           "decisions", "feat_sums")
+
+#: Keys of a configuration's ``agent`` that document it and set nothing.
+AGENT_DOCS = ("source", "reduced", "assumed")
+
 #: Host stages the traced call labels (for the idle gaps), by the
 #: program's attribute that runs them.
 STAGES = (
@@ -88,21 +96,19 @@ def _recorder_class():
     from repro_torch.trace import TraceRecorder
 
     class StreamCapture(TraceRecorder):
-        """The program's trace hook, keeping the raw streams of the first
-        ``limit`` steps (all with ``None``)."""
+        """The program's trace hook, keeping the raw streams ``keep`` of
+        the first ``limit`` steps (all with ``None``)."""
 
-        def __init__(self, num_pes, sink, limit):
+        def __init__(self, num_pes, sink, limit, keep):
             super().__init__(num_pes=num_pes)
-            self.sink, self.limit = sink, limit
+            self.sink, self.limit, self.keep = sink, limit, keep
 
         def record_step(self, **kw):
             if self.limit is not None and len(self.sink) >= self.limit:
                 return
-            keep = ("seeds", "remote", "missed", "placed", "hits", "replaced",
-                    "total_comm", "decisions", "feat_sums")
             self.sink.append({
                 k: ([np.array(x) for x in kw[k]] if isinstance(kw[k], list) else np.array(kw[k]))
-                for k in keep if kw.get(k) is not None
+                for k in self.keep if kw.get(k) is not None
             })
 
         def finalize(self, epoch_times, events=None):
@@ -113,6 +119,32 @@ def _recorder_class():
 
 def _params_host(model) -> list:
     return [p.detach().to("cpu", torch.float64).numpy().copy() for p in model.parameters()]
+
+
+def agent_spec(cell: Cell, seed: int) -> dict | None:
+    """The decider's settings where the configuration has an ``agent``:
+    its name, the run's seed and the ``agent`` object; else None."""
+    agent = cell.config.get("agent")
+    if agent is None or not cell.traffic.get("decider"):
+        return None
+    return {"name": cell.traffic["decider"], "seed": int(seed), **agent}
+
+
+def deciders(cell: Cell, seed: int, num_pes: int):
+    """The trainer's ``deciders``: the bare name where the configuration
+    has no ``agent``; else one of the program's agents a PE, all on one
+    backend built from the settings (``make_backend(name, **settings)``,
+    the documenting keys left out)."""
+    name = cell.traffic.get("decider")
+    spec = agent_spec(cell, seed)
+    if spec is None:
+        return [name] if name else None
+    from repro_torch.core.agent import LLMAgent
+    from repro_torch.core.backends import make_backend
+
+    settings = {k: v for k, v in spec.items() if k != "name" and k not in AGENT_DOCS}
+    backend = make_backend(name, **settings)
+    return [LLMAgent(backend, None) for _ in range(num_pes)]
 
 
 def build(cell: Cell, graph_arrays, init, seed: int, device):
@@ -148,7 +180,7 @@ def build(cell: Cell, graph_arrays, init, seed: int, device):
     trainer = DistributedTrainer(
         parts,
         variant=tr["variant"],
-        deciders=[tr["decider"]] if tr.get("decider") else None,
+        deciders=deciders(cell, seed, int(cfg["num_pes"])),
         mode=tr["mode"],
         buffer_frac=float(tr["buffer_frac"]),
         batch_size=int(tr["batch_size"]),
@@ -179,8 +211,9 @@ class Capture:
     the parameters after 0, 1 and ``TRAIN_STEPS`` steps, the first step's
     per-PE gradients and the buffer at the call's end."""
 
-    def __init__(self, trainer, steps: int | None = None, full: bool = False):
-        self.trainer, self.limit, self.full = trainer, steps, full
+    def __init__(self, trainer, steps: int | None = None, full: bool = False,
+                 streams: tuple = STREAMS):
+        self.trainer, self.limit, self.full, self.streams = trainer, steps, full, streams
         self.cap = Captured()
         self._stack = None
 
@@ -227,7 +260,8 @@ class Capture:
             self._stack.enter_context(patched(driver, "train_step", capture_params))
             self._stack.enter_context(patched(type(trainer.model), "loss_and_grads",
                                               capture_grads))
-        trainer.trace = _recorder_class()(trainer.parts.num_parts, cap.steps, limit)
+        trainer.trace = _recorder_class()(trainer.parts.num_parts, cap.steps, limit,
+                                          self.streams)
         return self
 
     def __exit__(self, *exc):
@@ -246,9 +280,9 @@ class Capture:
         return cap
 
 
-def warm_up(trainer) -> Captured:
+def warm_up(trainer, streams: tuple = STREAMS) -> Captured:
     """The first ``run()`` call, with the program's streams captured."""
-    capture = Capture(trainer, full=True)
+    capture = Capture(trainer, full=True, streams=streams)
     with capture:
         result = trainer.run()
     return capture.finish(result)
@@ -383,9 +417,11 @@ def window_calls(trainer, seconds: float, cuda: bool,
     return len(ends), steps, wall
 
 
-def traced_metrics(cell: Cell, readers, session, prof_out, least, steps, P, B) -> dict:
+def traced_metrics(cell: Cell, readers, session, prof_out, least, steps, P, B,
+                   window=(0, 0.0)) -> dict:
     """The cell's per-layer metrics from the traced window's spans and
-    counters and the profiled call; a reader that finds nothing is left
+    counters, the profiled call, and ``window``: the steps and wall
+    seconds of the calls after it; a reader that finds nothing is left
     out."""
     run = dict(
         spans=[(s.name, s.t0, s.t1) for s in session.tracer.spans],
@@ -396,6 +432,7 @@ def traced_metrics(cell: Cell, readers, session, prof_out, least, steps, P, B) -
         },
         steps=steps, seeds=steps * P * B, num_pes=P, batch=B,
         config=cell.config, traffic=cell.traffic, profile=prof_out, least_s=least,
+        window_steps=window[0], window_s=window[1],
     )
     metrics = {}
     for m, reader in zip(cell.per_layer, readers):
@@ -417,10 +454,19 @@ def check_call(cell: Cell, graph, init_host, seed: int, captured: Captured, nxt:
     rs = ref.setup(graph, num_pes, float(tr["buffer_frac"]), batch)
     per_call = int(tr["epochs_per_call"]) * rs.mb_per_epoch
     n_steps = [per_call, min(TRAIN_STEPS, per_call)]
+    rules = cell.decider
+    margins = hasattr(rules, "numbers")
     (ref_steps, ref_next), ref_bufs = ref.run_calls(
         graph, rs, seed, tr, batch, n_steps, store, min(512, len(graph.train_nodes)),
+        agent=agent_spec(cell, seed), program=[captured.steps, nxt.steps],
+        tie=float(cell.limits["agent_margin_gap"]) if margins else None,
     )
     numbers = check.exact_numbers(captured, nxt, rs, ref_steps, ref_next, ref_bufs, store)
+    if margins:
+        calls = (ref_steps, ref_next)
+        numbers["decision_ties"] = int(sum(st.ties.sum() for c in calls for st in c))
+        numbers.update(rules.numbers([captured.steps, nxt.steps],
+                                     [[st.margins for st in c] for c in calls]))
     feats = torch.from_numpy(graph.features).to(device)
     labels = torch.from_numpy(graph.labels.astype(np.int64)).to(device)
     init_dev = [w.to(device) for w in init_host]
@@ -482,7 +528,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device="cuda",
     trainer = build(cell, graph, init, seed, device)
     del init
     t_build = time.perf_counter() - t_setup - t_gen
-    captured = warm_up(trainer)
+    streams = STREAMS + tuple(getattr(cell.decider, "STREAMS", ()))
+    captured = warm_up(trainer, streams)
     if cuda:
         torch.cuda.synchronize()
     setup_s = time.perf_counter() - t_setup
@@ -494,7 +541,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device="cuda",
     metrics, breakdown, steps = {}, None, 0
     device_out = {"platform": "gpu" if cuda else device.type,
                   "kind": torch.cuda.get_device_name(device) if cuda else "cpu", "count": 1}
-    nxt = Capture(trainer, steps=TRAIN_STEPS)
+    nxt = Capture(trainer, steps=TRAIN_STEPS, streams=streams)
     if window and trace:
         from repro_torch.telemetry import TelemetrySession
 
@@ -502,9 +549,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device="cuda",
         session = TelemetrySession(label=cell.name, profile_kernels=False)
         trainer.telemetry = session
         result, prof_out, least = profiled_call(trainer, readers, cuda, nxt)
-        steps = steps_of(result) + window_calls(trainer, seconds, cuda)[1]
+        _, w_steps, w_wall = window_calls(trainer, seconds, cuda)
+        steps = steps_of(result) + w_steps
         trainer.telemetry = False
-        metrics = traced_metrics(cell, readers, session, prof_out, least, steps, P, B)
+        metrics = traced_metrics(cell, readers, session, prof_out, least, steps, P, B,
+                                 (w_steps, w_wall))
         device_out.update(busy_s=prof_out.busy_s, window_s=prof_out.window_s)
         breakdown = {"device_ops": prof_out.top_ops, "idle_gaps": prof_out.idle_by_host}
     elif window:

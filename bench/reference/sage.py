@@ -14,8 +14,9 @@ trainer PE (processing element):
   replacement and a self loop for isolated nodes;
 * the replacement decisions, from each step's buffer metrics (hit
   share, misses, occupancy, the last round's churn, progress) by the
-  traffic variant's rules in ``decisions/<variant>.py``; an empty buffer
-  is always filled;
+  traffic variant's rules in ``decisions/<variant>.py`` (an agent's, by
+  its decider's in ``deciders/<decider>.py``); an empty buffer is always
+  filled;
 * the buffer: a lookup marks hits as accessed; a scoring round adds 1
   to accessed scores and multiplies the others by 0.95; a replacement
   round admits the previous step's misses (first occurrence order, not
@@ -173,19 +174,21 @@ class Buffer:
 # --------------------------------------------------------------------- #
 # The decisions
 # --------------------------------------------------------------------- #
-def make_deciders(traffic: dict, num_pes: int):
+def make_deciders(traffic: dict, num_pes: int, agent: dict | None = None, seed: int = 0):
     """Per PE the decider of the traffic's variant, from
     ``bench/reference/decisions/<variant>.py``: an object whose
-    ``tick(t, metrics)`` answers whether step t of a call runs a
-    replacement round, and whose ``new_call()`` starts a call; ``None``
-    where the variant keeps no buffer."""
+    ``tick(t, metrics, program, tie)`` answers ``(replace, margin,
+    followed)`` for step t of a call (see ``decisions/rudder.py``), and
+    whose ``new_call()`` starts a call; ``None`` where the variant keeps
+    no buffer. ``agent`` is the decider's settings (the configuration's
+    ``agent`` with its name and the run's seed), or None."""
     import importlib.util
 
     path = Path(__file__).resolve().parent / "decisions" / f"{traffic['variant']}.py"
     spec = importlib.util.spec_from_file_location(f"bench_decisions_{path.stem}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.make(traffic, num_pes)
+    return mod.make(traffic, num_pes, agent, seed)
 
 
 # --------------------------------------------------------------------- #
@@ -204,6 +207,8 @@ class Step:
     total_comm: np.ndarray  # (P,)
     decisions: np.ndarray   # (P,) bool
     feat_sums: np.ndarray | None = None
+    margins: np.ndarray | None = None  # (P,) the answers' margins, NaN where none
+    ties: np.ndarray | None = None     # (P,) bool: the program's decision followed
 
 
 @dataclass
@@ -224,18 +229,21 @@ def setup(graph, num_parts: int, buffer_frac: float, batch: int) -> Setup:
 
 
 def run_calls(graph, s: Setup, seed: int, traffic: dict, batch: int, steps: list,
-              store: bool, acc_nodes: int):
+              store: bool, acc_nodes: int, *, agent: dict | None = None,
+              program: list | None = None, tie: float | None = None):
     """The first ``steps[c]`` steps of each call ``c`` in turn on one
     fresh trainer of ``traffic`` (``epochs_per_call`` epochs a call):
     returns ``(steps, buffers)``, ``steps[c]`` the :class:`Step` s of
     call ``c`` and ``buffers`` each PE's buffer at the end of the first
     call. ``acc_nodes`` is the number of seeds of the accuracy pass that
-    ends each call."""
+    ends each call. ``agent`` is handed to the deciders; ``program[c]``,
+    the program's per-step streams of call ``c``, gives the decision an
+    agent takes at a tie (an answer whose margin is within ``tie``)."""
     P = len(s.train)
     fanouts = tuple(int(f) for f in traffic["fanouts"])
     rng = np.random.default_rng(seed)
     bufs = [Buffer(int(c), len(graph.indptr) - 1) for c in s.capacity]
-    deciders = make_deciders(traffic, P)
+    deciders = make_deciders(traffic, P, agent, seed)
     total = int(traffic["epochs_per_call"]) * s.mb_per_epoch
     out, first_bufs = [], None
     for c, n_steps in enumerate(steps):
@@ -247,14 +255,22 @@ def run_calls(graph, s: Setup, seed: int, traffic: dict, batch: int, steps: list
                 m *= f
         for d in deciders or ():
             d.new_call()
+        prog = program[c] if program is not None and c < len(program) else []
         out.append(_call_steps(graph, s, rng, bufs, fanouts, batch, deciders, total,
-                               n_steps, store))
+                               n_steps, store, prog, tie))
         if c == 0:
             first_bufs = [b.copy() for b in bufs]
     return out, first_bufs
 
 
-def _call_steps(graph, s, rng, bufs, fanouts, batch, deciders, total, steps, store):
+def _program_decision(prog, t: int, p: int):
+    if t < len(prog) and "decisions" in prog[t] and p < len(prog[t]["decisions"]):
+        return bool(prog[t]["decisions"][p])
+    return None
+
+
+def _call_steps(graph, s, rng, bufs, fanouts, batch, deciders, total, steps, store,
+                prog=(), tie=None):
     P = len(s.train)
     prev_missed = [np.zeros(0, dtype=np.int64) for _ in range(P)]
     last_replaced = None
@@ -266,6 +282,8 @@ def _call_steps(graph, s, rng, bufs, fanouts, batch, deciders, total, steps, sto
         remote, hits, missed, placed = [], np.zeros(P, np.int64), [], []
         replaced = np.zeros(P, np.int64)
         decisions = np.zeros(P, dtype=bool)
+        margins = np.full(P, np.nan)
+        ties = np.zeros(P, dtype=bool)
         sums = np.zeros(P, dtype=np.float64) if store else None
         for p in range(P):
             u = np.unique(touched[p])
@@ -289,8 +307,14 @@ def _call_steps(graph, s, rng, bufs, fanouts, batch, deciders, total, steps, sto
                     else float(100.0 * last_replaced[p] / max(cap, 1.0)),
                     capacity=cap,
                     progress=t / total,
+                    minibatch=mb,
+                    epoch=epoch,
                 )
-                decisions[p] = deciders[p].tick(t, metrics) or occupancy == 0.0
+                replace, margin, ties[p] = deciders[p].tick(
+                    t, metrics, _program_decision(prog, t, p), tie)
+                if margin is not None:
+                    margins[p] = margin
+                decisions[p] = replace or occupancy == 0.0
                 bufs[p].score_round()
                 if decisions[p]:
                     got = bufs[p].replace(prev_missed[p])
@@ -302,7 +326,7 @@ def _call_steps(graph, s, rng, bufs, fanouts, batch, deciders, total, steps, sto
         last_replaced = replaced
         total_comm = np.array([len(m) for m in missed], dtype=np.int64) + replaced
         out.append(Step(seeds, layers, touched, remote, hits, missed, placed,
-                        replaced, total_comm, decisions, sums))
+                        replaced, total_comm, decisions, sums, margins, ties))
     return out
 
 

@@ -30,6 +30,12 @@ sys.path.insert(1, str(ROOT / "src"))
 for var, sub in (("TORCH_EXTENSIONS_DIR", "torch_extensions"), ("TRITON_CACHE_DIR", "triton")):
     os.environ.setdefault(var, str(BENCH / "_cache" / sub))
 
+#: One thread in every library's pool. The host paces the loop from one
+#: process on cores it may share; a parallel region on the host waits for
+#: its slowest thread, so a run's speed would follow the other load.
+for var in ("OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS"):
+    os.environ[var] = "1"
+
 from benchlib import cells, imports  # noqa: E402
 
 

@@ -29,6 +29,9 @@ def test_names_and_units():
     for m in SPEC["end_to_end"]:
         assert 0.01 <= m["bound"] <= 0.25 and m["source"] in ("host_clock", "device_trace")
     assert "setup_s" in {m["name"] for m in SPEC["end_to_end"]}
+    cell_names = {w["name"] for w in SPEC["workloads"]}
+    for m in SPEC["end_to_end"] + SPEC["per_layer"]:
+        assert set(m.get("workloads", ())) <= cell_names, m["name"]
 
 
 @pytest.mark.parametrize("w", SPEC["workloads"], ids=lambda w: w["name"])
@@ -39,8 +42,13 @@ def test_cell_found_by_name(w):
             "epochs_per_call"} <= set(cell.traffic)
     assert cell.limits and all(v >= 0 for v in cell.limits.values())
     assert (BENCH / "reference" / "decisions" / f"{cell.traffic['variant']}.py").is_file()
-    assert any(m["name"] == "seeds_per_s" for m in cell.end_to_end)
-    assert cell.per_layer
+    if cell.traffic["variant"] == "rudder":
+        assert (BENCH / "reference" / "deciders" / f"{cell.traffic['decider']}.py").is_file()
+    # Every cell reports setup_s and another end-to-end metric, and each of
+    # its per-layer metrics moves one that it reports.
+    e2e = {m["name"] for m in cell.end_to_end}
+    assert "setup_s" in e2e and len(e2e) >= 2
+    assert cell.per_layer and all(m["moves"] in e2e for m in cell.per_layer)
     assert w["chips"] == 1
 
 
@@ -56,6 +64,11 @@ def test_config_file(c):
     for num, den in (("num_edges", "num_nodes"), ("train_nodes", "num_nodes")):
         assert abs(cfg[num] / cfg[den] / (pub[num] / pub[den]) - 1) < 1e-4, num
     cells.reference(cfg)
+    tiny = cfg["tiny"]
+    assert set(tiny) == {"num_nodes", "batch_size"}
+    assert 0 < tiny["num_nodes"] <= cfg["num_nodes"] and 0 < tiny["batch_size"]
+    if "agent" in cfg:
+        assert {"source", "reduced", "assumed"} <= set(cfg["agent"])
 
 
 @pytest.mark.parametrize("m", SPEC["per_layer"], ids=lambda m: m["name"])

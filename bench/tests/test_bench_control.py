@@ -7,7 +7,7 @@ TF32 runs."""
 
 import pytest
 import torch
-from tiny import SEED, SIZES, tiny
+from tiny import CELLS, SEED, tiny
 
 from benchlib import check
 from benchlib.runner import run_cell
@@ -26,13 +26,13 @@ def control_fails(name, device):
         assert not check.judge(out.controls[fault], limits)[0], fault
 
 
-@pytest.mark.parametrize("name", sorted(SIZES))
+@pytest.mark.parametrize("name", CELLS)
 def test_control_fails_on_the_cpu(name):
     control_fails(name, "cpu")
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", sorted(SIZES))
+@pytest.mark.parametrize("name", CELLS)
 def test_control_fails_on_the_card(name):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")

@@ -90,8 +90,19 @@ def make_skipping_agent(original):
     return generate
 
 
+def make_skipped_round(original):
+    def step(self, metrics_list):
+        """PE 0 skips the replacement round of a call's third step."""
+        decisions, stalls = original(self, metrics_list)
+        if self._now == 3:
+            decisions = decisions.copy()
+            decisions[0] = False
+        return decisions, stalls
+    return step
+
+
 def faults():
-    from repro_torch.core import backends
+    from repro_torch.core import backends, controller
     from repro_torch.gnn import sage
     from repro_torch.gnn import train
     from repro_torch.graph import sampler
@@ -111,6 +122,8 @@ def faults():
         "rng_reset": (train.DistributedTrainer, "run", make_rng_reset, "sample_mismatch"),
         "skipping_agent": (backends.ICLSurrogateBackend, "generate", make_skipping_agent,
                            "decision_mismatch"),
+        "skipped_round": (controller.DecisionPlane, "step", make_skipped_round,
+                          "decision_mismatch"),
     }
 
 
@@ -119,6 +132,7 @@ CASES = [("products-rudder", f) for f in ("unchanged", "half_batch", "no_exchang
 CASES += [("papers-store-rudder", "altered_rows"), ("products-distdgl", "no_exchange"),
           ("products-rudder", "buffer_lost"), ("products-rudder", "rng_reset"),
           ("products-rudder", "skipping_agent")]
+CASES += [("products-fixed", f) for f in ("half_batch", "altered_sample", "skipped_round")]
 
 
 @pytest.mark.parametrize("cell,fault", CASES)

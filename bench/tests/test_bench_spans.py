@@ -58,14 +58,35 @@ def test_copied_bytes_per_seed():
     assert read("copied_bytes_per_seed", {"counters": counters, "seeds": 0}) is None
 
 
+def test_a_split_metric_reads_with_its_base():
+    """``<base>.<part>`` without a file of its own reads as ``<base>``;
+    ``mfu.sage`` keeps its own file."""
+    run = {"spans": spans("fetch.pack", [0.1, 0.3]), "steps": 2}
+    assert read("fetch_host_ms.store", run) == read("fetch_host_ms", run) == pytest.approx(200.0)
+    assert cells.metric_reader("mfu.sage").__name__ == "bench_metric_mfu_sage"
+
+
+def test_the_store_cells_rate_needs_its_window():
+    run = {"window_steps": 0, "window_s": 0.0, "num_pes": 4, "batch": 2000}
+    assert read("seeds_per_s.store", run) is None
+    run.update(window_steps=24, window_s=4.0)
+    assert read("seeds_per_s.store", run) == 48000.0
+
+
 def test_the_new_metrics_are_the_cells_own():
-    """Every cell reads the new metrics, the store's gather on papers only."""
+    """Every cell that reports ``seeds_per_s`` reads the new metrics; the
+    store's cell, which does not, reads its phases split off
+    (``<metric>.store``) and the store's gather, which no other cell reads."""
     new = ("sample_draw_ms", "sample_expand_ms", "fetch_host_ms", "readback_wait_ms",
            "train_features_ms", "train_wait_ms", "call_ms", "copied_bytes_per_seed")
-    for name in ("products-rudder", "products-distdgl", "papers-store-rudder"):
+    store = ("seeds_per_s.store", "sample_ms.store", "fetch_host_ms.store", "train_ms.store",
+             "store_serve_ms", "store_gather_ms")
+    for name in ("products-rudder", "products-distdgl", "products-fixed", "papers-store-rudder"):
         metrics = {m["name"] for m in cells.find_cell(name).per_layer}
-        assert set(new) <= metrics
-        assert ("store_gather_ms" in metrics) == (name == "papers-store-rudder")
+        if name == "papers-store-rudder":
+            assert metrics == set(store)
+        else:
+            assert set(new) <= metrics and not metrics & set(store)
 
 
 @pytest.mark.parametrize("name", ["products-rudder", "papers-store-rudder"])
@@ -79,13 +100,18 @@ def test_a_traced_window_reads_the_phase_metrics(name):
 
     out = run_cell(tiny(name), SEED + 3, 0.5, True, device="cpu")
     assert out.correct
+    m = {k: v["value"] for k, v in out.metrics.items()}
+    if name == "papers-store-rudder":
+        # The store's cell reads its phases split off: the same readers.
+        for metric in ("sample_ms", "fetch_host_ms", "train_ms", "seeds_per_s"):
+            assert m[f"{metric}.store"] > 0, metric
+        assert m["store_gather_ms"] > 0 and m["store_serve_ms"] > 0
+        assert set(m) == {m_["name"] for m_ in cells.find_cell(name).per_layer}
+        return
     new = ["sample_draw_ms", "sample_expand_ms", "fetch_host_ms", "readback_wait_ms",
            "train_features_ms", "train_wait_ms", "call_ms", "copied_bytes_per_seed"]
-    if name == "papers-store-rudder":
-        new.append("store_gather_ms")
     for metric in new:
-        assert out.metrics[metric]["value"] > 0, metric
-    m = {k: v["value"] for k, v in out.metrics.items()}
+        assert m[metric] > 0, metric
     assert m["sample_draw_ms"] + m["sample_expand_ms"] <= m["sample_ms"]
     assert m["readback_wait_ms"] <= m["readback_ms"]
     assert m["train_features_ms"] + m["train_wait_ms"] <= m["train_ms"]

@@ -13,23 +13,28 @@ for p in (str(BENCH.parent / "src"), str(BENCH)):
 
 from benchlib import cells  # noqa: E402
 
-#: Per cell: the graph's nodes (papers needs more for its 1% train split
-#: to give every PE a full batch) and the batch. Edges and train nodes
-#: are cut in proportion to the nodes, so the average degree stays.
-SIZES = {"products-rudder": (12_000, 64), "products-distdgl": (12_000, 64),
-         "papers-store-rudder": (110_000, 64)}
+#: Every cell of BENCHMARK.json, each tested at its configuration's
+#: ``tiny`` sizes.
+CELLS = [w["name"] for w in cells.benchmark()["workloads"]]
 SEED = 2**31 + 77
 
 
-def tiny(name: str) -> cells.Cell:
-    cell = cells.find_cell(name)
+def cut(cell: cells.Cell) -> cells.Cell:
+    """``cell`` at its configuration's ``tiny`` sizes: the graph's nodes
+    (papers needs more for its 1% train split to give every PE a full
+    batch) and the batch. Edges and train nodes are cut in proportion to
+    the nodes, so the average degree stays."""
     cell.config = copy.deepcopy(cell.config)
     cell.traffic = dict(cell.traffic)
-    nodes, batch = SIZES[name]
     cfg = cell.config
+    nodes, batch = int(cfg["tiny"]["num_nodes"]), int(cfg["tiny"]["batch_size"])
     share = nodes / cfg["num_nodes"]
     cfg["num_edges"] = round(cfg["num_edges"] * share)
     cfg["train_nodes"] = round(cfg["train_nodes"] * share)
     cfg["num_nodes"] = nodes
     cell.traffic["batch_size"] = batch
     return cell
+
+
+def tiny(name: str) -> cells.Cell:
+    return cut(cells.find_cell(name))
